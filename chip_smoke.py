@@ -8,28 +8,45 @@ NVIDIA GPU.
 Run from the root of a checkout. Phases:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build the CUDA kernels from ``cotengra_tpu_torch/csrc`` (nvcc,
-   sm_90a) and print the build seconds;
+2. build the CUDA kernels from ``cotengra_tpu_torch/csrc`` (one nvcc
+   per source, sm_90a, started together) and print the build seconds;
 3. the gate-chain kernel against its plain PyTorch version on every
    chain of the Sycamore-53 m=10 t27 plan at full size, float32 inputs
    from a fixed numpy seed: max|kernel - plain| <= 1e-5 * max|plain|,
    with both times from CUDA events;
-4. the main path: the Sycamore-53 m=10 amplitude over all 4 slices of
+4. the Sycamore-53 m=10 amplitude over all 4 slices of
    ``plans/sycamore53_m10_t27.json`` in float32 planes, held to the
    complex128 reference amplitude at relerr <= 1e-5, with the chain
    kernel's launch count and the warm time-to-amplitude;
 5. the same for the unsliced ``plans/sycamore53_m10_t29.json`` (no
    chains: the pair and fallback steps only);
-6. one JSON line of kernel results, then the last line
+6. the matmul+|max| kernel against its plain version on every distinct
+   (B, M, K, N) of the kernel steps of the 7x7 bond-16 lattice plan
+   (``plans/lattice7x7_d16_s16.json``), at full size, float32 uniform
+   inputs from a fixed numpy seed: max|out - plain| <= 1e-5 max|plain|,
+   |absmax - plain| <= 1e-5 plain, absmax == max|out| exactly, with
+   both times from CUDA events;
+7. the lattice main path: its value over all 16 slices in float32 with
+   ``strip_exponent=True, implementation="pallas"``, held to the float64
+   reference stored in the plan file at |delta log10| <= 1e-4, with the kernel's launch count
+   (the qualifying steps x 16), the unstripped float32 overflow, the
+   warm time-to-value and the peak device memory;
+8. the m10-t27 amplitude once more with ``strip_exponent=True`` (the
+   grouped split-complex strip), mantissa x 10^exponent held to the
+   same reference at relerr <= 1e-5;
+9. one JSON line of kernel results, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Any failed phase raises, and the script exits non-zero without the last
-line. It needs a CUDA device and never falls back to the CPU.
+Each main path (4, 5, 7, 8) is driven with every kernel's launch count
+set to 0 just before it and read just after. Any failed phase raises,
+and the script exits non-zero without the last line. It needs a CUDA
+device and never falls back to the CPU.
 
 ``--profile`` instead runs ``torch.profiler`` over one warm pass of each
-main path and prints the median wall time of 5 unprofiled passes, the device's
-busy time and idle share, and every device kernel's time grouped by
-class (the breakdown in ``PERF.md`` section 5).
+main path (m10-t27, m10-t29, the lattice) and prints the median wall
+time of 5 unprofiled passes, the device's busy time and idle share, and
+every device kernel's time grouped by class (the breakdown in
+``PERF.md`` section 5).
 """
 
 import json
@@ -44,6 +61,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 CHAIN_RTOL = 1e-5   # float32 sums in another order: a few ulps per gate
 AMP_RTOL = 1e-5     # float32 planes at full fp32 matmul precision
+BMM_RTOL = 1e-5     # float32 sums over K in another order
+# float32 exponents summed over 48 steps x 16 slices: a wrong kernel or
+# layout misses this by orders of magnitude
+LOG10_ATOL = 1e-4
+LATTICE = "lattice7x7_d16_s16"
 SEED = 1234
 PROFILE_WALL_PASSES = 5
 
@@ -70,6 +92,74 @@ def _load_instance(plan_name):
     with open(ROOT / "plans" / f"{plan_name}.refamp.json") as f:
         refs = {int(k): complex(*v) for k, v in json.load(f)["amps"].items()}
     return tree, arrays, refs
+
+
+def _kernel_counters():
+    """Every kernel wrapper of the port, by the name the JSON line uses."""
+    from cotengra_tpu_torch.ops.bmm_absmax import bmm_absmax_cuda
+    from cotengra_tpu_torch.ops.gate_chains import run_chain_cuda
+
+    return {"gate_chain": run_chain_cuda, "bmm_absmax": bmm_absmax_cuda}
+
+
+def _reset_launches():
+    for wrapper in _kernel_counters().values():
+        wrapper.launches = 0
+
+
+def _read_launches():
+    return {k: w.launches for k, w in _kernel_counters().items()}
+
+
+def _load_lattice():
+    """The 7x7 bond-16 lattice, its plan, float32 arrays rebuilt from the
+    recipe stored with the plan, and the plan's float64 reference."""
+    from cotengra_tpu import lattice_equation
+    from cotengra_tpu.utils.io import load_tree
+
+    plan = ROOT / "plans" / f"{LATTICE}.json"
+    with open(plan) as f:
+        ref = json.load(f)["reference"]
+    inst = ref["instance"]
+    inputs, output, shapes, size_dict = lattice_equation(
+        inst["dims"], d_min=inst["d_min"]
+    )
+    tree = load_tree(str(plan), inputs, output, size_dict)
+    rng = np.random.default_rng(inst["seed"])
+    arrays = [rng.uniform(size=s).astype(np.float32) for s in shapes]
+    return tree, arrays, ref
+
+
+def _lattice_kernel_shapes(tree):
+    """{(B, M, K, N): steps per slice} of the plan's kernel steps, by the
+    executor's routing rule on float32 tensors of the steps' shapes."""
+    from cotengra_tpu.utils.misc import prod
+
+    from cotengra_tpu_torch.ops.bmm_absmax import _bmm_layout
+    from cotengra_tpu_torch.ops.executor import _pallas_step_ok
+    from cotengra_tpu_torch.ops.lowering import (
+        PairStep,
+        extract_contractions,
+    )
+
+    sizes = tree.size_dict
+    shapes = {}
+    for step in extract_contractions(tree).steps:
+        if not isinstance(step, PairStep):
+            continue
+        x = torch.empty([sizes[ix] for ix in step.l_legs], device="meta")
+        y = torch.empty([sizes[ix] for ix in step.r_legs], device="meta")
+        if not _pallas_step_ok(x, y, step):
+            continue
+        batch, contract, l_free, r_free = _bmm_layout(
+            step.l_legs, step.r_legs, step.out_legs
+        )
+        key = tuple(
+            prod(sizes[ix] for ix in legs)
+            for legs in (batch, l_free, contract, r_free)
+        )
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
 
 
 def _chain_recs(tree):
@@ -179,7 +269,6 @@ def phase_chains(dev):
 def phase_main_path(plan_name, n_ref, dev, passes=3):
     """contract_tree over all slices, checked against the sidecar."""
     import cotengra_tpu_torch as ctt
-    from cotengra_tpu_torch.ops.gate_chains import run_chain_cuda
 
     tree, arrays, refs = _load_instance(plan_name)
     if tree.multiplicity != n_ref or n_ref not in refs:
@@ -190,18 +279,18 @@ def phase_main_path(plan_name, n_ref, dev, passes=3):
     expect = sum(len(rec.ys) for rec in _chain_recs(tree)) * n_ref
     torch.cuda.reset_peak_memory_stats()
 
-    run_chain_cuda.launches = 0
+    _reset_launches()
     amp = ctt.contract_tree(tree, arrays, device=dev)
     torch.cuda.synchronize()
-    launches = run_chain_cuda.launches
+    counts = _read_launches()
+    launches = counts["gate_chain"]
 
     amp0 = complex(amp.cpu().item())
     ref = refs[n_ref]
     relerr = abs(amp0 - ref) / abs(ref)
-    if launches != expect:
+    if counts != {"gate_chain": expect, "bmm_absmax": 0}:
         raise AssertionError(
-            f"{plan_name}: {launches} chain-kernel launches, plan has "
-            f"{expect}"
+            f"{plan_name}: launches {counts}, plan has {expect} gates"
         )
     if not relerr <= AMP_RTOL:
         raise AssertionError(
@@ -238,9 +327,160 @@ def phase_main_path(plan_name, n_ref, dev, passes=3):
     return launches
 
 
+def phase_bmm(dev):
+    """Every distinct kernel shape of the lattice plan, kernel vs plain,
+    at full size."""
+    from cotengra_tpu_torch.ops.bmm_absmax import (
+        bmm_absmax_cuda,
+        bmm_absmax_plain,
+    )
+
+    tree, _, _ = _load_lattice()
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for (B, M, K, N), n_steps in sorted(_lattice_kernel_shapes(tree).items()):
+        x = torch.from_numpy(rng.random((B, M, K), dtype=np.float32)).to(dev)
+        y = torch.from_numpy(rng.random((B, K, N), dtype=np.float32)).to(dev)
+        plain, plain_amax = bmm_absmax_plain(x, y)
+        kern, amax = bmm_absmax_cuda(x, y)
+        torch.cuda.synchronize()
+        err = (kern - plain).abs().max().item()
+        scale = plain_amax.item()
+        amax_err = abs(amax.item() - scale)
+        exact = amax.item() == kern.abs().max().item()
+        if not (
+            np.isfinite(err) and err <= BMM_RTOL * scale
+            and amax_err <= BMM_RTOL * scale and exact
+        ):
+            raise AssertionError(
+                f"bmm_absmax {(B, M, K, N)}: max|kernel-plain| {err:.3e}, "
+                f"|absmax-plain| {amax_err:.3e} (max|plain| {scale:.3e}), "
+                f"absmax == max|out|: {exact}"
+            )
+        del plain, kern
+        reps = max(2, min(50, int(2e11 / (2 * B * M * K * N + 1))))
+        bmm_absmax_plain(x, y)
+        plain_ms = _cuda_ms(lambda: bmm_absmax_plain(x, y), reps)
+        bmm_absmax_cuda(x, y)
+        ms = _cuda_ms(lambda: bmm_absmax_cuda(x, y), reps)
+        tflops = 2 * B * M * K * N / ms / 1e9
+        print(
+            f"# bmm_absmax (B,M,K,N) {(B, M, K, N)} x{n_steps}/slice: "
+            f"max_abs_err {err:.3e} (max|plain| {scale:.3e}) absmax_err "
+            f"{amax_err:.3e} absmax==max|out| {exact} kernel {ms:.3f} ms "
+            f"({tflops:.1f} TFLOP/s) plain {plain_ms:.3f} ms",
+            flush=True,
+        )
+        rows.append((err, ms * n_steps, plain_ms * n_steps))
+        del x, y
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_lattice(dev, passes=3):
+    """The lattice main path over all 16 slices, checked against the
+    plan's float64 reference."""
+    import cotengra_tpu_torch as ctt
+
+    tree, arrays, ref = _load_lattice()
+    n_slices = tree.multiplicity
+    if n_slices != ref["slices"]:
+        raise AssertionError(
+            f"{LATTICE}: {n_slices} slices, reference has {ref['slices']}"
+        )
+    expect = sum(_lattice_kernel_shapes(tree).values()) * n_slices
+    torch.cuda.reset_peak_memory_stats()
+
+    _reset_launches()
+    m, e = ctt.contract_tree(
+        tree, arrays, device=dev, strip_exponent=True,
+        implementation="pallas",
+    )
+    torch.cuda.synchronize()
+    counts = _read_launches()
+
+    log10 = float(np.log10(abs(m.item())) + e.item())
+    d_log10 = abs(log10 - ref["log10"])
+    if counts != {"gate_chain": 0, "bmm_absmax": expect}:
+        raise AssertionError(
+            f"{LATTICE}: launches {counts}, plan has {expect} kernel steps"
+        )
+    if not (np.isfinite(log10) and d_log10 <= LOG10_ATOL):
+        raise AssertionError(
+            f"{LATTICE}: log10 {log10!r} vs reference {ref['log10']!r}: "
+            f"|delta| {d_log10:.3e} > {LOG10_ATOL}"
+        )
+
+    # unstripped, float32 cannot hold the value
+    plain = ctt.contract_tree(
+        tree, arrays, device=dev, implementation="pallas"
+    ).item()
+    if np.isfinite(plain) and abs(plain) <= np.finfo(np.float32).max:
+        raise AssertionError(f"{LATTICE}: unstripped float32 gave {plain}")
+
+    # warm time-to-value: contractor and device inputs made once; each
+    # pass ends in a host pull checked finite and stable
+    one_pass = _warm_pass(LATTICE, dev)
+    times = []
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pm, pe = one_pass()
+        times.append(time.perf_counter() - t0)
+        val = float(np.log10(abs(pm)) + pe)
+        if not (np.isfinite(val) and abs(val - log10) <= 1e-5):
+            raise AssertionError(
+                f"{LATTICE}: unstable value log10 {val!r} vs {log10!r}"
+            )
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(
+        f"# main path {LATTICE}: slices {n_slices} value "
+        f"{m.item():.9e} x 10^{e.item():.6f} log10 {log10:.7f} (reference "
+        f"{ref['log10']:.7f}) |delta log10| {d_log10:.3e} bmm_absmax "
+        f"launches {counts['bmm_absmax']} unstripped float32 {plain} "
+        f"time_to_value_s {' '.join(f'{t:.4f}' for t in times)} (best "
+        f"{min(times):.4f}) peak_mem_gib {peak:.2f}",
+        flush=True,
+    )
+    return counts["bmm_absmax"]
+
+
+def phase_t27_stripped(dev):
+    """The m10-t27 amplitude with the grouped split-complex strip."""
+    import cotengra_tpu_torch as ctt
+
+    tree, arrays, refs = _load_instance("sycamore53_m10_t27")
+    n_ref = tree.multiplicity
+    expect = sum(len(rec.ys) for rec in _chain_recs(tree)) * n_ref
+    _reset_launches()
+    m, e = ctt.contract_tree(tree, arrays, device=dev, strip_exponent=True)
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    amp = complex(m.cpu().item()) * 10.0 ** e.item()
+    ref = refs[n_ref]
+    relerr = abs(amp - ref) / abs(ref)
+    if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+        raise AssertionError(
+            f"stripped t27: launches {counts}, plan has {expect} gates"
+        )
+    if not relerr <= AMP_RTOL:
+        raise AssertionError(
+            f"stripped t27: amplitude {amp} vs reference {ref}: relerr "
+            f"{relerr:.3e} > {AMP_RTOL}"
+        )
+    print(
+        f"# stripped sycamore53_m10_t27: mantissa {complex(m.cpu().item())} "
+        f"exponent {e.item():.6f} amplitude {amp.real:.12e}"
+        f"{amp.imag:+.12e}j relerr {relerr:.3e} launches {counts}",
+        flush=True,
+    )
+
+
 def _kernel_class(name):
     if "gate_apply_kernel" in name:
         return "gate-chain kernel"
+    if "bmm_absmax_kernel" in name or "splitk_reduce_absmax" in name:
+        return "bmm_absmax kernel"
     if "gemv" in name:
         return "gemv"
     if "gemm" in name:
@@ -250,11 +490,23 @@ def _kernel_class(name):
     return "other"
 
 
-def phase_profile(plan_name, dev):
-    """Device time by kernel over one warm pass of the main path."""
+def _warm_pass(plan_name, dev):
+    """One warm pass of a main path as a function (contractor and device
+    inputs made once), ending in a host pull."""
     import cotengra_tpu_torch as ctt
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    if plan_name == LATTICE:
+        tree, arrays, _ = _load_lattice()
+        fn = ctt.make_full_contractor(
+            tree, dev, strip_exponent=True, implementation="pallas"
+        )
+        tensors = ctt.to_tensors(arrays, dev, torch.float32)
+
+        def one_pass():
+            m, e = fn(*tensors)
+            return m.item(), e.item()
+
+        return one_pass
 
     tree, arrays, _ = _load_instance(plan_name)
     core = ctt.make_grouped_contractor(tree, dev, torch.float32)
@@ -264,6 +516,15 @@ def phase_profile(plan_name, dev):
         out = ctt.contract_slices(tree, core, planes)
         return complex(out[0].item(), out[1].item())
 
+    return one_pass
+
+
+def phase_profile(plan_name, dev):
+    """Device time by kernel over one warm pass of the main path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    one_pass = _warm_pass(plan_name, dev)
     one_pass()
     # the wall of one pass moves by tens of percent between passes (host
     # side): the idle share reads the median of several
@@ -333,20 +594,38 @@ def main():
     if args == ["--profile"]:
         phase_profile("sycamore53_m10_t27", dev)
         phase_profile("sycamore53_m10_t29", dev)
+        phase_profile(LATTICE, dev)
         return 0
-    rows = phase_chains(dev)
-    launches = phase_main_path("sycamore53_m10_t27", 4, dev)
+    chain_rows = phase_chains(dev)
+    chain_launches = phase_main_path("sycamore53_m10_t27", 4, dev)
     phase_main_path("sycamore53_m10_t29", 1, dev)
-    kernels = [{
-        "name": "gate_chain",
-        "route": "cuda",
-        "source": "cotengra_tpu_torch/csrc/gate_chain.cu",
-        "replaces": "cotengra_tpu/ops/pallas_gates.py:557",
-        "launches": launches,
-        "max_abs_err": max(r[0] for r in rows),
-        "ms": sum(r[1] for r in rows),
-        "plain_ms": sum(r[2] for r in rows),
-    }]
+    bmm_rows = phase_bmm(dev)
+    bmm_launches = phase_lattice(dev)
+    phase_t27_stripped(dev)
+    kernels = [
+        {
+            "name": "gate_chain",
+            "route": "cuda",
+            "source": "cotengra_tpu_torch/csrc/gate_chain.cu",
+            "replaces": "cotengra_tpu/ops/pallas_gates.py:557",
+            "launches": chain_launches,
+            "max_abs_err": max(r[0] for r in chain_rows),
+            "ms": sum(r[1] for r in chain_rows),
+            "plain_ms": sum(r[2] for r in chain_rows),
+        },
+        {
+            # ms: kernel time of one slice's kernel steps, summed over
+            # the plan's distinct shapes times their steps per slice
+            "name": "bmm_absmax",
+            "route": "cuda",
+            "source": "cotengra_tpu_torch/csrc/bmm_absmax.cu",
+            "replaces": "cotengra_tpu/ops/pallas_bmm.py:56",
+            "launches": bmm_launches,
+            "max_abs_err": max(r[0] for r in bmm_rows),
+            "ms": sum(r[1] for r in bmm_rows),
+            "plain_ms": sum(r[2] for r in bmm_rows),
+        },
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -1,9 +1,11 @@
 """Carry the reference's state across to the port.
 
-The reference package consumes numpy complex arrays (``rand_circuit_tn``
-output after ``absorb_simple_tensors``) and trees loaded with
+The reference package consumes numpy arrays (complex ones from
+``rand_circuit_tn`` after ``absorb_simple_tensors``, real ones for
+networks such as ``lattice_equation``) and trees loaded with
 ``cotengra_tpu.utils.io.load_tree``. Trees and plan files load with
-that function unchanged; arrays become the port's plane tensors here.
+that function unchanged; arrays become the port's tensors (or plane
+tensors) here.
 """
 
 import numpy as np
@@ -30,3 +32,18 @@ def to_plane_tensors(arrays, device, plane_dtype):
         torch.from_numpy(to_plane_array(a)).to(device=dev, dtype=pdt)
         for a in arrays
     ]
+
+
+def to_tensors(arrays, device, dtype):
+    """numpy arrays (or tensors) -> tensors on ``device``: real arrays
+    as ``dtype`` (float32 or float64), complex arrays as the complex
+    type of the same precision."""
+    dev = resolve_device(device)
+    rdt = resolve_plane_dtype(dtype)
+    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+    out = []
+    for a in arrays:
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.require(a, requirements="C"))
+        out.append(a.to(device=dev, dtype=cdt if a.is_complex() else rdt))
+    return out

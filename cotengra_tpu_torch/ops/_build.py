@@ -23,7 +23,7 @@ _SRC_DIR = _PKG_DIR / "csrc"
 _ROOT = _PKG_DIR.parent
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 
@@ -66,29 +66,49 @@ def library_path():
     return build_dir() / f"libctg_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _start(cmd):
+    return subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+    )
+
+
+def _finish(proc, cmd):
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}{err}"
+        )
+
+
 def build_library():
     """Compile ``csrc/*.cu`` unless the library for these sources
-    exists. Returns its path."""
+    exists: one nvcc per source, all started together, then one link.
+    Returns its path."""
     path = library_path()
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never
+    nvcc = _nvcc()
+    # build under a private name, then rename: concurrent builds never
     # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
+        jobs, objs = [], []
+        try:
+            for src in _sources():
+                objs.append(f"{tmp}/{src.stem}.o")
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+                jobs.append((_start(cmd), cmd))
+            for proc, cmd in jobs:
+                _finish(proc, cmd)
+        finally:
+            for proc, _ in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = f"{tmp}/lib.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        _finish(_start(cmd), cmd)
+        os.replace(lib, path)
     return path
 
 
@@ -103,6 +123,22 @@ def load_library():
         ctypes.c_void_p,                    # y (device)
         ctypes.POINTER(ctypes.c_int64),     # meta (host)
         ctypes.c_int,                       # meta length
+        ctypes.c_void_p,                    # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.ctg_bmm_absmax_f32
+    fn.argtypes = [
+        ctypes.c_void_p,                    # x (device)
+        ctypes.c_void_p,                    # y (device)
+        ctypes.c_void_p,                    # out (device)
+        ctypes.c_void_p,                    # absmax (device)
+        ctypes.c_void_p,                    # split-K workspace or NULL
+        ctypes.c_int64,                     # B
+        ctypes.c_int64,                     # M
+        ctypes.c_int64,                     # K
+        ctypes.c_int64,                     # N
+        ctypes.c_int,                       # splits
+        ctypes.c_int64,                     # k_chunk
         ctypes.c_void_p,                    # cudaStream_t
     ]
     fn.restype = ctypes.c_int

@@ -26,8 +26,15 @@ from .pairwise import apply_pairwise, apply_single
 _PLANE = "\x00plane"
 
 
-# The reference's _to_planes (complex inputs split on device) has no
-# counterpart: inputs arrive as plane stacks (convert.to_plane_tensors).
+def _to_planes(a, plane_dtype):
+    """A tensor -> its ``(2, *shape)`` re/im planes of ``plane_dtype``,
+    on its device; a real tensor gets a zero imaginary plane."""
+    if a.is_complex():
+        return torch.stack([a.real, a.imag]).to(plane_dtype)
+    a = a.to(plane_dtype)
+    return torch.stack([a, torch.zeros_like(a)])
+
+
 def _planes_to_complex(flat, shape):
     """flat (2*numel,) planes -> complex tensor of ``shape``."""
     planes = flat.view((2,) + tuple(shape))
@@ -146,10 +153,12 @@ def _split_apply_small_y(xf, x_layout, M, K, N, ykn_r, ykn_i):
 
 # The reference's _maybe_barrier has no counterpart: eager torch ops do
 # not fuse across steps.
-def _exec_steps_split(plans, temps, shapes, last_use):
+def _exec_steps_split(plans, temps, shapes, last_use, strip_exponent=False):
     """Run every plan step over ``temps`` (id -> plane-major flat real
     tensor, freed after its last use); ``shapes`` maps id -> logical
-    complex shape."""
+    complex shape. Returns the summed log10 exponent of the stripped
+    steps (None if nothing was stripped)."""
+    exponent = None
 
     def store(out_id, flat, shape, si, srcs):
         temps[out_id] = flat
@@ -157,6 +166,16 @@ def _exec_steps_split(plans, temps, shapes, last_use):
         for vid in srcs:
             if last_use.get(vid) == si:
                 temps.pop(vid, None)
+
+    def strip(flat):
+        # max over both planes, as the reference: max(|re|, |im|), not
+        # the modulus
+        nonlocal exponent
+        absmax = flat.abs().amax()
+        scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
+        e = torch.log10(scale)
+        exponent = e if exponent is None else exponent + e
+        return flat / scale
 
     for si, (kind, info) in enumerate(plans):
         if kind == "single":
@@ -180,6 +199,8 @@ def _exec_steps_split(plans, temps, shapes, last_use):
             flat = torch.cat(
                 [out.real.reshape(-1), out.imag.reshape(-1)]
             )
+            if strip_exponent:
+                flat = strip(flat)
             store(step.out, flat, out.shape, si, (x_id, y_id))
             continue
 
@@ -190,6 +211,8 @@ def _exec_steps_split(plans, temps, shapes, last_use):
                 for y_id, y_plan, K, N in rec.ys
             ]
             out = run_chain(rec.spec, temps[rec.x_id], ys)
+            # no strip, as in the reference: chains are near-unitary and
+            # the surrounding pair steps strip
             store(
                 rec.out_id, out, rec.out_shape, si,
                 (rec.x_id, *(y[0] for y in rec.ys)),
@@ -203,6 +226,8 @@ def _exec_steps_split(plans, temps, shapes, last_use):
             out = _split_pair_scattered(
                 temps[p.x_id], yf, p, p.scatter[0], p.scatter[1]
             )
+            if strip_exponent:
+                out = strip(out)
             store(p.out_id, out, (B, N, M), si, (p.x_id, p.y_id))
             continue
         xf = _apply_block_plan_split(temps[p.x_id], p.x_plan)
@@ -227,15 +252,23 @@ def _exec_steps_split(plans, temps, shapes, last_use):
             out = _split_apply_small_y(
                 xf, p.x_layout, M, K, N, ykn_r, ykn_i
             )
+        if strip_exponent:
+            out = strip(out)
         store(p.out_id, out, (B, N, M), si, (p.x_id, p.y_id))
+    return exponent
 
 
-def make_grouped_contractor(tree, device, plane_dtype, gate_mode="auto"):
+def make_grouped_contractor(
+    tree, device, plane_dtype, gate_mode="auto", strip_exponent=False
+):
     """Plan ``tree`` once and return ``fn(*planes) -> planes``.
 
     ``fn`` takes one ``(2, *shape)`` plane stack per (sliced) input, on
     ``device`` in ``plane_dtype`` (see :func:`..convert.to_plane_tensors`),
-    and returns the ``(2, *out_shape)`` planes of the result.
+    and returns the ``(2, *out_shape)`` planes of the result; with
+    ``strip_exponent``, ``(planes, log10 exponent)``, every pair step's
+    result renormalised by the max over both its planes (not after
+    single steps or in-place chains, as in the reference).
 
     ``gate_mode="auto"`` resolves to ``"inplace"`` (gate chains), as the
     reference's split-complex default does; ``None`` plans pairs only.
@@ -272,9 +305,16 @@ def make_grouped_contractor(tree, device, plane_dtype, gate_mode="auto"):
                 )
             temps[i] = a.reshape(-1)
         shapes = dict(enumerate(in_shapes))
-        _exec_steps_split(plans, temps, shapes, last_use)
+        exponent = _exec_steps_split(
+            plans, temps, shapes, last_use, strip_exponent
+        )
         flat = _apply_block_plan_split(temps[ir.final_id], out_plan)
-        return flat.view((2,) + tuple(out_shape))
+        planes = flat.view((2,) + tuple(out_shape))
+        if not strip_exponent:
+            return planes
+        if exponent is None:
+            exponent = torch.zeros((), dtype=pdt, device=dev)
+        return planes, exponent
 
     fn.plans = plans
     return fn

@@ -1,5 +1,6 @@
-"""The gate-chain CUDA kernel against its plain PyTorch version, on the
-card. Skipped without one; run on a GPU machine with
+"""The CUDA kernels (gate chain, matmul with fused |max|) against their
+plain PyTorch versions, on the card. Skipped without one; run on a GPU
+machine with
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -11,6 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from cotengra_tpu_torch.ops.bmm_absmax import (
+    bmm_absmax,
+    bmm_absmax_cuda,
+    bmm_absmax_plain,
+)
 from cotengra_tpu_torch.ops.gate_chains import (
     build_chain_spec,
     run_chain,
@@ -95,3 +101,49 @@ def test_gate_chain_kernel_rejects_bad_input(cuda):
         run_chain(spec, xt, [yt[0].cpu()])
     with pytest.raises(ValueError):
         run_chain(spec, xt[:-2], yt)
+
+
+@pytest.mark.parametrize(
+    "B,M,K,N",
+    [
+        (1, 4096, 256, 4096),    # lattice shapes, one output tile wave
+        (1, 256, 65536, 256),    # split K
+        (1, 1, 65536, 1),        # the final dot, split K
+        (3, 130, 17, 129),       # ragged tiles, K and N not multiples of 4
+        (2, 0, 8, 5),            # empty output
+        (1, 3, 0, 5),            # empty K: zeros
+    ],
+)
+def test_bmm_absmax_kernel_matches_plain(cuda, B, M, K, N):
+    rng = np.random.default_rng(M + K + N)
+    x = torch.from_numpy(
+        rng.random((B, M, K), dtype=np.float32)
+    ).to(cuda)
+    y = torch.from_numpy(
+        rng.random((B, K, N), dtype=np.float32)
+    ).to(cuda)
+    before = bmm_absmax_cuda.launches
+    out, amax = bmm_absmax(x, y)
+    assert bmm_absmax_cuda.launches - before == 1
+    if out.numel() == 0:
+        assert tuple(out.shape) == (B, M, N) and float(amax) == 0.0
+        return
+    ref, ref_amax = bmm_absmax_plain(x, y)
+    torch.cuda.synchronize()
+    scale = float(ref_amax)
+    assert (out - ref).abs().max().item() <= 1e-5 * max(scale, 1e-30)
+    assert abs(float(amax) - scale) <= 1e-5 * max(scale, 1e-30)
+    assert float(amax) == out.abs().max().item()
+
+
+def test_bmm_absmax_kernel_propagates_nan_and_rejects(cuda):
+    x = torch.ones(1, 64, 64, device=cuda)
+    x[0, 5, 7] = float("nan")
+    _, amax = bmm_absmax(x, torch.ones(1, 64, 64, device=cuda))
+    assert torch.isnan(amax).item()
+    with pytest.raises(ValueError):
+        bmm_absmax(x.double(), x.double())
+    with pytest.raises(ValueError):
+        bmm_absmax(x.transpose(1, 2), x)
+    with pytest.raises(ValueError):
+        bmm_absmax(x, x.cpu())

@@ -61,11 +61,30 @@ _NO_JAX = textwrap.dedent(
     ))
     assert abs(got - ref) <= 1e-10 * abs(ref), (got, ref)
 
+    # a stripped real contraction through the direct executor
+    from cotengra_tpu import lattice_equation
+
+    li, lo, lshapes, lsizes = lattice_equation([3, 3], d_min=16)
+    ltree = ContractionTree.from_path(
+        li, lo, lsizes, path=optimize_greedy(li, lo, lsizes)
+    )
+    ltree.remove_ind(li[4][0], inplace=True)
+    rng = np.random.default_rng(0)
+    larr = [rng.uniform(size=s) for s in lshapes]
+    fn = ctt.make_full_contractor(
+        ltree, "cpu", strip_exponent=True, implementation="pallas",
+        plane_dtype=torch.float64,
+    )
+    m, e = fn(*ctt.to_tensors(larr, "cpu", torch.float64))
+    lref = float(np.einsum(inds_to_eq(li, lo), *larr, optimize="greedy"))
+    lgot = float(m) * 10.0 ** float(e)
+    assert abs(lgot - lref) <= 1e-10 * lref, (lgot, lref)
+
     import chip_smoke  # imported, not run
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
     assert not bad, bad
-    print("NO_JAX_OK", tree.multiplicity)
+    print("NO_JAX_OK", tree.multiplicity, ltree.multiplicity)
     """
 )
 
@@ -76,7 +95,7 @@ def test_port_runs_without_jax():
         capture_output=True, text=True, cwd=ROOT, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "NO_JAX_OK 2" in proc.stdout
+    assert "NO_JAX_OK 2 16" in proc.stdout
 
 
 @pytest.fixture
