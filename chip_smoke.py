@@ -13,7 +13,8 @@ Run from the root of a checkout. Phases:
 3. the gate-chain kernel against its plain PyTorch version on every
    chain of the Sycamore-53 m=10 t27 plan at full size, float32 inputs
    from a fixed numpy seed: max|kernel - plain| <= 1e-5 * max|plain|,
-   with both times from CUDA events;
+   with both times from CUDA events and the chain's bound (one read of
+   its input planes and one write of its output planes at the HBM rate);
 4. the Sycamore-53 m=10 amplitude over all 4 slices of
    ``plans/sycamore53_m10_t27.json`` in float32 planes, held to the
    complex128 reference amplitude at relerr <= 1e-5, with the chain
@@ -23,19 +24,31 @@ Run from the root of a checkout. Phases:
 6. the matmul+|max| kernel against its plain version on every distinct
    (B, M, K, N) of the kernel steps of the 7x7 bond-16 lattice plan
    (``plans/lattice7x7_d16_s16.json``), at full size, float32 uniform
-   inputs from a fixed numpy seed: max|out - plain| <= 1e-5 max|plain|,
-   |absmax - plain| <= 1e-5 plain, absmax == max|out| exactly, with
-   both times from CUDA events;
+   inputs from a fixed numpy seed, y handed over as the executor does
+   (the transpose of a contiguous (B, N, K)): max|out - plain| <= 1e-5
+   max|plain|, |absmax - plain| <= 1e-5 plain, absmax == max|out|
+   exactly; kernel and plain times from CUDA events in turns (the plain
+   version, ``torch.bmm`` then ``abs().amax()``, is also the library
+   call the kernel is held against; the port never makes it on a CUDA
+   tensor), TFLOP/s, the bound at the 3xTF32 ceiling and at the
+   float32 FMA rate, and what a contiguous (B, K, N) y costs (the
+   wrapper's transposing copy);
 7. the lattice main path: its value over all 16 slices in float32 with
    ``strip_exponent=True, implementation="pallas"``, held to the float64
-   reference stored in the plan file at |delta log10| <= 1e-4, with the kernel's launch count
-   (the qualifying steps x 16), the unstripped float32 overflow, the
+   reference stored in the plan file at |delta log10| <= 1e-4, with the
+   kernel's launch count (the qualifying steps x 16), the unstripped
+   float32 overflow, the
    warm time-to-value and the peak device memory;
 8. the m10-t27 amplitude once more with ``strip_exponent=True`` (the
    grouped split-complex strip), mantissa x 10^exponent held to the
    same reference at relerr <= 1e-5;
-9. one JSON line of kernel results, then the last line
+9. one JSON line of kernel results (launches on the main path, error,
+   ms, plain ms, bound, library ms), then the last line
    ``{"ok": true, "device": {...}}``.
+
+Every instance is built and every plan loaded through the port
+(``cotengra_tpu_torch.rand_circuit_tn``, ``lattice_equation``,
+``load_tree``): the script imports neither JAX nor the JAX package.
 
 Each main path (4, 5, 7, 8) is driven with every kernel's launch count
 set to 0 just before it and read just after. Any failed phase raises,
@@ -68,15 +81,20 @@ LOG10_ATOL = 1e-4
 LATTICE = "lattice7x7_d16_s16"
 SEED = 1234
 PROFILE_WALL_PASSES = 5
+# published H100 SXM peaks at a 700 W power limit (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12        # float32 FMA outside the tensor cores
+TF32_FLOPS = 495e12       # dense TF32 on the tensor cores
 
 
 def _load_instance(plan_name):
     """The Sycamore-53 m=10 network (seed 42, absorbed as the benchmark
     does), the plan's tree, and its reference amplitudes."""
-    from cotengra_tpu.models.circuits import rand_circuit_tn
-    from cotengra_tpu.utils.io import load_tree
-
-    from cotengra_tpu_torch import absorb_simple_tensors
+    from cotengra_tpu_torch import (
+        absorb_simple_tensors,
+        load_tree,
+        rand_circuit_tn,
+    )
 
     inputs, output, _, _, arrays = rand_circuit_tn(53, 10, seed=42)
     inputs, arrays = absorb_simple_tensors(
@@ -114,8 +132,7 @@ def _read_launches():
 def _load_lattice():
     """The 7x7 bond-16 lattice, its plan, float32 arrays rebuilt from the
     recipe stored with the plan, and the plan's float64 reference."""
-    from cotengra_tpu import lattice_equation
-    from cotengra_tpu.utils.io import load_tree
+    from cotengra_tpu_torch import lattice_equation, load_tree
 
     plan = ROOT / "plans" / f"{LATTICE}.json"
     with open(plan) as f:
@@ -130,17 +147,40 @@ def _load_lattice():
     return tree, arrays, ref
 
 
-def _lattice_kernel_shapes(tree):
-    """{(B, M, K, N): steps per slice} of the plan's kernel steps, by the
-    executor's routing rule on float32 tensors of the steps' shapes."""
-    from cotengra_tpu.utils.misc import prod
+def _operand_layout(legs, order, groups, sizes):
+    """How a row-major tensor with ``legs`` reaches the 3-D (B, M, K)
+    of ``order``, whose first ``groups[0]`` and next ``groups[1]`` legs
+    merge into B and M: "contiguous" (no copy), "3-stride view" (each
+    group merges, a strided view) or "general permutation" (a copy)."""
+    from cotengra_tpu_torch.utils.misc import prod
 
+    legs, order = list(legs), list(order)
+    if legs == order:
+        return "contiguous"
+    shape = [sizes[ix] for ix in legs]
+    stride = {ix: prod(shape[i + 1:]) for i, ix in enumerate(legs)}
+    cut = [0, groups[0], groups[0] + groups[1], len(order)]
+    for a, b in zip(cut, cut[1:]):
+        for u, v in zip(order[a:b], order[a + 1:b]):
+            if stride[u] != stride[v] * sizes[v]:
+                return "general permutation"
+    return "3-stride view"
+
+
+def _lattice_kernel_shapes(tree, layouts=None):
+    """{(B, M, K, N): steps per slice} of the plan's kernel steps, by the
+    executor's routing rule on float32 tensors of the steps' shapes.
+    ``layouts``, a dict, gets per-slice counts of the kernel operands by
+    how they reach the kernel's layout (x as (batch, l_free, contract),
+    y as (batch, r_free, contract); see ``_operand_layout``), and of the
+    outputs that need a permute."""
     from cotengra_tpu_torch.ops.bmm_absmax import _bmm_layout
     from cotengra_tpu_torch.ops.executor import _pallas_step_ok
     from cotengra_tpu_torch.ops.lowering import (
         PairStep,
         extract_contractions,
     )
+    from cotengra_tpu_torch.utils.misc import prod
 
     sizes = tree.size_dict
     shapes = {}
@@ -159,6 +199,17 @@ def _lattice_kernel_shapes(tree):
             for legs in (batch, l_free, contract, r_free)
         )
         shapes[key] = shapes.get(key, 0) + 1
+        if layouts is not None:
+            kinds = [
+                _operand_layout(step.l_legs, batch + l_free + contract,
+                                [len(batch), len(l_free)], sizes),
+                _operand_layout(step.r_legs, batch + r_free + contract,
+                                [len(batch), len(r_free)], sizes),
+            ]
+            if tuple(batch + l_free + r_free) != tuple(step.out_legs):
+                kinds.append("output permuted")
+            for kind in kinds:
+                layouts[kind] = layouts.get(kind, 0) + 1
     return shapes
 
 
@@ -254,16 +305,47 @@ def phase_chains(dev):
             (int(np.prod([d[0] for d in k])), int(np.prod([d[0] for d in n])))
             for k, n in gates
         ]
+        bound = _chain_bound(spec, kn)
         print(
             f"# chain {ci:2d}: numel 2^{int(np.log2(n_in))} gates (K,N) "
             f"{kn} max_abs_err {err:.3e} (max|plain| {scale:.3e}) "
-            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms",
+            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound "
+            f"{bound[0]:.3f} ms ({bound[1]})",
             flush=True,
         )
-        rows.append((err, ms, plain_ms))
+        rows.append((err, ms, plain_ms, bound))
         del x, ys, plain, kern
     torch.cuda.empty_cache()
     return rows
+
+
+def _chain_bound(spec, kn):
+    """(ms, "bytes" or "operations"): the least time for one chain, as the
+    TPU kernel does it - one read of the input planes, one write of the
+    output planes and one read of each gate, at the HBM rate - or its
+    complex multiply-adds (8 flops each) at the float32 rate, the
+    larger."""
+    g0, g1 = spec.gate_strides[0], spec.gate_strides[-1]
+    nbytes = 8 * (g0.numel_in + g1.numel_out) + sum(8 * k * n for k, n in kn)
+    flops = sum(
+        8 * g.numel_in * n for g, (_, n) in zip(spec.gate_strides, kn)
+    )
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def _bmm_bound(B, M, K, N):
+    """(ms, "bytes" or "operations"): the least time for one (B, M, K, N)
+    product at float32 accuracy - x, y read once and out written once at
+    the HBM rate, or its 2 B M K N flops as three TF32 products on the
+    tensor cores (the 3xTF32 ceiling, ~165 TFLOP/s), the larger."""
+    t_bytes = 4 * B * (M * K + K * N + M * N) / HBM_BYTES_PER_S
+    t_ops = 3 * 2 * B * M * K * N / TF32_FLOPS
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
 
 
 def phase_main_path(plan_name, n_ref, dev, passes=3):
@@ -329,7 +411,7 @@ def phase_main_path(plan_name, n_ref, dev, passes=3):
 
 def phase_bmm(dev):
     """Every distinct kernel shape of the lattice plan, kernel vs plain,
-    at full size."""
+    at full size, with the library call's time and the bound."""
     from cotengra_tpu_torch.ops.bmm_absmax import (
         bmm_absmax_cuda,
         bmm_absmax_plain,
@@ -337,10 +419,20 @@ def phase_bmm(dev):
 
     tree, _, _ = _load_lattice()
     rng = np.random.default_rng(SEED)
+    layouts = {}
+    shapes = _lattice_kernel_shapes(tree, layouts)
+    print(
+        f"# lattice kernel steps: {sum(shapes.values())} per slice; "
+        f"operands and outputs by layout: {layouts}",
+        flush=True,
+    )
     rows = []
-    for (B, M, K, N), n_steps in sorted(_lattice_kernel_shapes(tree).items()):
+    for (B, M, K, N), n_steps in sorted(shapes.items()):
         x = torch.from_numpy(rng.random((B, M, K), dtype=np.float32)).to(dev)
-        y = torch.from_numpy(rng.random((B, K, N), dtype=np.float32)).to(dev)
+        # y as the executor hands it over: the (B, K, N) transpose of a
+        # contiguous (B, N, K)
+        yt = torch.from_numpy(rng.random((B, N, K), dtype=np.float32)).to(dev)
+        y = yt.transpose(1, 2)
         plain, plain_amax = bmm_absmax_plain(x, y)
         kern, amax = bmm_absmax_cuda(x, y)
         torch.cuda.synchronize()
@@ -358,22 +450,43 @@ def phase_bmm(dev):
                 f"absmax == max|out|: {exact}"
             )
         del plain, kern
-        reps = max(2, min(50, int(2e11 / (2 * B * M * K * N + 1))))
-        bmm_absmax_plain(x, y)
+        flops = 2 * B * M * K * N
+        reps = max(2, min(50, int(2e11 / (flops + 1))))
+        # in turns: plain, kernel, kernel, plain. The plain version is
+        # the library call itself (torch.bmm, then abs().amax()), which
+        # the port never makes on a CUDA tensor: it is timed once and
+        # reported as both
         plain_ms = _cuda_ms(lambda: bmm_absmax_plain(x, y), reps)
-        bmm_absmax_cuda(x, y)
         ms = _cuda_ms(lambda: bmm_absmax_cuda(x, y), reps)
-        tflops = 2 * B * M * K * N / ms / 1e9
+        ms = (ms + _cuda_ms(lambda: bmm_absmax_cuda(x, y), reps)) / 2
+        plain_ms = (plain_ms + _cuda_ms(lambda: bmm_absmax_plain(x, y),
+                                        reps)) / 2
+        # what a contiguous (B, K, N) y costs: the wrapper's transposing copy
+        yc = y.contiguous()
+        copy_ms = _cuda_ms(lambda: yc.transpose(1, 2).contiguous(), reps)
+        bound_ms, bound_by = _bmm_bound(B, M, K, N)
+        fp32_ms = flops / FP32_FLOPS * 1e3
         print(
             f"# bmm_absmax (B,M,K,N) {(B, M, K, N)} x{n_steps}/slice: "
             f"max_abs_err {err:.3e} (max|plain| {scale:.3e}) absmax_err "
             f"{amax_err:.3e} absmax==max|out| {exact} kernel {ms:.3f} ms "
-            f"({tflops:.1f} TFLOP/s) plain {plain_ms:.3f} ms",
+            f"({flops / ms / 1e9:.1f} TFLOP/s) plain = library "
+            f"{plain_ms:.3f} ms ({flops / plain_ms / 1e9:.1f} TFLOP/s) "
+            f"bound {bound_ms:.3f} ms ({bound_by}; 3xTF32 ceiling) fp32-FMA "
+            f"bound {fp32_ms:.3f} ms y-transpose copy {copy_ms:.3f} ms",
             flush=True,
         )
-        rows.append((err, ms * n_steps, plain_ms * n_steps))
-        del x, y
+        rows.append((err, ms * n_steps, plain_ms * n_steps,
+                     bound_ms * n_steps, bound_by, fp32_ms * n_steps))
+        del x, y, yt, yc
     torch.cuda.empty_cache()
+    print(
+        f"# bmm_absmax per slice: kernel {sum(r[1] for r in rows):.3f} ms "
+        f"plain = library {sum(r[2] for r in rows):.3f} ms bound "
+        f"{sum(r[3] for r in rows):.3f} ms (3xTF32) fp32-FMA bound "
+        f"{sum(r[5] for r in rows):.3f} ms",
+        flush=True,
+    )
     return rows
 
 
@@ -479,7 +592,8 @@ def phase_t27_stripped(dev):
 def _kernel_class(name):
     if "gate_apply_kernel" in name:
         return "gate-chain kernel"
-    if "bmm_absmax_kernel" in name or "splitk_reduce_absmax" in name:
+    if any(k in name for k in ("bmm_absmax_kernel", "splitk_reduce_absmax",
+                               "presplit_kernel")):
         return "bmm_absmax kernel"
     if "gemv" in name:
         return "gemv"
@@ -573,6 +687,15 @@ def phase_profile(plan_name, dev):
                       flush=True)
 
 
+def _dominant(bounds):
+    """The ``bound_by`` of a sum of (ms, bound_by) bounds: the kind that
+    carries the larger share of the time."""
+    share = {}
+    for ms, by in bounds:
+        share[by] = share.get(by, 0.0) + ms
+    return max(share, key=share.get)
+
+
 def main():
     args = sys.argv[1:]
     if args not in ([], ["--profile"]):
@@ -604,6 +727,7 @@ def main():
     phase_t27_stripped(dev)
     kernels = [
         {
+            # per slice: the 13 chains of one m10-t27 slice
             "name": "gate_chain",
             "route": "cuda",
             "source": "cotengra_tpu_torch/csrc/gate_chain.cu",
@@ -612,10 +736,14 @@ def main():
             "max_abs_err": max(r[0] for r in chain_rows),
             "ms": sum(r[1] for r in chain_rows),
             "plain_ms": sum(r[2] for r in chain_rows),
+            "bound_ms": sum(r[3][0] for r in chain_rows),
+            "bound_by": _dominant(r[3] for r in chain_rows),
+            # no single PyTorch call applies a chain of gates
+            "library_ms": None,
         },
         {
-            # ms: kernel time of one slice's kernel steps, summed over
-            # the plan's distinct shapes times their steps per slice
+            # per slice: one slice's kernel steps, summed over the plan's
+            # distinct shapes times their steps per slice
             "name": "bmm_absmax",
             "route": "cuda",
             "source": "cotengra_tpu_torch/csrc/bmm_absmax.cu",
@@ -624,6 +752,10 @@ def main():
             "max_abs_err": max(r[0] for r in bmm_rows),
             "ms": sum(r[1] for r in bmm_rows),
             "plain_ms": sum(r[2] for r in bmm_rows),
+            "bound_ms": sum(r[3] for r in bmm_rows),
+            "bound_by": _dominant((r[3], r[4]) for r in bmm_rows),
+            # torch.bmm + abs().amax(): the plain version's own calls
+            "library_ms": sum(r[2] for r in bmm_rows),
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

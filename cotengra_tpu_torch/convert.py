@@ -1,11 +1,9 @@
-"""Carry the reference's state across to the port.
+"""numpy inputs -> the port's tensors.
 
-The reference package consumes numpy arrays (complex ones from
-``rand_circuit_tn`` after ``absorb_simple_tensors``, real ones for
-networks such as ``lattice_equation``) and trees loaded with
-``cotengra_tpu.utils.io.load_tree``. Trees and plan files load with
-that function unchanged; arrays become the port's tensors (or plane
-tensors) here.
+Networks arrive as numpy arrays (complex ones from ``rand_circuit_tn``
+after ``absorb_simple_tensors``, real ones for networks such as
+``lattice_equation``), as the JAX package takes them; they become the
+port's tensors (or split-complex plane tensors) here.
 """
 
 import numpy as np

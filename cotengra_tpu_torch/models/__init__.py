@@ -1,0 +1,6 @@
+"""Instance builders (counterparts of ``cotengra_tpu/models``)."""
+
+from .circuits import rand_circuit_tn
+from .instances import Contraction, lattice_equation
+
+__all__ = ["Contraction", "lattice_equation", "rand_circuit_tn"]

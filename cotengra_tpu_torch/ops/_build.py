@@ -66,6 +66,15 @@ def library_path():
     return build_dir() / f"libctg_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _driver_link_flags(nvcc):
+    """Link the CUDA driver library (``cuTensorMapEncodeTiled``) against
+    the toolkit's stub; the driver's own copy loads at run time."""
+    home = Path(nvcc).resolve().parent.parent
+    stubs = (home / "lib64" / "stubs",
+             home / "targets" / "x86_64-linux" / "lib" / "stubs")
+    return [f"-L{d}" for d in stubs if d.is_dir()] + ["-lcuda"]
+
+
 def _start(cmd):
     return subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
@@ -106,7 +115,8 @@ def build_library():
                     proc.kill()
                     proc.wait()
         lib = f"{tmp}/lib.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs,
+               *_driver_link_flags(nvcc)]
         _finish(_start(cmd), cmd)
         os.replace(lib, path)
     return path
@@ -129,10 +139,10 @@ def load_library():
     fn = lib.ctg_bmm_absmax_f32
     fn.argtypes = [
         ctypes.c_void_p,                    # x (device)
-        ctypes.c_void_p,                    # y (device)
+        ctypes.c_void_p,                    # y^T (device)
         ctypes.c_void_p,                    # out (device)
         ctypes.c_void_p,                    # absmax (device)
-        ctypes.c_void_p,                    # split-K workspace or NULL
+        ctypes.c_void_p,                    # workspace (split y, split K)
         ctypes.c_int64,                     # B
         ctypes.c_int64,                     # M
         ctypes.c_int64,                     # K

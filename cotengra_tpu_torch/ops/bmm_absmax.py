@@ -10,23 +10,32 @@ second pass over the output. The executor routes a step here when
 
 ``bmm_absmax`` sends CUDA tensors to ``csrc/bmm_absmax.cu`` (float32
 only; anything else raises) and CPU tensors to ``bmm_absmax_plain``, in
-their own dtype. The reference's padding to 256-multiples and its
-minimum tile sizes (``_pad_to``, ``bm >= 8``, ``bn >= 128``) were TPU
-tiling mechanics: the kernel masks ragged edges itself.
+their own dtype. The kernel runs 3xTF32 ``wgmma`` on TMA-loaded tiles,
+which take both operands K-major: ``x`` as ``(B, M, K)`` and ``y`` as
+the transpose of a contiguous ``(B, N, K)``, the layout
+``pairwise_bmm_absmax`` makes. Its workspace holds y's two TF32 parts
+(split once by a pre-pass) and the split-K partial tiles. The
+reference's padding to 256-multiples and its minimum tile sizes
+(``_pad_to``, ``bm >= 8``, ``bn >= 128``) were TPU tiling mechanics:
+TMA fills ragged edges with zeros, and only K is padded, to a multiple
+of 4 (TMA's 16-byte row stride).
 """
 
 import torch
 
-from cotengra_tpu.utils.misc import prod
+from ..utils.misc import prod
 
 # the kernel's tile (csrc/bmm_absmax.cu: BM, BN, BK) and the grid limit
-# on output row tiles
+# on output row tiles and on batch x splits
 _TILE_M = _TILE_N = 128
-_TILE_K = 8
+_TILE_K = 32
 _MAX_ROW_TILES = 65535
 _MAX_Z = 65535
 # split K only where a chunk keeps at least this many k
 _MIN_K_CHUNK = 1024
+# TMA: row strides a multiple of 16 bytes, bases 16-byte aligned
+_K_ALIGN = 4
+_PTR_ALIGN = 16
 
 
 def _cdiv(a, b):
@@ -35,15 +44,15 @@ def _cdiv(a, b):
 
 def _split_k(B, M, K, N, n_sm):
     """``(splits, k_chunk)`` for the kernel: K is cut into ``splits``
-    chunks of ``k_chunk`` (a multiple of 8) when the output tiles alone
-    would leave most of the card's ``n_sm`` multiprocessors idle (two
-    blocks fit on each)."""
+    chunks of ``k_chunk`` (a multiple of the 32-deep k tile) when the
+    output tiles alone would leave most of the card's ``n_sm``
+    multiprocessors idle (one block fits on each)."""
     if K == 0:
         return 1, _TILE_K
     tiles = B * _cdiv(M, _TILE_M) * _cdiv(N, _TILE_N)
     splits = 1
     if tiles < n_sm and K >= 2 * _MIN_K_CHUNK:
-        splits = min(_cdiv(2 * n_sm, tiles), K // _MIN_K_CHUNK)
+        splits = min(_cdiv(n_sm, tiles), K // _MIN_K_CHUNK)
     k_chunk = _cdiv(_cdiv(K, splits), _TILE_K) * _TILE_K
     return _cdiv(K, k_chunk), k_chunk
 
@@ -57,10 +66,24 @@ def bmm_absmax_plain(x, y):
     return out, out.abs().amax()
 
 
+def _pad_k(t, k):
+    """``t`` with its last axis zero-padded to ``k``."""
+    out = t.new_zeros(tuple(t.shape[:-1]) + (k,))
+    out[..., : t.shape[-1]] = t
+    return out
+
+
+def _aligned(t):
+    return t if t.data_ptr() % _PTR_ALIGN == 0 else t.clone()
+
+
 def bmm_absmax_cuda(x, y):
-    """Launch ``csrc/bmm_absmax.cu`` on contiguous float32 ``(B, M, K)``
-    and ``(B, K, N)`` CUDA tensors, on the current stream. Returns
-    ``(out, absmax)``, absmax a 0-d float32 tensor on the device.
+    """Launch ``csrc/bmm_absmax.cu`` on float32 CUDA tensors, on the
+    current stream: ``x`` a contiguous ``(B, M, K)``, ``y`` a ``(B, K,
+    N)`` whose transpose is contiguous (no copy) or which is contiguous
+    itself (one transposing copy). K is zero-padded to a multiple of 4
+    (at least 4) for TMA, which leaves the product exact. Returns ``(out,
+    absmax)``, absmax a 0-d float32 tensor on the device.
     ``bmm_absmax_cuda.launches`` counts the calls."""
     from ._build import load_library
 
@@ -81,30 +104,40 @@ def bmm_absmax_cuda(x, y):
             f"shapes {tuple(x.shape)} and {tuple(y.shape)} do not chain"
         )
     N = y.shape[2]
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("bmm_absmax kernel needs contiguous inputs")
+    yt = y.transpose(1, 2)
+    if not x.is_contiguous():
+        raise ValueError("bmm_absmax kernel needs x contiguous")
+    if not yt.is_contiguous():
+        if not y.is_contiguous():
+            raise ValueError(
+                "bmm_absmax kernel needs y or its transpose contiguous"
+            )
+        yt = yt.contiguous()
+    kp = max(_K_ALIGN, _cdiv(K, _K_ALIGN) * _K_ALIGN)
+    if kp != K:
+        x, yt = _pad_k(x, kp), _pad_k(yt, kp)
+    x, yt = _aligned(x), _aligned(yt)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, k_chunk = _split_k(B, M, K, N, n_sm)
+    splits, k_chunk = _split_k(B, M, kp, N, n_sm)
     if _cdiv(M, _TILE_M) > _MAX_ROW_TILES or B * splits > _MAX_Z:
         raise ValueError(
             f"(B, M, K, N) = {(B, M, K, N)} exceeds the kernel's grid"
         )
     out = torch.empty((B, M, N), dtype=torch.float32, device=x.device)
     absmax = torch.empty((), dtype=torch.float32, device=x.device)
-    ws = (
-        torch.empty(splits * B * M * N, dtype=torch.float32, device=x.device)
-        if splits > 1
-        else None
+    # y's big and small parts, then the split-K partial tiles
+    ws = torch.empty(
+        2 * B * N * kp + (splits * B * M * N if splits > 1 else 0),
+        dtype=torch.float32, device=x.device,
     )
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.ctg_bmm_absmax_f32(
-        x.data_ptr(), y.data_ptr(), out.data_ptr(), absmax.data_ptr(),
-        None if ws is None else ws.data_ptr(),
-        B, M, K, N, splits, k_chunk, stream,
+        x.data_ptr(), yt.data_ptr(), out.data_ptr(), absmax.data_ptr(),
+        ws.data_ptr(), B, M, kp, N, splits, k_chunk, stream,
     )
     if rc != 0:
-        raise RuntimeError(f"bmm_absmax kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"bmm_absmax kernel launch failed: error {rc}")
     bmm_absmax_cuda.launches += 1
     return out, absmax
 
@@ -156,7 +189,10 @@ def pairwise_bmm_absmax(x, y, l_legs, r_legs, out_legs):
         return t3.contiguous(), shp[:nb]
 
     x3, bdims = to3(x, l_legs, l_free, contract)
-    y3, _ = to3(y, r_legs, contract, r_free)
+    # y goes K-major, as the kernel's wgmma takes it: one copy in (batch,
+    # r_free, contract) order, handed over as its (B, K, N) transpose
+    yt3, _ = to3(y, r_legs, r_free, contract)
+    y3 = yt3.transpose(1, 2)
 
     out3, amax = bmm_absmax(x3, y3)
 

@@ -32,10 +32,10 @@ import time
 import numpy as np
 import torch
 
-from cotengra_tpu.utils.misc import prod
-
 from .._device import resolve_device, resolve_plane_dtype
+from ..config import get_default
 from ..convert import to_tensors
+from ..utils.misc import prod
 from .bmm_absmax import _bmm_layout, pairwise_bmm_absmax
 from .grouped import _to_planes, make_grouped_contractor
 from .lowering import SingleStep, extract_contractions
@@ -397,10 +397,8 @@ def contract_slice(tree, arrays, i, device, **kwargs):
 
 
 def _defaults(implementation, slice_batch):
-    """Unset options take ``cotengra_tpu.config``'s defaults, as the
-    reference's ``contract_tree`` does."""
-    from cotengra_tpu.config import get_default
-
+    """Unset options take ``cotengra_tpu_torch.config``'s defaults, as
+    the reference's ``contract_tree`` takes its own config's."""
     if implementation is None:
         implementation = get_default("implementation")
     if slice_batch is None:
@@ -420,7 +418,7 @@ def contract_tree(
     route and as split-complex planes on the grouped route. Returns the
     result on ``device``, or ``(mantissa, log10 exponent)`` with
     ``strip_exponent``. Unset ``implementation`` and ``slice_batch``
-    take ``cotengra_tpu.config``'s defaults.
+    take ``cotengra_tpu_torch.config``'s defaults.
     """
     implementation, slice_batch = _defaults(implementation, slice_batch)
     dev = resolve_device(device)

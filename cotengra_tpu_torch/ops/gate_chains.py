@@ -27,7 +27,7 @@ from collections import namedtuple
 
 import torch
 
-from cotengra_tpu.utils.misc import prod
+from ..utils.misc import prod
 
 # -- planning limits ----------------------------------------------------------
 # The reference kernel's limits, kept verbatim so that chains form exactly

@@ -13,8 +13,7 @@ here; a change of order is a block transpose over maximal runs of legs
 that stay together (``_block_plan``), so no step works at full rank.
 """
 
-from cotengra_tpu.utils.misc import prod
-
+from ..utils.misc import prod
 from .gate_chains import MAX_CHAIN_GATES, build_chain_spec
 from .lowering import SingleStep
 

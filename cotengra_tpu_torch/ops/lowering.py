@@ -2,9 +2,8 @@
 
 The same IR as ``cotengra_tpu/ops/lowering.py``, step for step: a tuple
 of single-term steps (diagonal / trace / sum / transpose of a leaf) and
-pairwise contractions, plus liveness. Carried here because importing
-``cotengra_tpu.ops`` pulls in the reference's accelerator runtime,
-which the port never needs.
+pairwise contractions, plus liveness. The port carries its own copy,
+as it does of everything it runs.
 """
 
 from collections import namedtuple

@@ -1,6 +1,6 @@
 """Host-side network preprocessing: absorb trivial tensors before
-planning (the same procedure as ``cotengra_tpu/ops/preprocess.py``,
-carried here so that the port never imports ``cotengra_tpu.ops``).
+planning (the same procedure as ``cotengra_tpu/ops/preprocess.py``;
+the port carries its own copy).
 
 Rank-1 and rank-2 tensors (state vectors, single-qubit gates,
 projectors) are contracted into a neighbouring tensor with numpy. This
@@ -9,7 +9,7 @@ shrinks the network without changing the result.
 
 import numpy as np
 
-from cotengra_tpu.utils.symbols import get_symbol
+from ..utils.symbols import get_symbol
 
 
 def absorb_simple_tensors(

@@ -14,7 +14,9 @@ from cotengra_tpu.ops.pallas_bmm import (
     pairwise_bmm_absmax as ref_pairwise_bmm_absmax,
 )
 
+from cotengra_tpu_torch.ops import bmm_absmax as bmm_module
 from cotengra_tpu_torch.ops.bmm_absmax import (
+    _pad_k,
     _split_k,
     bmm_absmax,
     bmm_absmax_cuda,
@@ -90,6 +92,60 @@ def test_pairwise_bmm_absmax_matches_reference(l_legs, r_legs, out_legs,
                     atol=RTOL * np.abs(expect).max())
 
 
+@pytest.mark.parametrize(
+    "l_legs,r_legs,out_legs,sizes",
+    [
+        ("bik", "kbj", "jbi", {"b": 4, "i": 5, "k": 6, "j": 7}),
+        ("akc", "cbk", "ba", {"a": 9, "k": 3, "c": 4, "b": 11}),
+        # y already (contract, r_free) ordered: contiguous before, now
+        # one copy into (r_free, contract) order
+        ("ik", "kj", "ij", {"i": 3, "k": 8, "j": 5}),
+        ("pq", "qp", "", {"p": 8, "q": 16}),
+    ],
+)
+def test_pairwise_hands_the_kernel_k_major_operands(
+    monkeypatch, l_legs, r_legs, out_legs, sizes
+):
+    """x as a contiguous (B, M, K), y as the transpose of a contiguous
+    (B, N, K): the layouts TF32 wgmma reads from TMA tiles."""
+    seen = []
+
+    def spy(x3, y3):
+        seen.append((x3, y3))
+        return bmm_module.bmm_absmax_plain(x3, y3)
+
+    monkeypatch.setattr(bmm_module, "bmm_absmax", spy)
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.uniform(size=[sizes[ix] for ix in l_legs]))
+    b = torch.from_numpy(rng.uniform(size=[sizes[ix] for ix in r_legs]))
+    got, _ = pairwise_bmm_absmax(a, b, l_legs, r_legs, out_legs)
+    (x3, y3), = seen
+    B, M, K = x3.shape
+    assert y3.shape[:2] == (B, K)
+    assert x3.is_contiguous()
+    assert y3.transpose(1, 2).is_contiguous()
+    assert y3.stride() == (y3.shape[2] * K, 1, K)
+    expect = np.einsum(f"{l_legs},{r_legs}->{out_legs}", a.numpy(), b.numpy())
+    assert_allclose(got.numpy(), expect, rtol=1e-12)
+
+
+def test_k_padding_leaves_the_product_exact():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(2, 5, 7)))
+    yt = torch.from_numpy(rng.normal(size=(2, 3, 7)))
+    xp, ytp = _pad_k(x, 8), _pad_k(yt, 8)
+    assert xp.shape == (2, 5, 8) and ytp.shape == (2, 3, 8)
+    assert (xp[..., 7] == 0).all() and torch.equal(xp[..., :7], x)
+    # zero terms only: equal up to the summation order
+    assert_allclose(
+        torch.bmm(xp, ytp.transpose(1, 2)).numpy(),
+        torch.bmm(x, yt.transpose(1, 2)).numpy(), rtol=1e-14, atol=1e-14,
+    )
+    # empty K pads to zeros: the product is zero
+    e = _pad_k(torch.zeros(1, 3, 0), 4)
+    assert e.shape == (1, 3, 4) and not e.any()
+
+
 def test_plain_version_keeps_float64():
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.normal(size=(2, 3, 4)))
@@ -126,7 +182,7 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
     "B,M,K,N,splits",
     [
         (1, 65536, 4096, 4096, 1),   # enough tiles: no split
-        (1, 256, 65536, 256, 64),    # 4 tiles, long K
+        (1, 256, 65536, 256, 33),    # 4 tiles, long K: ~one block per SM
         (1, 1, 65536, 1, 64),        # the final dot
         (1, 4096, 256, 256, 1),      # few tiles but short K
         (1, 256, 2048, 256, 2),
@@ -136,7 +192,7 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
 def test_split_k_covers_k(B, M, K, N, splits):
     got, k_chunk = _split_k(B, M, K, N, n_sm=132)
     assert got == splits
-    assert k_chunk % 8 == 0 and k_chunk >= 8
+    assert k_chunk % 32 == 0 and k_chunk >= 32
     # every split starts inside K and together they cover it
     assert got * k_chunk >= K
     assert (got - 1) * k_chunk < max(K, 1)

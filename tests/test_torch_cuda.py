@@ -112,6 +112,9 @@ def test_gate_chain_kernel_rejects_bad_input(cuda):
         (3, 130, 17, 129),       # ragged tiles, K and N not multiples of 4
         (2, 0, 8, 5),            # empty output
         (1, 3, 0, 5),            # empty K: zeros
+        (2, 300, 30, 70),        # K % 4 != 0: zero-padded to 32
+        (1, 1048576, 256, 256),  # the lattice's most frequent step
+        (1, 65536, 4096, 4096),  # the lattice's largest step
     ],
 )
 def test_bmm_absmax_kernel_matches_plain(cuda, B, M, K, N):
@@ -122,6 +125,12 @@ def test_bmm_absmax_kernel_matches_plain(cuda, B, M, K, N):
     y = torch.from_numpy(
         rng.random((B, K, N), dtype=np.float32)
     ).to(cuda)
+    _check_kernel_vs_plain(x, y)
+
+
+def _check_kernel_vs_plain(x, y):
+    B, M, K = x.shape
+    N = y.shape[2]
     before = bmm_absmax_cuda.launches
     out, amax = bmm_absmax(x, y)
     assert bmm_absmax_cuda.launches - before == 1
@@ -134,6 +143,61 @@ def test_bmm_absmax_kernel_matches_plain(cuda, B, M, K, N):
     assert (out - ref).abs().max().item() <= 1e-5 * max(scale, 1e-30)
     assert abs(float(amax) - scale) <= 1e-5 * max(scale, 1e-30)
     assert float(amax) == out.abs().max().item()
+    return out, amax
+
+
+@pytest.mark.parametrize("layout", ["transposed view", "contiguous"])
+def test_bmm_absmax_kernel_takes_y_either_way(cuda, layout):
+    """y as the transpose of a contiguous (B, N, K) (what the pairwise
+    contraction hands over) or as a contiguous (B, K, N) (one transposing
+    copy in the wrapper): the same result."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.random((2, 700, 96), dtype=np.float32)).to(cuda)
+    yt = torch.from_numpy(rng.random((2, 300, 96), dtype=np.float32)).to(cuda)
+    y = yt.transpose(1, 2)
+    if layout == "contiguous":
+        y = y.contiguous()
+    assert y.transpose(1, 2).is_contiguous() == (layout != "contiguous")
+    out, amax = _check_kernel_vs_plain(x, y)
+    ref, ref_amax = bmm_absmax(x, yt.transpose(1, 2))
+    assert torch.equal(out, ref) and float(amax) == float(ref_amax)
+
+
+@pytest.mark.parametrize("y_kind", ["tf32-exact", "random"])
+def test_bmm_absmax_kernel_keeps_inf_and_nan(cuda, y_kind):
+    """inf * finite stays inf, inf * -inf is -inf, NaN propagates, as in
+    float32; the other entries agree with the plain version."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.random((1, 200, 64), dtype=np.float32)).to(cuda)
+    if y_kind == "tf32-exact":
+        y = torch.ones(1, 64, 130, device=cuda)  # small parts are all 0
+    else:
+        y = torch.from_numpy(
+            rng.random((1, 64, 130), dtype=np.float32)
+        ).to(cuda)
+    x[0, 5, 7] = float("inf")
+    x[0, 6, 3] = -float("inf")
+    y[0, 3, 11] = float("inf")        # row 6, column 11: -inf * inf
+    y[0, 20, 40] = -float("inf")      # column 40: -inf from every row
+    out, amax = bmm_absmax(x, y)
+    ref, _ = bmm_absmax_plain(x, y)
+    torch.cuda.synchronize()
+    assert torch.isinf(out[0, 5, 0]) and out[0, 6, 11] == -float("inf")
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert torch.equal(out == float("inf"), ref == float("inf"))
+    assert torch.equal(out == -float("inf"), ref == -float("inf"))
+    fin = torch.isfinite(ref)
+    assert fin.sum() > 0
+    scale = ref[fin].abs().max().item()
+    assert (out[fin] - ref[fin]).abs().max().item() <= 1e-5 * scale
+    # rows with inf at k = 7 meet the -inf of column 40: NaN, as in float32
+    assert torch.isnan(amax).item() and torch.isnan(ref[0, 5, 40]).item()
+    y[0, 20, 40] = 1.0
+    out, amax = bmm_absmax(x, y)
+    assert not torch.isnan(out).any().item() and float(amax) == float("inf")
+    x[0, 9, 1] = float("nan")
+    out, amax = bmm_absmax(x, y)
+    assert torch.isnan(out[0, 9]).all() and torch.isnan(amax).item()
 
 
 def test_bmm_absmax_kernel_propagates_nan_and_rejects(cuda):

@@ -15,7 +15,6 @@ import jax
 import jax.numpy as jnp
 
 import cotengra_tpu as ctg
-from cotengra_tpu.config import default_implementation
 from cotengra_tpu.ops import executor as ref_executor
 from cotengra_tpu.ops import pairwise as ref_pairwise
 from cotengra_tpu.ops import pallas_bmm as ref_pallas_bmm
@@ -186,7 +185,16 @@ def test_benchmark_tree_and_slice_batch():
 
 
 def test_config_default_implementation_reaches_the_kernel(monkeypatch):
-    tree, arrays = _lattice(4)
+    """The port's own config (not the JAX package's) sets the default
+    route, on the port's own tree."""
+    from cotengra_tpu_torch.config import default_implementation
+
+    ref_tree, arrays = _lattice(4)
+    tree = ctt.ContractionTree.from_path(
+        ref_tree.inputs, ref_tree.output, ref_tree.size_dict,
+        path=ref_tree.get_path(),
+    )
+    assert dict(tree.children) == dict(ref_tree.children)
     calls = []
     real = executor.pairwise_bmm_absmax
     monkeypatch.setattr(

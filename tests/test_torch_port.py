@@ -25,13 +25,13 @@ _NO_JAX = textwrap.dedent(
     """
     import sys
 
-    class _BlockJax:
+    class _Block:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
-                raise ImportError("jax is blocked in this test")
+            if name.split(".")[0] in ("jax", "jaxlib", "cotengra_tpu"):
+                raise ImportError(name + " is blocked in this test")
             return None
 
-    sys.meta_path.insert(0, _BlockJax())
+    sys.meta_path.insert(0, _Block())
     sys.path.insert(0, {root!r})
 
     import numpy as np
@@ -40,34 +40,36 @@ _NO_JAX = textwrap.dedent(
     torch.set_num_threads(1)
 
     import cotengra_tpu_torch as ctt
-    from cotengra_tpu import ContractionTree, optimize_greedy
-    from cotengra_tpu.models.circuits import rand_circuit_tn
-    from cotengra_tpu.utils import inds_to_eq
+    from cotengra_tpu_torch.utils.symbols import get_symbol
 
-    inputs, output, _, _, arrays = rand_circuit_tn(12, 4, seed=3)
+    def eq(inputs, output):
+        sym = {{}}
+        for term in list(inputs) + [output]:
+            for ix in term:
+                sym.setdefault(ix, get_symbol(len(sym)))
+        return ",".join(
+            "".join(sym[ix] for ix in t) for t in inputs
+        ) + "->" + "".join(sym[ix] for ix in output)
+
+    inputs, output, _, _, arrays = ctt.rand_circuit_tn(12, 4, seed=3)
     inputs, arrays = ctt.absorb_simple_tensors(inputs, arrays, output)
     size_dict = {{
         ix: int(d) for t, a in zip(inputs, arrays) for ix, d in zip(t, a.shape)
     }}
-    path = optimize_greedy(inputs, output, size_dict)
-    tree = ContractionTree.from_path(inputs, output, size_dict, path=path)
+    tree = ctt.ContractionTree.from_path(
+        inputs, output, size_dict, path={path!r}
+    )
     tree.remove_ind(next(iter(inputs[0])), inplace=True)
     arrays = [np.asarray(a, np.complex128) for a in arrays]
     got = ctt.contract_tree(
         tree, arrays, device="cpu", plane_dtype=torch.float64
     ).item()
-    ref = complex(np.einsum(
-        inds_to_eq(inputs, output), *arrays, optimize="greedy"
-    ))
+    ref = complex(np.einsum(eq(inputs, output), *arrays, optimize="greedy"))
     assert abs(got - ref) <= 1e-10 * abs(ref), (got, ref)
 
     # a stripped real contraction through the direct executor
-    from cotengra_tpu import lattice_equation
-
-    li, lo, lshapes, lsizes = lattice_equation([3, 3], d_min=16)
-    ltree = ContractionTree.from_path(
-        li, lo, lsizes, path=optimize_greedy(li, lo, lsizes)
-    )
+    li, lo, lshapes, lsizes = ctt.lattice_equation([3, 3], d_min=16)
+    ltree = ctt.ContractionTree.from_path(li, lo, lsizes, path={lpath!r})
     ltree.remove_ind(li[4][0], inplace=True)
     rng = np.random.default_rng(0)
     larr = [rng.uniform(size=s) for s in lshapes]
@@ -76,22 +78,47 @@ _NO_JAX = textwrap.dedent(
         plane_dtype=torch.float64,
     )
     m, e = fn(*ctt.to_tensors(larr, "cpu", torch.float64))
-    lref = float(np.einsum(inds_to_eq(li, lo), *larr, optimize="greedy"))
+    lref = float(np.einsum(eq(li, lo), *larr, optimize="greedy"))
     lgot = float(m) * 10.0 ** float(e)
     assert abs(lgot - lref) <= 1e-10 * lref, (lgot, lref)
 
     import chip_smoke  # imported, not run
 
-    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+    bad = sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "cotengra_tpu")
+    )
     assert not bad, bad
     print("NO_JAX_OK", tree.multiplicity, ltree.multiplicity)
     """
 )
 
 
+def _reference_paths():
+    """Paths planned by the JAX package's greedy optimizer, handed to the
+    blocked subprocess as literals (the port has no path finder)."""
+    from cotengra_tpu import lattice_equation, optimize_greedy
+    from cotengra_tpu.models.circuits import rand_circuit_tn
+
+    inputs, output, _, _, arrays = rand_circuit_tn(12, 4, seed=3)
+    inputs, arrays = ctt.absorb_simple_tensors(inputs, arrays, output)
+    size_dict = {
+        ix: int(d) for t, a in zip(inputs, arrays) for ix, d in zip(t, a.shape)
+    }
+    path = optimize_greedy(inputs, output, size_dict)
+    li, lo, _, lsizes = lattice_equation([3, 3], d_min=16)
+    return (
+        tuple(map(tuple, path)),
+        tuple(map(tuple, optimize_greedy(li, lo, lsizes))),
+    )
+
+
 def test_port_runs_without_jax():
+    """The port runs with jax, jaxlib and the JAX package all blocked."""
+    path, lpath = _reference_paths()
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX.format(root=ROOT)],
+        [sys.executable, "-c",
+         _NO_JAX.format(root=ROOT, path=path, lpath=lpath)],
         capture_output=True, text=True, cwd=ROOT, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -112,10 +139,8 @@ def test_cuda_without_card_raises(no_card):
 
 
 def test_contract_tree_cuda_without_card_raises(no_card):
-    from cotengra_tpu import ContractionTree
-
     inputs = [("a", "b"), ("b", "c")]
-    tree = ContractionTree.from_path(
+    tree = ctt.ContractionTree.from_path(
         inputs, ("a", "c"), {"a": 2, "b": 2, "c": 2}, path=[(0, 1)]
     )
     arrays = [np.eye(2, dtype=np.complex64)] * 2
