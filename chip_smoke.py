@@ -13,12 +13,19 @@ Run from the root of a checkout. Phases:
 3. the gate-chain kernel against its plain PyTorch version on every
    chain of the Sycamore-53 m=10 t27 plan at full size, float32 inputs
    from a fixed numpy seed: max|kernel - plain| <= 1e-5 * max|plain|,
-   with both times from CUDA events and the chain's bound (one read of
-   its input planes and one write of its output planes at the HBM rate);
+   each chain one pass (one launch) of ``chain_tile_plan``; per chain
+   its tile, passes, kernel, plain and library times from CUDA events
+   (the library call is one ``torch.einsum`` over complex64 x and all
+   of the chain's gates, held to the plain version too; the port never
+   makes it) and the chain's bound (one read of its input planes and
+   one write of its output planes at the HBM rate); then a synthetic
+   2^24-element chain whose tile outgrows shared memory, run as two
+   passes, held to the plain version at the same limit;
 4. the Sycamore-53 m=10 amplitude over all 4 slices of
    ``plans/sycamore53_m10_t27.json`` in float32 planes, held to the
    complex128 reference amplitude at relerr <= 1e-5, with the chain
-   kernel's launch count and the warm time-to-amplitude;
+   kernel's launch count (one per pass: 13 per slice) and the warm
+   time-to-amplitude;
 5. the same for the unsliced ``plans/sycamore53_m10_t29.json`` (no
    chains: the pair and fallback steps only);
 6. the matmul+|max| kernel against its plain version on every distinct
@@ -226,6 +233,13 @@ def _chain_recs(tree):
     return [rec for kind, rec in plans if kind == "inplace"]
 
 
+def _chain_passes(tree):
+    """Chain-kernel launches per slice: the passes of every chain."""
+    from cotengra_tpu_torch.ops.gate_chains import chain_tile_plan
+
+    return sum(len(chain_tile_plan(rec.spec)) for rec in _chain_recs(tree))
+
+
 def _cuda_ms(fn, reps):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -264,9 +278,94 @@ def phase_build():
     )
 
 
-def phase_chains(dev):
-    """Every chain of the t27 plan, kernel vs plain, at full size."""
+def _chain_einsum(spec, x, ys):
+    """(equation, operands) of one ``torch.einsum`` that computes the
+    chain: complex64 x in the chain's input leg order and every gate
+    (K legs, then N legs), the result in the chain's output order."""
+    import string
+
+    sizes = spec.leg_sizes
+    orders = spec.gate_orders
+    legs = list(dict.fromkeys(
+        ix for o_in, o_out, _, _ in orders for ix in o_in + o_out
+    ))
+    if len(legs) > len(string.ascii_letters):
+        raise ValueError(f"{len(legs)} legs: more than einsum's letters")
+    sym = dict(zip(legs, string.ascii_letters))
+    n = x.numel() // 2
+    terms = ["".join(sym[ix] for ix in orders[0][0])]
+    ops = [torch.complex(x[:n], x[n:]).view(
+        [sizes[ix] for ix in orders[0][0]])]
+    for (_, _, c, ny), y in zip(orders, ys):
+        terms.append("".join(sym[ix] for ix in c + ny))
+        ops.append(torch.complex(y[0], y[1]).view(
+            [sizes[ix] for ix in c + ny]))
+    eq = ",".join(terms) + "->" + "".join(sym[ix] for ix in orders[-1][1])
+    return eq, ops
+
+
+def _synthetic_chain():
+    """A 2^24-element chain of seven 2-leg gates (two on leading legs,
+    five on the trailing ten) whose tile, 8192 complex per batch element
+    at the widest, outgrows one block's shared memory with its last
+    gate: ``chain_tile_plan`` cuts it into two passes."""
+    from cotengra_tpu_torch.ops.gate_chains import build_chain_spec
+
+    n = 24
+    order0 = tuple(f"a{k}" for k in range(n))
+    sizes = {ix: 2 for ix in order0}
+    cur, gates = list(order0), []
+    for g, pos in enumerate([(0, 1), (2, 3), (14, 15), (16, 17), (18, 19),
+                             (20, 21), (22, 23)]):
+        c = tuple(cur[p] for p in pos)
+        ny = (f"b{g}_0", f"b{g}_1")
+        sizes.update(dict.fromkeys(ny, 2))
+        rest = [ix for ix in cur if ix not in c]
+        cur = rest[:pos[0]] + list(ny) + rest[pos[0]:]
+        gates.append((c, ny))
+    spec, out_order, c_orders = build_chain_spec(order0, sizes, gates)
+    if spec is None:
+        raise AssertionError(f"synthetic chain rejected: {out_order}")
+    return spec, [(4, 4)] * len(gates)
+
+
+def _check_chain(name, spec, x, ys):
+    """Kernel vs plain on one chain: (max_abs_err, max|plain|), raising
+    beyond CHAIN_RTOL."""
     from cotengra_tpu_torch.ops.gate_chains import (
+        run_chain_cuda,
+        run_chain_plain,
+    )
+
+    plain = run_chain_plain(spec, x, ys)
+    kern = run_chain_cuda(spec, x, ys)
+    torch.cuda.synchronize()
+    err = (kern - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    if not (np.isfinite(err) and err <= CHAIN_RTOL * scale):
+        raise AssertionError(
+            f"{name}: max|kernel-plain| = {err:.3e} > "
+            f"{CHAIN_RTOL} * {scale:.3e}"
+        )
+    return err, scale, plain
+
+
+def _chain_inputs(rng, spec, kn, dev):
+    n_in = spec.gate_strides[0].numel_in
+    x = torch.from_numpy(rng.standard_normal(2 * n_in, dtype=np.float32))
+    ys = [
+        torch.from_numpy(rng.standard_normal((2, K, N), dtype=np.float32))
+        for K, N in kn
+    ]
+    return x.to(dev), [y.to(dev) for y in ys]
+
+
+def phase_chains(dev):
+    """Every chain of the t27 plan, kernel vs plain, at full size, with
+    the library call's time and the bound; then the two-pass synthetic
+    chain."""
+    from cotengra_tpu_torch.ops.gate_chains import (
+        chain_tile_plan,
         run_chain_cuda,
         run_chain_plain,
     )
@@ -277,44 +376,77 @@ def phase_chains(dev):
     rows = []
     for ci, rec in enumerate(recs):
         spec = rec.spec
-        n_in = spec.gate_strides[0].numel_in
-        x = torch.from_numpy(
-            rng.standard_normal(2 * n_in, dtype=np.float32)
-        ).to(dev)
-        ys = [
-            torch.from_numpy(
-                rng.standard_normal((2, K, N), dtype=np.float32)
-            ).to(dev)
-            for _, _, K, N in rec.ys
-        ]
-        plain = run_chain_plain(spec, x, ys)
-        kern = run_chain_cuda(spec, x, ys)
-        torch.cuda.synchronize()
-        err = (kern - plain).abs().max().item()
-        scale = plain.abs().max().item()
-        if not (np.isfinite(err) and err <= CHAIN_RTOL * scale):
+        kn = [(K, N) for _, _, K, N in rec.ys]
+        plan = chain_tile_plan(spec)
+        if len(plan) != 1:
+            raise AssertionError(f"chain {ci}: {len(plan)} passes, not 1")
+        x, ys = _chain_inputs(rng, spec, kn, dev)
+        n_in = x.numel() // 2
+        err, scale, plain = _check_chain(f"chain {ci}", spec, x, ys)
+        # the library call: one torch.einsum on complex64 inputs made
+        # outside the timed region, held to the plain version
+        eq, ops = _chain_einsum(spec, x, ys)
+        lib = torch.view_as_real(torch.einsum(eq, *ops)).reshape(-1, 2)
+        lib_err = (torch.cat([lib[:, 0], lib[:, 1]]) - plain).abs().max()
+        if not lib_err.item() <= CHAIN_RTOL * scale:
             raise AssertionError(
-                f"chain {ci}: max|kernel-plain| = {err:.3e} > "
-                f"{CHAIN_RTOL} * {scale:.3e}"
+                f"chain {ci}: einsum {eq} off the plain version by "
+                f"{lib_err.item():.3e}"
             )
+        del plain, lib
         reps = 3 if n_in >= 2**26 else 10
+        # in turns: plain, kernel, library, library, kernel, plain
         plain_ms = _cuda_ms(lambda: run_chain_plain(spec, x, ys), reps)
         ms = _cuda_ms(lambda: run_chain_cuda(spec, x, ys), reps)
-        gates = [(g.kdims, g.ndims) for g in spec.gate_strides]
-        kn = [
-            (int(np.prod([d[0] for d in k])), int(np.prod([d[0] for d in n])))
-            for k, n in gates
-        ]
+        lib_ms = _cuda_ms(lambda: torch.einsum(eq, *ops), reps)
+        lib_ms = (lib_ms + _cuda_ms(lambda: torch.einsum(eq, *ops), reps)) / 2
+        ms = (ms + _cuda_ms(lambda: run_chain_cuda(spec, x, ys), reps)) / 2
+        plain_ms = (plain_ms + _cuda_ms(
+            lambda: run_chain_plain(spec, x, ys), reps)) / 2
         bound = _chain_bound(spec, kn)
+        ps = plan[0]
+        tiles = [g.numel_in for g in ps.tile] + [ps.tile[-1].numel_out]
         print(
-            f"# chain {ci:2d}: numel 2^{int(np.log2(n_in))} gates (K,N) "
-            f"{kn} max_abs_err {err:.3e} (max|plain| {scale:.3e}) "
-            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound "
-            f"{bound[0]:.3f} ms ({bound[1]})",
+            f"# chain {ci:2d}: numel 2^{int(np.log2(n_in))} -> "
+            f"2^{int(np.log2(ps.io.numel_out))} gates (K,N) {kn} tile "
+            f"{max(tiles)} x batch tile {ps.batch_tile} smem "
+            f"{ps.smem_bytes} passes {len(plan)} max_abs_err {err:.3e} "
+            f"(max|plain| {scale:.3e}) kernel {ms:.3f} ms plain "
+            f"{plain_ms:.3f} ms library {lib_ms:.3f} ms bound "
+            f"{bound[0]:.3f} ms ({bound[1]}; {100 * bound[0] / ms:.0f}% "
+            f"of it)",
             flush=True,
         )
-        rows.append((err, ms, plain_ms, bound))
-        del x, ys, plain, kern
+        rows.append((err, ms, plain_ms, bound, lib_ms))
+        del x, ys, ops
+    torch.cuda.empty_cache()
+    print(
+        f"# chains per slice: kernel {sum(r[1] for r in rows):.3f} ms "
+        f"plain {sum(r[2] for r in rows):.3f} ms library "
+        f"{sum(r[4] for r in rows):.3f} ms bound "
+        f"{sum(r[3][0] for r in rows):.3f} ms",
+        flush=True,
+    )
+
+    spec, kn = _synthetic_chain()
+    plan = chain_tile_plan(spec)
+    if len(plan) < 2:
+        raise AssertionError(f"synthetic chain: {len(plan)} pass, not >= 2")
+    x, ys = _chain_inputs(rng, spec, kn, dev)
+    before = run_chain_cuda.launches
+    err, scale, _ = _check_chain("synthetic chain", spec, x, ys)
+    if run_chain_cuda.launches - before != len(plan):
+        raise AssertionError("synthetic chain: launches != passes")
+    ms = _cuda_ms(lambda: run_chain_cuda(spec, x, ys), 10)
+    print(
+        f"# synthetic chain: numel 2^24, {len(kn)} gates (4,4), passes "
+        f"{[p.gates for p in plan]} tiles "
+        f"{[max(g.numel_in for g in p.tile) for p in plan]} max_abs_err "
+        f"{err:.3e} (max|plain| {scale:.3e}) kernel {ms:.3f} ms bound "
+        f"{_chain_bound(spec, kn)[0]:.3f} ms (one pass)",
+        flush=True,
+    )
+    del x, ys
     torch.cuda.empty_cache()
     return rows
 
@@ -358,7 +490,7 @@ def phase_main_path(plan_name, n_ref, dev, passes=3):
             f"{plan_name}: {tree.multiplicity} slices, sidecar has "
             f"{sorted(refs)}"
         )
-    expect = sum(len(rec.ys) for rec in _chain_recs(tree)) * n_ref
+    expect = _chain_passes(tree) * n_ref
     torch.cuda.reset_peak_memory_stats()
 
     _reset_launches()
@@ -372,7 +504,7 @@ def phase_main_path(plan_name, n_ref, dev, passes=3):
     relerr = abs(amp0 - ref) / abs(ref)
     if counts != {"gate_chain": expect, "bmm_absmax": 0}:
         raise AssertionError(
-            f"{plan_name}: launches {counts}, plan has {expect} gates"
+            f"{plan_name}: launches {counts}, plan has {expect} passes"
         )
     if not relerr <= AMP_RTOL:
         raise AssertionError(
@@ -564,7 +696,7 @@ def phase_t27_stripped(dev):
 
     tree, arrays, refs = _load_instance("sycamore53_m10_t27")
     n_ref = tree.multiplicity
-    expect = sum(len(rec.ys) for rec in _chain_recs(tree)) * n_ref
+    expect = _chain_passes(tree) * n_ref
     _reset_launches()
     m, e = ctt.contract_tree(tree, arrays, device=dev, strip_exponent=True)
     torch.cuda.synchronize()
@@ -574,7 +706,7 @@ def phase_t27_stripped(dev):
     relerr = abs(amp - ref) / abs(ref)
     if counts != {"gate_chain": expect, "bmm_absmax": 0}:
         raise AssertionError(
-            f"stripped t27: launches {counts}, plan has {expect} gates"
+            f"stripped t27: launches {counts}, plan has {expect} passes"
         )
     if not relerr <= AMP_RTOL:
         raise AssertionError(
@@ -590,7 +722,7 @@ def phase_t27_stripped(dev):
 
 
 def _kernel_class(name):
-    if "gate_apply_kernel" in name:
+    if "gate_chain_kernel" in name:
         return "gate-chain kernel"
     if any(k in name for k in ("bmm_absmax_kernel", "splitk_reduce_absmax",
                                "presplit_kernel")):
@@ -738,8 +870,8 @@ def main():
             "plain_ms": sum(r[2] for r in chain_rows),
             "bound_ms": sum(r[3][0] for r in chain_rows),
             "bound_by": _dominant(r[3] for r in chain_rows),
-            # no single PyTorch call applies a chain of gates
-            "library_ms": None,
+            # one torch.einsum per chain over complex64 x and its gates
+            "library_ms": sum(r[4] for r in chain_rows),
         },
         {
             # per slice: one slice's kernel steps, summed over the plan's

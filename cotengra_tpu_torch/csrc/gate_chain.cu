@@ -1,207 +1,536 @@
-// In-place gate chain, one gate per launch, on split-complex float32 planes.
+// In-place gate chain on split-complex float32 planes, one launch per
+// pass: a run of the chain's gates applied to tiles of x held in shared
+// memory, so each pass reads x from HBM once and writes out once.
 //
 // Replaces the TPU kernel cotengra_tpu/ops/pallas_gates.py::_build_pallas_fn
-// (driven by run_chain there). That kernel views the flat planes as
-// (2, above..., R2, C) (8,128)-tiles and reaches gate axes inside a tile
-// with rolls, masks and coefficient fields; none of that is needed here.
-// This kernel indexes every gate axis by its stride:
+// (driven by run_chain there), which loads one (seg, C-block) tile of x
+// into VMEM, applies every gate of the chain to it and stores it once.
+// Each gate computes
 //
 //   out[b, n] = sum_k y[k, n] * x[b, k]          (complex, planes apart)
 //
-// where b runs over the untouched legs (merged into runs that are
-// contiguous in both x and out), k over the gate's contracted legs and n
-// over its new legs. The host side (ops/gate_chains.py::gate_strides)
-// builds the stride tables from each gate's recorded input and output
-// leg order; a chain is one launch per gate.
+// over its contracted legs k and new legs n. A pass's *tile* is the set
+// of legs that any of its gates contracts or creates, widened by x's and
+// out's innermost untouched legs until it covers 32 contiguous floats
+// of both (one 128-byte line per warp access); the remaining untouched
+// legs are the batch. The host (ops/gate_chains.py::chain_tile_plan)
+// cuts the chain into passes (the whole chain on the m=10 plans), lays
+// each tile out in x's leg order of the moment (the order changes from
+// gate to gate, as x's does) and hands over index tables: the x offset
+// of each input tile position (gather) and, per gate, the offsets of
+// y's K and N legs and of the tile's other legs in the tiles before and
+// after it - for the pass's last gate, after it means in out. Each index
+// space is stored as two short tables, offset(i) = hi[i / L] + lo[i % L].
 //
-// What bounds it on an H100: bytes. A gate reads 2*numel_in*4 B and
-// writes 2*numel_out*4 B; per batch element that is 8*K*N flops for
-// 8*(K+N) bytes, at most 8 flop/B on the m=10 plans (K, N <= 32), below
-// the ~20 flop/B at which the card's fp32 units would limit instead.
-// The design keeps each x element read once per gate: a thread
-// owns one b, loads its K complex inputs into registers (unrolled for
-// K <= 32), keeps y in shared memory, and writes its N outputs;
-// neighbouring threads take neighbouring b, so the innermost untouched
-// run gives coalesced reads and writes. The TPU kernel's point - fusing
-// the whole chain into one read and one write of x - is the first
-// performance change to make here, once a benchmark exists.
+// What bounds it on an H100: bytes. Per batch element a gate does
+// 8*K*N flops on 8*(K+N) bytes of x and out, at most 8 flop/B on the
+// m=10 plans, below the ~20 flop/B where the card's fp32 units would
+// limit instead; so nothing here spends effort on tensor cores (whose
+// TF32 would also cost accuracy, and wgmma wants 64-row tiles that a
+// K, N <= 32 gate does not fill) and everything on moving each byte of x
+// and out once. Persistent blocks (one or two per SM) walk over batch
+// tiles: a batch tile is batch_tile batch elements x the whole tile of
+// legs. Its x planes are gathered into shared memory with cp.async in a
+// ring of up to 4 batch tiles (the host picks the depth that keeps the
+// most bytes in flight), while the block computes an earlier one. The
+// pass's gates run from buffer to buffer in shared memory, a
+// __syncthreads() between gates; the last gate writes its outputs
+// straight to out, in the output's leg order, so stores overlap the
+// arithmetic and no final shared-memory round trip is made. Neighbouring
+// threads take neighbouring tile positions, which the tile's innermost
+// 32 floats make neighbouring addresses in x and out. TMA does not fit:
+// a tile's legs are scattered through x with up to ~21 distinct strides,
+// which no 5-D box describes, and a gather of 128-byte runs is what
+// cp.async does well.
 //
-// Index arithmetic: offsets are 64-bit (the m=20 plans reach 2^30 plane
-// elements); the batch counter is unravelled in 32-bit, which the host
-// guarantees by rejecting gates with 2^32 or more batch elements.
+// Shared memory per block (the host's _pass_smem_bytes counts the same):
+// every gate's y (K*N complex each, at most 8 x 512), the ring slots of
+// the input tile and up to two work buffers of the largest intermediate
+// tile (complex pairs, per batch element), the batch offsets (int64,
+// x and out, ring depth + 2 tiles) and the int32 index tables; at most
+// 227 KB (requested above 48 KB with cudaFuncSetAttribute). Blocks of
+// 256 threads where two share an SM, else 512.
+//
+// Index arithmetic: HBM offsets are 64-bit (the m=20 plans reach 2^30
+// plane elements); counters are 32-bit, divided by precomputed
+// multiplicative inverses (the host rejects x or out of 2^31 elements
+// or more).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#define MAX_PASS_GATES 8
 #define MAX_BATCH_DIMS 24
-#define MAX_GATE_AXES 16
 #define MAX_GATE_COMBOS 512
+#define MAX_THREADS 512
+#define MAX_STAGES 4
+#define SMEM_LIMIT 232448
+#define META_HEAD 12
+#define META_GATE 12
 
-struct GateArgs {
-  int nb, nk, nn, K, N;
-  int64_t n_batch, in_plane, out_plane;
-  uint32_t b_size[MAX_BATCH_DIMS];
-  int64_t b_in[MAX_BATCH_DIMS];
-  int64_t b_out[MAX_BATCH_DIMS];
-  int64_t k_size[MAX_GATE_AXES], k_stride[MAX_GATE_AXES];
-  int64_t n_size[MAX_GATE_AXES], n_stride[MAX_GATE_AXES];
+// n / d for 0 <= n < 2^32 and 1 <= d < 2^31 by one multiply-high
+// (Granlund & Montgomery, "Division by invariant integers using
+// multiplication", fig. 4.1)
+struct FastDiv {
+  uint32_t d, m;
+  int s1, s2;
 };
 
-// offset of flat index i over row-major axes (sizes, strides)
-__device__ __forceinline__ int64_t axes_offset(int i, int naxes,
-                                               const int64_t* sizes,
-                                               const int64_t* strides) {
-  int64_t off = 0;
-  for (int d = naxes - 1; d >= 0; --d) {
-    int64_t s = sizes[d];
-    off += (i % s) * strides[d];
-    i /= s;
-  }
-  return off;
+static FastDiv make_div(uint32_t d) {
+  FastDiv f;
+  int l = 0;
+  while ((1ull << l) < d) ++l;  // ceil(log2 d)
+  f.d = d;
+  f.m = (uint32_t)(((((1ull << l) - d)) << 32) / d + 1);
+  f.s1 = l < 1 ? l : 1;
+  f.s2 = l > 1 ? l - 1 : 0;
+  return f;
 }
 
-// KMAX > 0: x values held in registers (K <= KMAX);
-// KMAX == 0: any K up to MAX_GATE_COMBOS, x re-read from memory per n.
-template <int KMAX>
-__global__ void __launch_bounds__(256)
-gate_apply_kernel(const float* __restrict__ x, float* __restrict__ out,
-                  const float* __restrict__ y, const GateArgs a) {
-  __shared__ float s_yr[MAX_GATE_COMBOS];
-  __shared__ float s_yi[MAX_GATE_COMBOS];
-  __shared__ int64_t s_koff[MAX_GATE_COMBOS];
-  __shared__ int64_t s_noff[MAX_GATE_COMBOS];
-  const int K = a.K, N = a.N, KN = a.K * a.N;
-  for (int i = threadIdx.x; i < KN; i += blockDim.x) {
-    s_yr[i] = y[i];
-    s_yi[i] = y[KN + i];
-  }
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    s_koff[k] = axes_offset(k, a.nk, a.k_size, a.k_stride);
-  for (int n = threadIdx.x; n < N; n += blockDim.x)
-    s_noff[n] = axes_offset(n, a.nn, a.n_size, a.n_stride);
-  __syncthreads();
+__device__ __forceinline__ uint32_t fdiv(uint32_t n, const FastDiv& f) {
+  const uint32_t t = __umulhi(n, f.m);
+  return (t + ((n - t) >> f.s1)) >> f.s2;
+}
 
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       b < a.n_batch; b += step) {
-    uint32_t rem = (uint32_t)b;
-    int64_t in_off = 0, out_off = 0;
+struct ChainGate {
+  const float* y;            // (2, K, N) on the device
+  int K, N, tin, tout;       // tile sizes before and after the gate
+  int koff, noff;            // table positions: y's K and N legs
+  int oin_hi, oin_lo, oout_hi, oout_lo;  // the tile's other legs
+  int yoff;                  // this gate's y (float2) in shared memory
+  FastDiv O, L;              // other-leg count tin / K; len(lo)
+};
+
+struct PassArgs {
+  int ngates, E, S, nb, twork, nwork, table_len, kn_len;
+  int g_hi, g_lo;
+  int64_t n_tiles, in_plane, out_plane;
+  uint32_t n_batch;
+  FastDiv tin, gL, Ediv;
+  FastDiv b_size[MAX_BATCH_DIMS];
+  int64_t b_in[MAX_BATCH_DIMS], b_out[MAX_BATCH_DIMS];
+  ChainGate g[MAX_PASS_GATES];
+};
+
+__device__ __forceinline__ void cp_async4(float* smem_dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` (0..MAX_STAGES-2) groups are in flight
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending >= 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// batch elements of tile `tile` that exist (the last tile may be short)
+__device__ __forceinline__ int tile_count(const PassArgs& a, int64_t tile) {
+  const int64_t left = (int64_t)a.n_batch - tile * a.E;
+  return left < a.E ? (int)left : a.E;
+}
+
+// x and out offsets of each batch element of `tile` into boff[0..E),
+// boff[E..2E)
+__device__ void batch_offsets(const PassArgs& a, int64_t tile,
+                              int64_t* boff) {
+  const int ev = tile_count(a, tile);
+  for (int e = threadIdx.x; e < ev; e += blockDim.x) {
+    uint32_t rem = (uint32_t)(tile * a.E + e);
+    int64_t oi = 0, oo = 0;
     for (int d = a.nb - 1; d >= 0; --d) {
-      uint32_t s = a.b_size[d];
-      uint32_t q = rem / s;
-      uint32_t c = rem - q * s;
+      const uint32_t q = fdiv(rem, a.b_size[d]);
+      const uint32_t c = rem - q * a.b_size[d].d;
       rem = q;
-      in_off += (int64_t)c * a.b_in[d];
-      out_off += (int64_t)c * a.b_out[d];
+      oi += (int64_t)c * a.b_in[d];
+      oo += (int64_t)c * a.b_out[d];
     }
-    const float* xr_base = x + in_off;
-    const float* xi_base = x + a.in_plane + in_off;
-    float* or_base = out + out_off;
-    float* oi_base = out + a.out_plane + out_off;
-    if constexpr (KMAX > 0) {
-      float xr[KMAX], xi[KMAX];
+    boff[e] = oi;
+    boff[a.E + e] = oo;
+  }
+}
+
+// start the gather of tile `tile` (x offsets in boff) into the ring slot
+// dst, complex pairs [E][tin]
+__device__ void issue_load(const PassArgs& a, const float* __restrict__ x,
+                           float2* dst, const int64_t* boff, const int* tab,
+                           int ev) {
+  const int tin = (int)a.tin.d, L = (int)a.gL.d;
+  const int g_hi = a.g_hi, g_lo = a.g_lo;
+  const int64_t in_plane = a.in_plane;
+  const int total = ev * tin;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int e = (int)fdiv(i, a.tin);
+    const int t = i - e * tin;
+    const int q = (int)fdiv(t, a.gL);
+    const float* src = x + boff[e] + tab[g_hi + q] + tab[g_lo + t - q * L];
+    cp_async4(&dst[i].x, src);
+    cp_async4(&dst[i].y, src + in_plane);
+  }
+}
+
+// one gate from src to dst inside shared memory (complex pairs) or, for
+// the pass's last gate (TO_OUT), from src to out: there the output
+// offsets are out's, from the batch element's offset bout[e]. A work item
+// is one position o of the tile's other legs of one batch element, and
+// NB of the gate's N outputs there: KN > 0 holds the K inputs in
+// registers (K == KN) and runs 2 * NB independent sums; KN == 0 takes any
+// K, one output at a time. Items run o fastest, so the lanes of a warp
+// read and write neighbouring positions (neighbouring addresses of out
+// where its innermost legs are the tile's).
+template <int KN, int NB, bool TO_OUT>
+__device__ void apply_gate(const ChainGate& g, const float2* src,
+                           float2* dst, float* __restrict__ out,
+                           const int64_t* bout, int64_t out_plane,
+                           const float2* sy, const int* tab, int ev,
+                           const FastDiv& Ediv) {
+  const int K = KN > 0 ? KN : g.K;
+  const int N = g.N, O = (int)g.O.d, L = (int)g.L.d, E = (int)Ediv.d;
+  const int tin = g.tin, tout = g.tout;
+  const float2* y = sy + g.yoff;
+  const int* koff = tab + g.koff;
+  const int* noff = tab + g.noff;
+  const int* oin_hi = tab + g.oin_hi;
+  const int* oin_lo = tab + g.oin_lo;
+  const int* oout_hi = tab + g.oout_hi;
+  const int* oout_lo = tab + g.oout_lo;
+  // y's K-leg offsets are the same for every item: held in registers
+  int ko[KN > 0 ? KN : 1];
+  if constexpr (KN > 0) {
 #pragma unroll
-      for (int k = 0; k < KMAX; ++k) {
-        if (k < K) {
-          xr[k] = __ldg(xr_base + s_koff[k]);
-          xi[k] = __ldg(xi_base + s_koff[k]);
-        }
-      }
-      for (int n = 0; n < N; ++n) {
-        float accr = 0.f, acci = 0.f;
+    for (int k = 0; k < KN; ++k) ko[k] = koff[k];
+  }
+  const int total = E * O * (N / NB);
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int eb = (int)fdiv(i, g.O);
+    const int o = i - eb * O;
+    const int nb = (int)fdiv(eb, Ediv);
+    const int e = eb - nb * E;
+    if (e >= ev) continue;
+    const int q = (int)fdiv(o, g.L);
+    const int r = o - q * L;
+    const float2* s = src + e * tin + oin_hi[q] + oin_lo[r];
+    const int n0 = nb * NB;
+    float ar[NB], ai[NB];
 #pragma unroll
-        for (int k = 0; k < KMAX; ++k) {
-          if (k < K) {
-            const float yr = s_yr[k * N + n], yi = s_yi[k * N + n];
-            accr = fmaf(yr, xr[k], fmaf(-yi, xi[k], accr));
-            acci = fmaf(yr, xi[k], fmaf(yi, xr[k], acci));
+    for (int j = 0; j < NB; ++j) ar[j] = ai[j] = 0.f;
+    if constexpr (KN > 0) {
+      float2 xv[KN];
+#pragma unroll
+      for (int k = 0; k < KN; ++k) xv[k] = s[ko[k]];
+#pragma unroll
+      for (int k = 0; k < KN; ++k) {
+        float2 v[NB];
+        if constexpr (NB % 2 == 0) {
+          // y rows start 16-byte aligned: N is even and each gate's y
+          // begins on an even pair
+          const float4* y4 = reinterpret_cast<const float4*>(y + k * N + n0);
+#pragma unroll
+          for (int j = 0; j < NB / 2; ++j) {
+            const float4 w = y4[j];
+            v[2 * j] = make_float2(w.x, w.y);
+            v[2 * j + 1] = make_float2(w.z, w.w);
           }
+        } else {
+          v[0] = y[k * N + n0];
         }
-        or_base[s_noff[n]] = accr;
-        oi_base[s_noff[n]] = acci;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          ar[j] = fmaf(v[j].x, xv[k].x, fmaf(-v[j].y, xv[k].y, ar[j]));
+          ai[j] = fmaf(v[j].x, xv[k].y, fmaf(v[j].y, xv[k].x, ai[j]));
+        }
       }
     } else {
-      for (int n = 0; n < N; ++n) {
-        float accr = 0.f, acci = 0.f;
-        for (int k = 0; k < K; ++k) {
-          const float vr = __ldg(xr_base + s_koff[k]);
-          const float vi = __ldg(xi_base + s_koff[k]);
-          const float yr = s_yr[k * N + n], yi = s_yi[k * N + n];
-          accr = fmaf(yr, vr, fmaf(-yi, vi, accr));
-          acci = fmaf(yr, vi, fmaf(yi, vr, acci));
-        }
-        or_base[s_noff[n]] = accr;
-        oi_base[s_noff[n]] = acci;
+      for (int k = 0; k < K; ++k) {
+        const float2 xk = s[koff[k]];
+        const float2 v = y[k * N + n0];
+        ar[0] = fmaf(v.x, xk.x, fmaf(-v.y, xk.y, ar[0]));
+        ai[0] = fmaf(v.x, xk.y, fmaf(v.y, xk.x, ai[0]));
       }
+    }
+    if constexpr (TO_OUT) {
+      float* d = out + bout[e] + oout_hi[q] + oout_lo[r];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const int no = noff[n0 + j];
+        d[no] = ar[j];
+        d[out_plane + no] = ai[j];
+      }
+    } else {
+      float2* d = dst + e * tout + oout_hi[q] + oout_lo[r];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) d[noff[n0 + j]] = make_float2(ar[j], ai[j]);
     }
   }
 }
 
-template <int KMAX>
-static void launch(const float* x, float* out, const float* y,
-                   const GateArgs& a, cudaStream_t stream) {
-  const int threads = 256;
-  int64_t blocks = (a.n_batch + threads - 1) / threads;
-  // grid-stride loop beyond ~16 blocks per SM of an H100
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  if (blocks < 1) blocks = 1;
-  gate_apply_kernel<KMAX><<<(unsigned)blocks, threads, 0, stream>>>(
-      x, out, y, a);
+// NB outputs an item: 8 where K >= 8, else 4 where N allows (registers:
+// K inputs and 2 * NB sums)
+template <int KN, bool TO_OUT>
+__device__ void apply_gate_nb(const ChainGate& g, const float2* src,
+                              float2* dst, float* out, const int64_t* bout,
+                              int64_t out_plane, const float2* sy,
+                              const int* tab, int ev, const FastDiv& Ediv) {
+  if (KN >= 8 && g.N % 8 == 0)
+    apply_gate<KN, 8, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab, ev,
+                              Ediv);
+  else if (g.N % 4 == 0)
+    apply_gate<KN, 4, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab, ev,
+                              Ediv);
+  else if (g.N % 2 == 0)
+    apply_gate<KN, 2, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab, ev,
+                              Ediv);
+  else
+    apply_gate<KN, 1, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab, ev,
+                              Ediv);
 }
 
-// meta (host memory, int64): nb, nk, nn, n_batch, numel_in, numel_out,
-// then (size, in_stride, out_stride) per batch run, (size, stride) per
-// contracted axis (x strides), (size, stride) per new axis (out strides).
+template <bool TO_OUT>
+__device__ void apply_any_gate(const ChainGate& g, const float2* src,
+                               float2* dst, float* out, const int64_t* bout,
+                               int64_t out_plane, const float2* sy,
+                               const int* tab, int ev, const FastDiv& Ediv) {
+  switch (g.K) {
+    case 2:
+      apply_gate_nb<2, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab,
+                               ev, Ediv);
+      break;
+    case 4:
+      apply_gate_nb<4, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab,
+                               ev, Ediv);
+      break;
+    case 8:
+      apply_gate_nb<8, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab,
+                               ev, Ediv);
+      break;
+    case 16:
+      apply_gate_nb<16, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab,
+                                ev, Ediv);
+      break;
+    case 32:
+      apply_gate_nb<32, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab,
+                                ev, Ediv);
+      break;
+    default:
+      apply_gate<0, 1, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab,
+                               ev, Ediv);
+  }
+}
+
+// Shared memory: every gate's y as (re, im) pairs (each gate's from an
+// even pair: 16-byte aligned rows where N is even), S ring slots of the
+// input tile [E][tin] and up to two work buffers [E][twork] (the tiles
+// between gates) of complex pairs, batch offsets [S + 2][x, out][E]
+// (int64), the index tables.
+// Tiles: this block takes tiles blockIdx.x + k * gridDim.x, k = 0, 1, ...;
+// tile k loads into slot k % S with its offsets in entry k % (S + 2).
+__global__ void __launch_bounds__(MAX_THREADS)
+gate_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
+                  const int* __restrict__ tables,
+                  const __grid_constant__ PassArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int S = a.S, E = a.E;
+  const int PS = E * (int)a.tin.d, PW = E * a.twork;  // buffer sizes
+  float2* const sy = reinterpret_cast<float2*>(smem_raw);
+  float2* const slots = sy + a.kn_len;
+  float2* const work = slots + S * PS;
+  int64_t* const boff = reinterpret_cast<int64_t*>(work + a.nwork * PW);
+  int* const tab = reinterpret_cast<int*>(boff + 2 * (S + 2) * E);
+
+  for (int i = threadIdx.x; i < a.table_len; i += blockDim.x)
+    tab[i] = tables[i];
+  for (int j = 0; j < a.ngates; ++j) {
+    const ChainGate& g = a.g[j];
+    const int kn = g.K * g.N;
+    for (int i = threadIdx.x; i < kn; i += blockDim.x)
+      sy[g.yoff + i] = make_float2(g.y[i], g.y[kn + i]);
+  }
+
+  const int64_t step = gridDim.x;
+  const int64_t first = blockIdx.x;
+  for (int k = 0; k < S; ++k) {
+    const int64_t t = first + k * step;
+    if (t < a.n_tiles) batch_offsets(a, t, boff + k * 2 * E);
+  }
+  __syncthreads();
+  for (int k = 0; k < S - 1; ++k) {
+    const int64_t t = first + k * step;
+    if (t < a.n_tiles)
+      issue_load(a, x, slots + k * PS, boff + k * 2 * E, tab,
+                 tile_count(a, t));
+    cp_async_commit();
+  }
+  for (int64_t i = 0;; ++i) {
+    const int64_t tile = first + i * step;
+    if (tile >= a.n_tiles) break;
+    // tile i has landed once at most S - 2 later groups are pending; the
+    // barrier also ends every read of tile i - 1 (its last gate may read
+    // its ring slot), so that slot takes tile i + S - 1 after it
+    cp_async_wait(S - 2);
+    __syncthreads();
+    const int64_t ka = i + S - 1, kb = i + S;
+    if (first + ka * step < a.n_tiles)
+      issue_load(a, x, slots + (ka % S) * PS, boff + (ka % (S + 2)) * 2 * E,
+                 tab, tile_count(a, first + ka * step));
+    cp_async_commit();
+    // offsets of tile i + S, read after the next iteration's barrier; its
+    // entry was last read by tile i - 2
+    if (first + kb * step < a.n_tiles)
+      batch_offsets(a, first + kb * step, boff + (kb % (S + 2)) * 2 * E);
+
+    const int ev = tile_count(a, tile);
+    const float2* src = slots + (i % S) * PS;
+    float2* dst = work;
+    for (int j = 0; j + 1 < a.ngates; ++j) {
+      apply_any_gate<false>(a.g[j], src, dst, nullptr, nullptr, 0, sy, tab,
+                            ev, a.Ediv);
+      __syncthreads();
+      src = dst;
+      dst = (dst == work) ? work + PW : work;
+    }
+    // the last gate writes out; what it reads is overwritten only after
+    // the next iteration's barrier
+    apply_any_gate<true>(a.g[a.ngates - 1], src, nullptr, out,
+                         boff + ((i % (S + 2)) * 2 + 1) * E, a.out_plane,
+                         sy, tab, ev, a.Ediv);
+  }
+}
+
+static bool in_table(int64_t pos, int64_t len, int64_t table_len) {
+  return pos >= 0 && len >= 0 && pos + len <= table_len;
+}
+
+// meta (host memory, int64), as ops/gate_chains.py::_pass_kernel_args
+// writes it: a header (gates, batch tile, ring stages, batch runs,
+// largest intermediate tile, batch count, x and out elements per plane,
+// table length, then hi position, lo position and len(lo) of the
+// gather); per gate (y pointer, K, N, tile in, tile out, koff, noff, oin hi, oin
+// lo, oout hi, oout lo, len(lo) of oin and oout); per batch run (size,
+// x stride, out stride). tables: the int32 index tables on the device.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an argument block the kernel cannot take.
-extern "C" int ctg_gate_apply_f32(const float* x, float* out,
-                                  const float* y, const int64_t* meta,
+extern "C" int ctg_gate_chain_f32(const float* x, float* out,
+                                  const int* tables, const int64_t* meta,
                                   int meta_len, void* stream) {
-  if (meta_len < 6) return (int)cudaErrorInvalidValue;
-  GateArgs a;
-  a.nb = (int)meta[0];
-  a.nk = (int)meta[1];
-  a.nn = (int)meta[2];
-  a.n_batch = meta[3];
-  a.in_plane = meta[4];
-  a.out_plane = meta[5];
-  if (a.nb < 0 || a.nb > MAX_BATCH_DIMS || a.nk < 0 ||
-      a.nk > MAX_GATE_AXES || a.nn < 0 || a.nn > MAX_GATE_AXES ||
-      meta_len != 6 + 3 * a.nb + 2 * a.nk + 2 * a.nn ||
-      a.n_batch < 0 || a.n_batch >= ((int64_t)1 << 32))
-    return (int)cudaErrorInvalidValue;
-  const int64_t* p = meta + 6;
+  const int bad = (int)cudaErrorInvalidValue;
+  if (meta_len < META_HEAD) return bad;
+  PassArgs a = {};
+  a.ngates = (int)meta[0];
+  a.E = (int)meta[1];
+  a.S = (int)meta[2];
+  a.nb = (int)meta[3];
+  a.twork = (int)meta[4];
+  const int64_t n_batch = meta[5];
+  a.in_plane = meta[6];
+  a.out_plane = meta[7];
+  a.table_len = (int)meta[8];
+  if (a.ngates < 1 || a.ngates > MAX_PASS_GATES || a.nb < 0 ||
+      a.nb > MAX_BATCH_DIMS ||
+      meta_len != META_HEAD + META_GATE * a.ngates + 3 * a.nb ||
+      a.E < 1 || a.S < 2 || a.S > MAX_STAGES || a.twork < 0 ||
+      meta[4] >= ((int64_t)1 << 24) || n_batch < 0 || a.in_plane < 0 ||
+      a.out_plane < 0 || a.in_plane >= ((int64_t)1 << 31) ||
+      a.out_plane >= ((int64_t)1 << 31) || meta[8] < 0 ||
+      meta[8] >= ((int64_t)1 << 24))
+    return bad;
+  a.nwork = a.ngates - 1 < 2 ? a.ngates - 1 : 2;
+  a.n_batch = (uint32_t)n_batch;
+  a.n_tiles = (n_batch + a.E - 1) / a.E;
+
+  const int64_t* p = meta + META_HEAD;
+  int kn_len = 0;
+  for (int j = 0; j < a.ngates; ++j, p += META_GATE) {
+    ChainGate& g = a.g[j];
+    g.y = reinterpret_cast<const float*>(p[0]);
+    const int64_t K = p[1], N = p[2], tin = p[3], tout = p[4], L = p[11];
+    // the tiles between gates live in the work buffers
+    if (K < 1 || N < 1 || K * N > MAX_GATE_COMBOS || tin < 1 || tout < 1 ||
+        tin >= ((int64_t)1 << 24) || tout >= ((int64_t)1 << 24) ||
+        (j > 0 && tin > a.twork) || (j + 1 < a.ngates && tout > a.twork) ||
+        tin % K || tin / K * N != tout || L < 1 || (tin / K) % L ||
+        g.y == nullptr)
+      return bad;
+    if (j > 0 && a.g[j - 1].tout != tin) return bad;
+    g.K = (int)K;
+    g.N = (int)N;
+    g.tin = (int)tin;
+    g.tout = (int)tout;
+    g.koff = (int)p[5];
+    g.noff = (int)p[6];
+    g.oin_hi = (int)p[7];
+    g.oin_lo = (int)p[8];
+    g.oout_hi = (int)p[9];
+    g.oout_lo = (int)p[10];
+    const int64_t O = tin / K;
+    if (!in_table(p[5], K, a.table_len) || !in_table(p[6], N, a.table_len) ||
+        !in_table(p[7], O / L, a.table_len) ||
+        !in_table(p[8], L, a.table_len) ||
+        !in_table(p[9], O / L, a.table_len) ||
+        !in_table(p[10], L, a.table_len))
+      return bad;
+    g.O = make_div((uint32_t)O);
+    g.L = make_div((uint32_t)L);
+    g.yoff = kn_len;
+    kn_len += (int)((K * N + 1) / 2 * 2);
+  }
+  a.kn_len = kn_len;
+  const int tin = a.g[0].tin, tout = a.g[a.ngates - 1].tout;
+  const int64_t gL = meta[11];
+  if (gL < 1 || tin % gL || !in_table(meta[9], tin / gL, a.table_len) ||
+      !in_table(meta[10], gL, a.table_len))
+    return bad;
+  a.g_hi = (int)meta[9];
+  a.g_lo = (int)meta[10];
+  a.tin = make_div((uint32_t)tin);
+  a.gL = make_div((uint32_t)gL);
+  a.Ediv = make_div((uint32_t)a.E);
+
+  int64_t batch = 1;
   for (int d = 0; d < a.nb; ++d, p += 3) {
-    a.b_size[d] = (uint32_t)p[0];
+    if (p[0] < 1 || p[0] >= ((int64_t)1 << 31)) return bad;
+    a.b_size[d] = make_div((uint32_t)p[0]);
     a.b_in[d] = p[1];
     a.b_out[d] = p[2];
+    batch *= p[0];
   }
-  int64_t K = 1, N = 1;
-  for (int d = 0; d < a.nk; ++d, p += 2) {
-    a.k_size[d] = p[0];
-    a.k_stride[d] = p[1];
-    K *= p[0];
-  }
-  for (int d = 0; d < a.nn; ++d, p += 2) {
-    a.n_size[d] = p[0];
-    a.n_stride[d] = p[1];
-    N *= p[0];
-  }
-  if (K < 1 || N < 1 || K * N > MAX_GATE_COMBOS)
-    return (int)cudaErrorInvalidValue;
-  a.K = (int)K;
-  a.N = (int)N;
-  if (a.n_batch == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (K <= 4)
-    launch<4>(x, out, y, a, s);
-  else if (K <= 8)
-    launch<8>(x, out, y, a, s);
-  else if (K <= 16)
-    launch<16>(x, out, y, a, s);
-  else if (K <= 32)
-    launch<32>(x, out, y, a, s);
-  else
-    launch<0>(x, out, y, a, s);
+  if (batch != n_batch || n_batch * tin != a.in_plane ||
+      n_batch * tout != a.out_plane)
+    return bad;
+  if (n_batch == 0) return 0;
+
+  const int64_t smem = 8 * (int64_t)a.E *
+                           (a.S * (int64_t)tin + a.nwork * (int64_t)a.twork) +
+                       16 * (int64_t)a.E * (a.S + 2) + 8 * (int64_t)kn_len +
+                       4 * (int64_t)a.table_len;
+  if (smem > SMEM_LIMIT) return bad;
+  // two blocks of 256 threads share an SM where shared memory allows,
+  // else one of 512 (the registers of an SM hold 512 threads either way)
+  const int threads = 2 * smem <= SMEM_LIMIT ? MAX_THREADS / 2 : MAX_THREADS;
+  cudaError_t err = cudaFuncSetAttribute(
+      gate_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, gate_chain_kernel, threads, (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return bad;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  int64_t grid = (int64_t)per_sm * sms;
+  if (grid > a.n_tiles) grid = a.n_tiles;
+  gate_chain_kernel<<<(unsigned)grid, threads, (size_t)smem,
+                      (cudaStream_t)stream>>>(x, out, tables, a);
   return (int)cudaGetLastError();
 }

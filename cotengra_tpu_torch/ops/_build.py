@@ -126,11 +126,11 @@ def build_library():
 def load_library():
     """Build if needed, load, and declare the C functions' signatures."""
     lib = ctypes.CDLL(str(build_library()))
-    fn = lib.ctg_gate_apply_f32
+    fn = lib.ctg_gate_chain_f32
     fn.argtypes = [
         ctypes.c_void_p,                    # x (device)
         ctypes.c_void_p,                    # out (device)
-        ctypes.c_void_p,                    # y (device)
+        ctypes.c_void_p,                    # index tables (device)
         ctypes.POINTER(ctypes.c_int64),     # meta (host)
         ctypes.c_int,                       # meta length
         ctypes.c_void_p,                    # cudaStream_t

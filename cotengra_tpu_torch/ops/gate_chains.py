@@ -16,15 +16,19 @@ into one :class:`GateStrides` table per gate. The reference's
 ``_field_plan`` (coefficient fields of field-mode gates) has no
 counterpart: indexing gate axes by stride needs no fields.
 
-Execution (``run_chain``) applies the tables one gate at a time: CUDA
-tensors go through ``csrc/gate_chain.cu`` (one launch per gate), CPU
-tensors through ``run_chain_plain``.
+Execution (``run_chain``): CPU tensors go through ``run_chain_plain``,
+one strided complex matmul per gate. CUDA tensors go through
+``csrc/gate_chain.cu``, which applies a run of gates (a *pass*, the
+whole chain where shared memory allows) to tiles of x held in shared
+memory: one HBM read and one write per pass. ``chain_tile_plan`` cuts
+the chain into passes and describes each pass's tile.
 """
 
 import ctypes
 import itertools
 from collections import namedtuple
 
+import numpy as np
 import torch
 
 from ..utils.misc import prod
@@ -48,7 +52,9 @@ class ChainSpec:
     """Static description of one in-place gate chain.
 
     The fields up to ``grid`` are the reference's TPU view (compared by
-    ``key()``); ``gate_strides`` is what the port executes.
+    ``key()``); ``gate_strides`` is what the plain version executes,
+    ``gate_orders`` and ``leg_sizes`` what :func:`chain_tile_plan` cuts
+    into the kernel's passes.
     """
 
     __slots__ = (
@@ -58,7 +64,11 @@ class ChainSpec:
         "gates",
         "grid",
         "gate_strides",  # tuple of GateStrides, one per gate
+        # per gate (in_order, out_order, c_order, ny_order) of x's legs
+        "gate_orders",
+        "leg_sizes",     # {leg: size} of every leg the chain meets
         "_key",
+        "_tiles",        # chain_tile_plan's cache, by budget (and device)
     )
 
     def key(self):
@@ -92,12 +102,16 @@ def _strides(order, sizes):
     return st, s
 
 
-def gate_strides(in_order, out_order, c_order, ny_order, sizes):
+def gate_strides(in_order, out_order, c_order, ny_order, sizes,
+                 out_strides=None):
     """:class:`GateStrides` of one gate taking a tensor stored in
     ``in_order`` to one stored in ``out_order``, contracting ``c_order``
-    (y's K legs) and creating ``ny_order`` (y's N legs)."""
+    (y's K legs) and creating ``ny_order`` (y's N legs). ``out_strides``
+    ({leg: stride}) places the output in a larger tensor instead."""
     sin, numel_in = _strides(in_order, sizes)
     sout, numel_out = _strides(out_order, sizes)
+    if out_strides is not None:
+        sout = out_strides
     cset, nset = set(c_order), set(ny_order)
     batch_legs = [ix for ix in in_order if ix not in cset]
     if batch_legs != [ix for ix in out_order if ix not in nset]:
@@ -484,12 +498,21 @@ def build_chain_spec(order0, sizes, gates):
 
     spec.in_block = block_of(in_dims)
     spec.out_block = block_of(out_dims)
-    spec.gate_strides = tuple(
-        gate_strides(o_in, o_out, c_order, ny_order, sizes)
+    spec.gate_orders = tuple(
+        (o_in, o_out, c_order, ny_order)
         for (o_in, o_out), (c_order, ny_order) in zip(
             gate_orders, c_orders
         )
     )
+    spec.gate_strides = tuple(
+        gate_strides(*orders, sizes) for orders in spec.gate_orders
+    )
+    spec.leg_sizes = {
+        ix: sizes[ix]
+        for o_in, o_out, _, _ in spec.gate_orders
+        for ix in o_in + o_out
+    }
+    spec._tiles = {}
 
     return spec, tuple(order), tuple(c_orders)
 
@@ -534,33 +557,320 @@ def run_chain_plain(spec, x_flat, ys):
     return x_flat
 
 
+# -- the kernel's tile plan -------------------------------------------------
+# Shared memory one block of csrc/gate_chain.cu may take on an H100
+# (227 KB); the kernel's arrays are counted by ``_pass_smem_bytes``.
+SMEM_BUDGET = 232448
+# Loads and stores coalesce once the tile covers this many floats of
+# x's (and out's) innermost legs: one 128-byte line per warp access.
+COALESCE_FLOATS = 32
+# A block's batch tile holds about this many complex elements of x (16 KB
+# of both planes), and its load ring up to RING_STAGES batch tiles, so
+# that each SM keeps enough bytes in flight to cover HBM latency.
+TILE_ELEMS = 2048
+RING_STAGES = 4
 # limits of the kernel's argument block (csrc/gate_chain.cu)
-_MAX_BATCH_DIMS = 24
-_MAX_GATE_AXES = 16
+MAX_PASS_GATES = MAX_CHAIN_GATES
+MAX_BATCH_DIMS = 24
+
+# One pass of a chain as the kernel runs it (strides in elements).
+#   gates:      (first, stop) - the chain's gates ``first:stop``;
+#   legs:       the tile's legs (sorted): every leg the pass's gates
+#               contract or create, and the untouched legs that widen it;
+#   io:         GateStrides of the whole pass over x and out: ``batch``
+#               the untouched legs outside the tile (runs, as in
+#               gate_strides), ``kdims`` the tile legs of x (in x's order,
+#               x strides: the gather), ``ndims`` those of out (in out's
+#               order, out strides);
+#   tile:       GateStrides per gate: ``batch`` the tile's other legs,
+#               ``kdims``/``ndims`` the gate's legs, strides inside the
+#               tile buffers before and after the gate - after the last
+#               gate, out's strides (it writes out); numel_in/numel_out
+#               are the tile sizes before and after the gate;
+#   batch_tile: batch elements a block holds at once;
+#   stages:     batch tiles in the block's load ring;
+#   smem_bytes: shared memory of one block.
+ChainPass = namedtuple(
+    "ChainPass",
+    ("gates", "legs", "io", "tile", "batch_tile", "stages", "smem_bytes"),
+)
 
 
-def _gate_meta(g):
-    """The int64 argument block of one gate launch (layout read by
-    ``ctg_gate_apply_f32`` in csrc/gate_chain.cu)."""
-    n_batch = prod(d[0] for d in g.batch)
-    if len(g.batch) > _MAX_BATCH_DIMS:
-        raise ValueError(f"{len(g.batch)} batch runs > {_MAX_BATCH_DIMS}")
-    if max(len(g.kdims), len(g.ndims)) > _MAX_GATE_AXES:
-        raise ValueError(f"gate has more than {_MAX_GATE_AXES} axes")
-    if n_batch >= 2**32:
-        raise ValueError("gate batch count must be below 2**32")
-    meta = [len(g.batch), len(g.kdims), len(g.ndims), n_batch,
-            g.numel_in, g.numel_out]
-    for d in g.batch:
+def _pass_smem_bytes(t_in, t_work, n_work, kn, table_ints, batch_tile,
+                     stages):
+    """Shared memory of one block (``csrc/gate_chain.cu`` lays it out
+    the same way): every gate's y (complex, each from an even index);
+    ``stages`` ring slots of the input tile and ``n_work`` work buffers
+    of the largest intermediate tile, complex, per batch element; the
+    batch offsets (int64, x and out, ``stages + 2`` tiles); the index
+    tables (int32)."""
+    return (
+        sum(8 * ((k * n + 1) // 2 * 2) for k, n in kn)
+        + 8 * batch_tile * (stages * t_in + n_work * t_work)
+        + 2 * 8 * batch_tile * (stages + 2)
+        + 4 * table_ints
+    )
+
+
+def _innermost_extent(order, tile, sizes):
+    """(elements, first leg outside ``tile``): how much of ``order``'s
+    innermost end the tile covers contiguously."""
+    ext = 1
+    for ix in reversed(order):
+        if ix not in tile and sizes[ix] != 1:
+            return ext, ix
+        ext *= sizes[ix]
+    return ext, None
+
+
+def _split_dims(dims):
+    """Cut the row-major index space ``dims`` ((size, stride), ...) into
+    outer and inner dims whose inner extent L is about its square root
+    (splitting a dim where its size allows): offset(i) = hi[i // L] +
+    lo[i % L], so two short tables replace one of prod(sizes)."""
+    total = prod(d[0] for d in dims)
+    target = max(1, int(round(total**0.5)))
+    hi, lo, L = list(dims), [], 1
+    while hi:
+        size, stride = hi[-1]
+        if L * size <= target:
+            lo.insert(0, hi.pop())
+            L *= size
+            continue
+        f = max(f for f in range(1, size + 1)
+                if size % f == 0 and L * f <= target)
+        if f > 1:
+            hi[-1] = (size // f, stride * f)
+            lo.insert(0, (f, stride))
+        break
+    return tuple(hi), tuple(lo)
+
+
+def _make_pass(spec, first, stop, smem_bytes):
+    """The :class:`ChainPass` of gates ``first:stop``, or None if its
+    tile does not fit ``smem_bytes`` at one batch element."""
+    sizes = spec.leg_sizes
+    orders = spec.gate_orders[first:stop]
+    order_in, order_out = orders[0][0], orders[-1][1]
+    tile = set()
+    for _, _, c_order, ny_order in orders:
+        tile.update(c_order, ny_order)
+    kn = [
+        (prod(sizes[ix] for ix in c), prod(sizes[ix] for ix in ny))
+        for _, _, c, ny in orders
+    ]
+
+    def layout():
+        """(io, per-gate tile strides, shared-memory sizes)."""
+        def in_tile(order):
+            return tuple(ix for ix in order if ix in tile)
+
+        io = gate_strides(order_in, order_out, in_tile(order_in),
+                          in_tile(order_out), sizes)
+        # the last gate writes out itself: its output strides are out's
+        out_strides = _strides(order_out, sizes)[0]
+        gates = tuple(
+            gate_strides(in_tile(o_in), in_tile(o_out), c, ny, sizes,
+                         out_strides if j == len(orders) - 1 else None)
+            for j, (o_in, o_out, c, ny) in enumerate(orders)
+        )
+        table = sum(k + n for k, n in kn)
+        for dims in [io.kdims] + [g.batch for g in gates] * 2:
+            hi, lo = _split_dims([d[:2] for d in dims])
+            table += prod(d[0] for d in hi) + prod(d[0] for d in lo)
+        smem = dict(
+            t_in=gates[0].numel_in,
+            t_work=max([g.numel_in for g in gates[1:]] or [0]),
+            n_work=min(2, len(gates) - 1),
+            kn=kn,
+            table_ints=table,
+        )
+        return io, gates, smem
+
+    def fits(batch_tile=1, stages=2, budget=smem_bytes):
+        return _pass_smem_bytes(
+            **layout()[2], batch_tile=batch_tile, stages=stages
+        ) <= budget
+
+    if not fits():
+        return None
+    # widen the tile by x's and out's innermost untouched legs until
+    # both cover COALESCE_FLOATS contiguous floats, as the budget allows
+    while True:
+        ext_in, leg_in = _innermost_extent(order_in, tile, sizes)
+        ext_out, leg_out = _innermost_extent(order_out, tile, sizes)
+        if ext_in < COALESCE_FLOATS and leg_in is not None:
+            leg = leg_in
+        elif ext_out < COALESCE_FLOATS and leg_out is not None:
+            leg = leg_out
+        else:
+            break
+        tile.add(leg)
+        if not fits():
+            tile.discard(leg)
+            break
+    io, gates, smem = layout()
+    t_in = gates[0].numel_in
+    n_batch = prod(d[0] for d in io.batch)
+    # the batch tile (up to TILE_ELEMS elements of x) and ring depth that
+    # keep the most of x in flight, within half the budget where the tile
+    # allows (two blocks share an SM), else within all of it
+    half = smem_bytes // 2
+    budget = half if fits(1, 2, half) else smem_bytes
+    choices = [
+        (1 << e, st)
+        for e in range(31)
+        if (1 << e) <= n_batch and (1 << e) * t_in <= max(TILE_ELEMS, t_in)
+        for st in range(2, RING_STAGES + 1)
+        if fits(1 << e, st, budget)
+    ]
+    batch_tile, stages = max(choices, key=lambda c: ((c[1] - 1) * c[0], c[1]))
+    return ChainPass(
+        (first, stop), tuple(sorted(tile, key=str)), io, gates, batch_tile,
+        stages,
+        _pass_smem_bytes(**smem, batch_tile=batch_tile, stages=stages),
+    )
+
+
+def chain_tile_plan(spec, smem_bytes=SMEM_BUDGET):
+    """The kernel's passes over ``spec``'s gates: a tuple of
+    :class:`ChainPass`. A pass takes consecutive gates while its largest
+    live tile (the legs its gates contract or create), at one batch
+    element, fits ``smem_bytes``; so a chain is one pass unless its tile
+    outgrows shared memory. Cached on the spec."""
+    key = ("plan", smem_bytes)
+    if key in spec._tiles:
+        return spec._tiles[key]
+    n = len(spec.gate_orders)
+    passes = []
+    first = 0
+    while first < n:
+        best = None
+        for stop in range(first + 1, min(n, first + MAX_PASS_GATES) + 1):
+            cand = _make_pass(spec, first, stop, smem_bytes)
+            if cand is None:
+                break
+            best = cand
+        if best is None:
+            raise ValueError(
+                f"gate {first} of the chain does not fit {smem_bytes} "
+                "bytes of shared memory"
+            )
+        passes.append(best)
+        first = best.gates[1]
+    plan = tuple(passes)
+    spec._tiles[key] = plan
+    return plan
+
+
+def _offsets(dims):
+    """Row-major offsets of the index space ``dims`` ((size, stride),
+    ...): an int64 array of prod(sizes) entries."""
+    off = np.zeros(1, dtype=np.int64)
+    for size, stride in dims:
+        off = (off[:, None] + np.arange(size) * stride).reshape(-1)
+    return off
+
+
+def pass_tables(ps):
+    """The index tables of one pass, as the kernel reads them. Each
+    index space is a pair ``(hi, lo)`` of int64 arrays (``_split_dims``):
+    offset(i) = hi[i // len(lo)] + lo[i % len(lo)]. ``gather`` (x
+    offset of each input tile position), and per gate ``(koff, noff,
+    oin, oout)``: the offsets of y's K legs in the gate's input tile and
+    of its N legs in its output (plain arrays), and of the tile's other
+    legs in both (pairs). The last gate's outputs are offsets into out
+    (the pass writes out from its last gate), the others' into the
+    next tile."""
+    def pair(dims):
+        hi, lo = _split_dims(dims)
+        return _offsets(hi), _offsets(lo)
+
+    return {
+        "gather": pair(ps.io.kdims),
+        "gates": [
+            (
+                _offsets(g.kdims),
+                _offsets(g.ndims),
+                pair([(s, i) for s, i, _ in g.batch]),
+                pair([(s, o) for s, _, o in g.batch]),
+            )
+            for g in ps.tile
+        ],
+    }
+
+
+def _pass_kernel_args(ps):
+    """(meta, tables) of one pass: the int64 argument block read by
+    ``ctg_gate_chain_f32`` in csrc/gate_chain.cu, with a 0 in each
+    gate's y-pointer slot (``_META_Y + _META_GATE * g``), and the int32
+    index tables it points into. Layout: a header (gates, batch tile,
+    ring stages, batch runs, largest intermediate tile, batch count, x
+    and out elements, table length, then position of hi, position of lo
+    and len(lo) of the gather); per gate (y, K, N, tile in, tile out,
+    koff, noff, oin hi, oin lo, oout hi, oout lo, len(lo) of oin and
+    oout); per batch run (size, x stride, out stride)."""
+    io = ps.io
+    if len(io.batch) > MAX_BATCH_DIMS:
+        raise ValueError(f"{len(io.batch)} batch runs > {MAX_BATCH_DIMS}")
+    if len(ps.tile) > MAX_PASS_GATES:
+        raise ValueError(f"{len(ps.tile)} gates > {MAX_PASS_GATES}")
+    if max(io.numel_in, io.numel_out) >= 2**31:
+        raise ValueError("x and out must have fewer than 2**31 elements")
+    tabs = pass_tables(ps)
+    parts = []
+
+    def put(arr):
+        parts.append(arr)
+        return sum(len(p) for p in parts) - len(arr)
+
+    head = [put(tabs["gather"][0]), put(tabs["gather"][1]),
+            len(tabs["gather"][1])]
+    gate_meta = []
+    for g, (koff, noff, oin, oout) in zip(ps.tile, tabs["gates"]):
+        K, N = len(koff), len(noff)
+        if K * N > MAX_GATE_COMBOS:
+            raise ValueError(f"gate K*N = {K * N} > {MAX_GATE_COMBOS}")
+        if len(oin[1]) != len(oout[1]):
+            raise ValueError("oin and oout must share their split")
+        gate_meta += [0, K, N, g.numel_in, g.numel_out, put(koff),
+                      put(noff), put(oin[0]), put(oin[1]), put(oout[0]),
+                      put(oout[1]), len(oin[1])]
+    tables = np.concatenate(parts)
+    if np.abs(tables).max() >= 2**31:
+        raise ValueError("an index table exceeds int32")
+    t_work = max([g.numel_in for g in ps.tile[1:]] or [0])
+    meta = [
+        len(ps.tile), ps.batch_tile, ps.stages, len(io.batch), t_work,
+        prod(d[0] for d in io.batch), io.numel_in, io.numel_out,
+        len(tables), *head, *gate_meta,
+    ]
+    for d in io.batch:
         meta.extend(d)
-    for d in g.kdims + g.ndims:
-        meta.extend(d)
-    return (ctypes.c_int64 * len(meta))(*meta)
+    return meta, tables.astype(np.int32)
+
+
+_META_Y = 12     # index of the first gate's y pointer in the argument block
+_META_GATE = 12  # int64s per gate in the argument block
+
+
+def _kernel_args(spec, device):
+    """Per pass (plan, meta list, device int32 tables), cached on the
+    spec by device: built and copied to the card once."""
+    key = ("args", device)
+    if key not in spec._tiles:
+        args = []
+        for ps in chain_tile_plan(spec):
+            meta, tables = _pass_kernel_args(ps)
+            args.append((ps, meta, torch.from_numpy(tables).to(device)))
+        spec._tiles[key] = tuple(args)
+    return spec._tiles[key]
 
 
 def run_chain_cuda(spec, x_flat, ys):
-    """Launch ``csrc/gate_chain.cu`` once per gate on CUDA float32
-    planes. ``run_chain_cuda.launches`` counts the launches."""
+    """Launch ``csrc/gate_chain.cu`` once per pass of
+    ``chain_tile_plan(spec)`` on CUDA float32 planes.
+    ``run_chain_cuda.launches`` counts the launches."""
     from ._build import load_library
 
     if x_flat.device.type != "cuda":
@@ -569,13 +879,16 @@ def run_chain_cuda(spec, x_flat, ys):
         raise ValueError("gate-chain kernel takes flat float32 planes")
     if not x_flat.is_contiguous():
         raise ValueError("gate-chain kernel needs contiguous x")
-    lib = load_library()
-    stream = torch.cuda.current_stream(x_flat.device).cuda_stream
-    for g, y in zip(spec.gate_strides, ys, strict=True):
+    if x_flat.numel() != 2 * spec.gate_strides[0].numel_in:
+        raise ValueError("x does not match the chain's input size")
+    ys = list(ys)
+    if len(ys) != len(spec.gate_strides):
+        raise ValueError(
+            f"{len(ys)} gates given, the chain has {len(spec.gate_strides)}"
+        )
+    for g, y in zip(spec.gate_strides, ys):
         K = prod(d[0] for d in g.kdims)
         N = prod(d[0] for d in g.ndims)
-        if K * N > MAX_GATE_COMBOS:
-            raise ValueError(f"gate K*N = {K * N} > {MAX_GATE_COMBOS}")
         if (
             y.device != x_flat.device
             or y.dtype != torch.float32
@@ -587,14 +900,19 @@ def run_chain_cuda(spec, x_flat, ys):
                 f"{x_flat.device}, got {y.dtype} {tuple(y.shape)} on "
                 f"{y.device}"
             )
-        if x_flat.numel() != 2 * g.numel_in:
-            raise ValueError("x does not match the gate's input size")
+    lib = load_library()
+    stream = torch.cuda.current_stream(x_flat.device).cuda_stream
+    for ps, meta, tables in _kernel_args(spec, x_flat.device):
+        meta = list(meta)
+        first, stop = ps.gates
+        for j, y in enumerate(ys[first:stop]):
+            meta[_META_Y + _META_GATE * j] = y.data_ptr()
+        meta = (ctypes.c_int64 * len(meta))(*meta)
         out = torch.empty(
-            2 * g.numel_out, dtype=torch.float32, device=x_flat.device
+            2 * ps.io.numel_out, dtype=torch.float32, device=x_flat.device
         )
-        meta = _gate_meta(g)
-        rc = lib.ctg_gate_apply_f32(
-            x_flat.data_ptr(), out.data_ptr(), y.data_ptr(), meta,
+        rc = lib.ctg_gate_chain_f32(
+            x_flat.data_ptr(), out.data_ptr(), tables.data_ptr(), meta,
             len(meta), stream,
         )
         if rc != 0:

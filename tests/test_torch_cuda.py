@@ -19,6 +19,7 @@ from cotengra_tpu_torch.ops.bmm_absmax import (
 )
 from cotengra_tpu_torch.ops.gate_chains import (
     build_chain_spec,
+    chain_tile_plan,
     run_chain,
     run_chain_cuda,
     run_chain_plain,
@@ -67,24 +68,35 @@ def _chain(n, gates, seed):
     return spec, x, ys
 
 
+# seven 2-leg gates on 2^24 elements whose widest tile (8192 complex
+# per batch element) outgrows one block's shared memory: two passes
+_OVER_BUDGET = [((0, 1), 2), ((2, 3), 2), ((14, 15), 2), ((16, 17), 2),
+                ((18, 19), 2), ((20, 21), 2), ((22, 23), 2)]
+
+
 @pytest.mark.parametrize(
-    "gates",
+    "n,gates,passes",
     [
-        [((0, 1), 2)],                       # grid dims
-        [((15, 16), 2), ((3, 9), 2)],        # lane + mixed
-        [((10, 11, 12), 5)],                 # K=8 -> N=32 (grows)
-        [((0, 1, 2, 3, 4), 3)],              # K=32 -> N=8 (shrinks)
-        [((0, 1, 2, 3, 4, 5), 3)],           # K=64: the generic path
-        [((1, 2), 2)] * 8,                   # a full 8-gate chain
+        (19, [((0, 1), 2)], 1),                   # grid dims
+        (19, [((15, 16), 2), ((3, 9), 2)], 1),    # lane + mixed
+        (19, [((10, 11, 12), 5)], 1),     # K=8 -> N=32 (grows)
+        (19, [((0, 1, 2, 3, 4), 3)], 1),  # K=32 -> N=8 (shrinks)
+        (19, [((0, 1, 2, 3, 4, 5), 3)], 1),  # K=64: generic
+        (19, [((1, 2), 2)] * 8, 1),       # a full 8-gate chain
+        # the stride-1 leg touched, as in t27 chain 6
+        (19, [((15, 18), 2), ((16, 17), 2), ((17, 18), 2), ((1, 2), 2),
+              ((14, 18), 2)], 1),
+        (24, _OVER_BUDGET, 2),                  # over the budget
     ],
 )
-def test_gate_chain_kernel_matches_plain(cuda, gates):
-    spec, x, ys = _chain(19, gates, seed=len(gates))
+def test_gate_chain_kernel_matches_plain(cuda, n, gates, passes):
+    spec, x, ys = _chain(n, gates, seed=len(gates))
+    assert len(chain_tile_plan(spec)) == passes
     xt = torch.from_numpy(x).to(cuda)
     yt = [torch.from_numpy(y).to(cuda) for y in ys]
     before = run_chain_cuda.launches
     got = run_chain(spec, xt, yt)
-    assert run_chain_cuda.launches - before == len(gates)
+    assert run_chain_cuda.launches - before == passes
     ref = run_chain_plain(spec, xt, yt)
     torch.cuda.synchronize()
     scale = ref.abs().max().item()
