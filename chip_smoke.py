@@ -49,21 +49,44 @@ Run from the root of a checkout. Phases:
 8. the m10-t27 amplitude once more with ``strip_exponent=True`` (the
    grouped split-complex strip), mantissa x 10^exponent held to the
    same reference at relerr <= 1e-5;
-9. one JSON line of kernel results (launches on the main path, error,
-   ms, plain ms, bound, library ms), then the last line
+9. the m10-t27 amplitude through the slice-batched call
+   (``contract_tree(..., slice_batch=4)``), plain and stripped, held to
+   the same reference at relerr <= 1e-5 with the chain kernel's launch
+   count, and the warm times of the batched call
+   (``make_grouped_contractor(..., slice_batch=4)``) and of phase 4's
+   slice loop in turns;
+10. the gate-chain kernel against its plain version on every chain of
+   the Sycamore-53 m=20 t28 plan (``plans/sycamore53_m20_t28.json``) at
+   full size, float32 inputs made on the card from a seeded
+   ``torch.Generator``, at phase 3's limit; each chain's launches equal
+   its passes of ``chain_tile_plan`` (40 passes in all, two chains of
+   two); kernel, plain and library times and the bound per chain, as in
+   phase 3;
+11. the m=20 main path: one batched call of slice ids 0..15
+   (``make_grouped_contractor(..., slice_batch=16)``, float32 planes),
+   its partial sums over the first 4, 8 and 16 slices held to the
+   complex128 sidecar at relerr <= 1e-5, the chain kernel's launches
+   (the slice-invariant chains once, the others 16 times, derived from
+   the plan), the warm 16-slice time (best of 3, each pass ending in a
+   host pull checked finite and stable), ms per slice and the peak
+   device memory;
+12. one JSON line of kernel results (launches on the main path, error,
+   ms, plain ms, bound, library ms; the gate chain's m=20 figures
+   under ``m20_*`` keys), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every instance is built and every plan loaded through the port
 (``cotengra_tpu_torch.rand_circuit_tn``, ``lattice_equation``,
 ``load_tree``): the script imports neither JAX nor the JAX package.
 
-Each main path (4, 5, 7, 8) is driven with every kernel's launch count
-set to 0 just before it and read just after. Any failed phase raises,
-and the script exits non-zero without the last line. It needs a CUDA
-device and never falls back to the CPU.
+Each main path (4, 5, 7, 8, 9, 11) is driven with every kernel's
+launch count set to 0 just before it and read just after. Any failed
+phase raises, and the script exits non-zero without the last line. It
+needs a CUDA device and never falls back to the CPU.
 
 ``--profile`` instead runs ``torch.profiler`` over one warm pass of each
-main path (m10-t27, m10-t29, the lattice) and prints the median wall
+main path (m10-t27 slice by slice and through the batched call,
+m10-t29, the lattice, 16 slices of m20-t28) and prints the median wall
 time of 5 unprofiled passes, the device's busy time and idle share, and
 every device kernel's time grouped by class (the breakdown in
 ``PERF.md`` section 5).
@@ -86,6 +109,10 @@ BMM_RTOL = 1e-5     # float32 sums over K in another order
 # layout misses this by orders of magnitude
 LOG10_ATOL = 1e-4
 LATTICE = "lattice7x7_d16_s16"
+T27 = "sycamore53_m10_t27"
+M20 = "sycamore53_m20_t28"
+M20_SLICES = 16     # the sidecar's largest partial sum
+M20_PASSES = 40     # chain_tile_plan's passes over the 38 chains of M20
 SEED = 1234
 PROFILE_WALL_PASSES = 5
 # published H100 SXM peaks at a 700 W power limit (NVIDIA data sheet)
@@ -95,15 +122,17 @@ TF32_FLOPS = 495e12       # dense TF32 on the tensor cores
 
 
 def _load_instance(plan_name):
-    """The Sycamore-53 m=10 network (seed 42, absorbed as the benchmark
-    does), the plan's tree, and its reference amplitudes."""
+    """The Sycamore-53 network of the plan's depth (``..._m<depth>_...``;
+    seed 42, absorbed as the benchmark does), the plan's tree, and its
+    reference amplitudes."""
     from cotengra_tpu_torch import (
         absorb_simple_tensors,
         load_tree,
         rand_circuit_tn,
     )
 
-    inputs, output, _, _, arrays = rand_circuit_tn(53, 10, seed=42)
+    depth = int(plan_name.split("_m")[1].split("_")[0])
+    inputs, output, _, _, arrays = rand_circuit_tn(53, depth, seed=42)
     inputs, arrays = absorb_simple_tensors(
         inputs, arrays, output, max_rank=2, max_absorb_size=2**12
     )
@@ -360,29 +389,45 @@ def _chain_inputs(rng, spec, kn, dev):
     return x.to(dev), [y.to(dev) for y in ys]
 
 
-def phase_chains(dev):
-    """Every chain of the t27 plan, kernel vs plain, at full size, with
-    the library call's time and the bound; then the two-pass synthetic
-    chain."""
+def _chain_inputs_on_card(gen, spec, kn, dev):
+    """As ``_chain_inputs``, drawn on the card (2^28-element inputs
+    take seconds to make with numpy on the host)."""
+    n_in = spec.gate_strides[0].numel_in
+    x = torch.randn(2 * n_in, generator=gen, device=dev)
+    ys = [torch.randn((2, K, N), generator=gen, device=dev) for K, N in kn]
+    return x, ys
+
+
+def _pass_tile(ps):
+    """The widest tile of a pass, in complex elements per batch element."""
+    return max(max(g.numel_in, g.numel_out) for g in ps.tile)
+
+
+def _measure_chains(label, recs, make_inputs):
+    """Every chain of ``recs``, kernel vs plain at full size (one launch
+    per pass of ``chain_tile_plan``), with the library call's time and
+    the bound. Rows of (max_abs_err, kernel ms, plain ms, (bound ms,
+    bound_by), library ms, passes)."""
     from cotengra_tpu_torch.ops.gate_chains import (
         chain_tile_plan,
         run_chain_cuda,
         run_chain_plain,
     )
 
-    tree, _, _ = _load_instance("sycamore53_m10_t27")
-    recs = _chain_recs(tree)
-    rng = np.random.default_rng(SEED)
     rows = []
     for ci, rec in enumerate(recs):
         spec = rec.spec
         kn = [(K, N) for _, _, K, N in rec.ys]
         plan = chain_tile_plan(spec)
-        if len(plan) != 1:
-            raise AssertionError(f"chain {ci}: {len(plan)} passes, not 1")
-        x, ys = _chain_inputs(rng, spec, kn, dev)
+        x, ys = make_inputs(spec, kn)
         n_in = x.numel() // 2
-        err, scale, plain = _check_chain(f"chain {ci}", spec, x, ys)
+        before = run_chain_cuda.launches
+        err, scale, plain = _check_chain(f"{label} chain {ci}", spec, x, ys)
+        if run_chain_cuda.launches - before != len(plan):
+            raise AssertionError(
+                f"{label} chain {ci}: {run_chain_cuda.launches - before} "
+                f"launches, the plan has {len(plan)} passes"
+            )
         # the library call: one torch.einsum on complex64 inputs made
         # outside the timed region, held to the plain version
         eq, ops = _chain_einsum(spec, x, ys)
@@ -390,7 +435,7 @@ def phase_chains(dev):
         lib_err = (torch.cat([lib[:, 0], lib[:, 1]]) - plain).abs().max()
         if not lib_err.item() <= CHAIN_RTOL * scale:
             raise AssertionError(
-                f"chain {ci}: einsum {eq} off the plain version by "
+                f"{label} chain {ci}: einsum {eq} off the plain version by "
                 f"{lib_err.item():.3e}"
             )
         del plain, lib
@@ -404,28 +449,50 @@ def phase_chains(dev):
         plain_ms = (plain_ms + _cuda_ms(
             lambda: run_chain_plain(spec, x, ys), reps)) / 2
         bound = _chain_bound(spec, kn)
-        ps = plan[0]
-        tiles = [g.numel_in for g in ps.tile] + [ps.tile[-1].numel_out]
+        n_out = plan[-1].io.numel_out
         print(
-            f"# chain {ci:2d}: numel 2^{int(np.log2(n_in))} -> "
-            f"2^{int(np.log2(ps.io.numel_out))} gates (K,N) {kn} tile "
-            f"{max(tiles)} x batch tile {ps.batch_tile} smem "
-            f"{ps.smem_bytes} passes {len(plan)} max_abs_err {err:.3e} "
-            f"(max|plain| {scale:.3e}) kernel {ms:.3f} ms plain "
-            f"{plain_ms:.3f} ms library {lib_ms:.3f} ms bound "
-            f"{bound[0]:.3f} ms ({bound[1]}; {100 * bound[0] / ms:.0f}% "
-            f"of it)",
+            f"# {label} chain {ci:2d}: numel 2^{int(np.log2(n_in))} -> "
+            f"2^{int(np.log2(n_out))} gates (K,N) {kn} tile "
+            f"{[_pass_tile(ps) for ps in plan]} x batch tile "
+            f"{[ps.batch_tile for ps in plan]} smem "
+            f"{[ps.smem_bytes for ps in plan]} passes {len(plan)} "
+            f"{[ps.gates for ps in plan]} max_abs_err {err:.3e} (max|plain| "
+            f"{scale:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+            f"library {lib_ms:.3f} ms bound {bound[0]:.3f} ms ({bound[1]}; "
+            f"{100 * bound[0] / ms:.0f}% of it)",
             flush=True,
         )
-        rows.append((err, ms, plain_ms, bound, lib_ms))
+        rows.append((err, ms, plain_ms, bound, lib_ms, len(plan)))
         del x, ys, ops
     torch.cuda.empty_cache()
     print(
-        f"# chains per slice: kernel {sum(r[1] for r in rows):.3f} ms "
-        f"plain {sum(r[2] for r in rows):.3f} ms library "
+        f"# {label} chains per slice: kernel {sum(r[1] for r in rows):.3f} "
+        f"ms plain {sum(r[2] for r in rows):.3f} ms library "
         f"{sum(r[4] for r in rows):.3f} ms bound "
-        f"{sum(r[3][0] for r in rows):.3f} ms",
+        f"{sum(r[3][0] for r in rows):.3f} ms passes "
+        f"{sum(r[5] for r in rows)}",
         flush=True,
+    )
+    return rows
+
+
+def phase_chains(dev):
+    """Every chain of the t27 plan, each one pass, kernel vs plain at
+    full size, with the library call's time and the bound; then the
+    two-pass synthetic chain."""
+    from cotengra_tpu_torch.ops.gate_chains import (
+        chain_tile_plan,
+        run_chain_cuda,
+    )
+
+    tree, _, _ = _load_instance(T27)
+    recs = _chain_recs(tree)
+    for ci, rec in enumerate(recs):
+        if len(chain_tile_plan(rec.spec)) != 1:
+            raise AssertionError(f"t27 chain {ci}: more than one pass")
+    rng = np.random.default_rng(SEED)
+    rows = _measure_chains(
+        "t27", recs, lambda spec, kn: _chain_inputs(rng, spec, kn, dev)
     )
 
     spec, kn = _synthetic_chain()
@@ -448,6 +515,27 @@ def phase_chains(dev):
     )
     del x, ys
     torch.cuda.empty_cache()
+    return rows
+
+
+def phase_chains_m20(dev):
+    """Every chain of the m20-t28 plan, kernel vs plain at full size,
+    with the library call's time and the bound; the plan's passes
+    checked (40 in all, two chains of two)."""
+    tree, _, _ = _load_instance(M20)
+    recs = _chain_recs(tree)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    rows = _measure_chains(
+        "m20", recs,
+        lambda spec, kn: _chain_inputs_on_card(gen, spec, kn, dev),
+    )
+    passes = [r[5] for r in rows]
+    if sum(passes) != M20_PASSES or sorted(passes)[-3:] != [1, 2, 2]:
+        raise AssertionError(
+            f"m20 chains: passes {passes}, expected {M20_PASSES} in all "
+            "with two chains of two"
+        )
     return rows
 
 
@@ -694,7 +782,7 @@ def phase_t27_stripped(dev):
     """The m10-t27 amplitude with the grouped split-complex strip."""
     import cotengra_tpu_torch as ctt
 
-    tree, arrays, refs = _load_instance("sycamore53_m10_t27")
+    tree, arrays, refs = _load_instance(T27)
     n_ref = tree.multiplicity
     expect = _chain_passes(tree) * n_ref
     _reset_launches()
@@ -721,6 +809,170 @@ def phase_t27_stripped(dev):
     )
 
 
+def _batched_chain_passes(fn, n_slices):
+    """Chain-kernel launches of one batched call over ``n_slices``: the
+    passes of the slice-invariant chains once, the others per slice."""
+    from cotengra_tpu_torch.ops.gate_chains import chain_tile_plan
+
+    def passes(steps):
+        return sum(
+            len(chain_tile_plan(fn.plans[si][1].spec))
+            for si in steps if fn.plans[si][0] == "inplace"
+        )
+
+    return passes(fn.batch.steps_once) + n_slices * passes(
+        fn.batch.steps_each
+    )
+
+
+def _batched_amp(fn, planes, n_slices):
+    """One batched call over slices 0..n_slices-1, summed and pulled."""
+    out = fn(planes, range(n_slices)).sum(0)
+    return complex(out[0].item(), out[1].item())
+
+
+def phase_t27_batched(dev, passes=3):
+    """m10-t27 through the slice-batched call, plain and stripped, then
+    the warm times of the batched call and of phase 4's slice loop in
+    turns."""
+    import cotengra_tpu_torch as ctt
+
+    tree, arrays, refs = _load_instance(T27)
+    n = tree.multiplicity
+    fn = ctt.make_grouped_contractor(tree, dev, torch.float32, slice_batch=n)
+    expect = _batched_chain_passes(fn, n)
+    ref = refs[n]
+    for strip in (False, True):
+        _reset_launches()
+        res = ctt.contract_tree(
+            tree, arrays, device=dev, slice_batch=n, strip_exponent=strip
+        )
+        torch.cuda.synchronize()
+        counts = _read_launches()
+        if strip:
+            amp = complex(res[0].cpu().item()) * 10.0 ** res[1].item()
+        else:
+            amp = complex(res.cpu().item())
+        relerr = abs(amp - ref) / abs(ref)
+        if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+            raise AssertionError(
+                f"batched t27 (strip {strip}): launches {counts}, the plan "
+                f"gives {expect}"
+            )
+        if not relerr <= AMP_RTOL:
+            raise AssertionError(
+                f"batched t27 (strip {strip}): amplitude {amp} vs "
+                f"reference {ref}: relerr {relerr:.3e} > {AMP_RTOL}"
+            )
+        print(
+            f"# batched {T27} (slice_batch {n}, strip {strip}): amplitude "
+            f"{amp.real:.12e}{amp.imag:+.12e}j relerr {relerr:.3e} chain "
+            f"launches {counts['gate_chain']} (steps once "
+            f"{len(fn.batch.steps_once)}, per slice "
+            f"{len(fn.batch.steps_each)})",
+            flush=True,
+        )
+
+    # warm time-to-amplitude of both slice loops, in turns
+    core = ctt.make_grouped_contractor(tree, dev, torch.float32)
+    planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    loops = {
+        "slice loop": lambda: ctt.contract_slices(tree, core, planes),
+        "batched call": lambda: fn(planes, range(n)).sum(0),
+    }
+    times = {k: [] for k in loops}
+    for k in [*loops, *reversed(loops)] * ((passes + 1) // 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loops[k]()
+        val = complex(out[0].item(), out[1].item())
+        times[k].append(time.perf_counter() - t0)
+        if not abs(val - ref) <= AMP_RTOL * abs(ref):
+            raise AssertionError(f"{T27} {k}: unstable amplitude {val}")
+    print(
+        "# warm time_to_amplitude_s " + "; ".join(
+            f"{k} {' '.join(f'{t:.4f}' for t in ts)} (best {min(ts):.4f})"
+            for k, ts in times.items()
+        ),
+        flush=True,
+    )
+
+
+def phase_m20(dev, passes=3):
+    """The m20-t28 main path: one batched call of slices 0..15, partial
+    sums held to the sidecar, launches, warm time and peak memory."""
+    import cotengra_tpu_torch as ctt
+
+    t0 = time.perf_counter()
+    tree, arrays, refs = _load_instance(M20)
+    fn = ctt.make_grouped_contractor(
+        tree, dev, torch.float32, slice_batch=M20_SLICES
+    )
+    planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    expect = _batched_chain_passes(fn, M20_SLICES)
+    setup = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = fn(planes, range(M20_SLICES))
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = _read_launches()
+
+    if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+        raise AssertionError(
+            f"{M20}: launches {counts}, the plan gives {expect}"
+        )
+    per_slice = res.cpu().double()
+    if tuple(per_slice.shape) != (M20_SLICES, 2) or not bool(
+        torch.isfinite(per_slice).all()
+    ):
+        raise AssertionError(f"{M20}: per-slice planes {per_slice}")
+    partial = per_slice.cumsum(0)
+    errs = {}
+    for n, ref in sorted(refs.items()):
+        amp = complex(partial[n - 1, 0].item(), partial[n - 1, 1].item())
+        errs[n] = abs(amp - ref) / abs(ref)
+        if not errs[n] <= AMP_RTOL:
+            raise AssertionError(
+                f"{M20}: first {n} slices {amp} vs reference {ref}: "
+                f"relerr {errs[n]:.3e} > {AMP_RTOL}"
+            )
+    if sorted(refs) != [4, 8, M20_SLICES]:
+        raise AssertionError(f"{M20}: sidecar keys {sorted(refs)}")
+    amp16 = complex(partial[-1, 0].item(), partial[-1, 1].item())
+
+    times = []
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val = _batched_amp(fn, planes, M20_SLICES)
+        times.append(time.perf_counter() - t0)
+        if not (np.isfinite(val.real) and np.isfinite(val.imag)):
+            raise AssertionError(f"{M20}: non-finite amplitude")
+        if abs(val - amp16) > 1e-4 * abs(amp16):
+            raise AssertionError(f"{M20}: unstable amplitude {val} vs {amp16}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    best = min(times)
+    print(
+        f"# main path {M20}: slices 0..{M20_SLICES - 1} in one batched call "
+        f"(steps once {len(fn.batch.steps_once)}, per slice "
+        f"{len(fn.batch.steps_each)}); partial amplitudes "
+        + " ".join(
+            f"[{n}] relerr {e:.3e}" for n, e in sorted(errs.items())
+        )
+        + f"; amplitude(16) {amp16.real:.12e}{amp16.imag:+.12e}j chain "
+        f"launches {counts['gate_chain']} setup_s {setup:.2f} first_call_s "
+        f"{first:.3f} warm_s {' '.join(f'{t:.4f}' for t in times)} (best "
+        f"{best:.4f}, {1e3 * best / M20_SLICES:.2f} ms per slice) "
+        f"peak_mem_gib {peak:.2f}",
+        flush=True,
+    )
+    return counts["gate_chain"]
+
+
 def _kernel_class(name):
     if "gate_chain_kernel" in name:
         return "gate-chain kernel"
@@ -736,9 +988,10 @@ def _kernel_class(name):
     return "other"
 
 
-def _warm_pass(plan_name, dev):
+def _warm_pass(plan_name, dev, slice_batch=None):
     """One warm pass of a main path as a function (contractor and device
-    inputs made once), ending in a host pull."""
+    inputs made once), ending in a host pull; with ``slice_batch``, one
+    batched call over the first ``slice_batch`` slices."""
     import cotengra_tpu_torch as ctt
 
     if plan_name == LATTICE:
@@ -755,8 +1008,13 @@ def _warm_pass(plan_name, dev):
         return one_pass
 
     tree, arrays, _ = _load_instance(plan_name)
-    core = ctt.make_grouped_contractor(tree, dev, torch.float32)
     planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    if slice_batch:
+        fn = ctt.make_grouped_contractor(
+            tree, dev, torch.float32, slice_batch=slice_batch
+        )
+        return lambda: _batched_amp(fn, planes, slice_batch)
+    core = ctt.make_grouped_contractor(tree, dev, torch.float32)
 
     def one_pass():
         out = ctt.contract_slices(tree, core, planes)
@@ -765,12 +1023,14 @@ def _warm_pass(plan_name, dev):
     return one_pass
 
 
-def phase_profile(plan_name, dev):
+def phase_profile(plan_name, dev, slice_batch=None):
     """Device time by kernel over one warm pass of the main path."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    one_pass = _warm_pass(plan_name, dev)
+    one_pass = _warm_pass(plan_name, dev, slice_batch)
+    if slice_batch:
+        plan_name = f"{plan_name} batched x{slice_batch}"
     one_pass()
     # the wall of one pass moves by tens of percent between passes (host
     # side): the idle share reads the median of several
@@ -847,16 +1107,21 @@ def main():
     phase_device()
     phase_build()
     if args == ["--profile"]:
-        phase_profile("sycamore53_m10_t27", dev)
+        phase_profile(T27, dev)
+        phase_profile(T27, dev, slice_batch=4)
         phase_profile("sycamore53_m10_t29", dev)
         phase_profile(LATTICE, dev)
+        phase_profile(M20, dev, slice_batch=M20_SLICES)
         return 0
     chain_rows = phase_chains(dev)
-    chain_launches = phase_main_path("sycamore53_m10_t27", 4, dev)
+    chain_launches = phase_main_path(T27, 4, dev)
     phase_main_path("sycamore53_m10_t29", 1, dev)
     bmm_rows = phase_bmm(dev)
     bmm_launches = phase_lattice(dev)
     phase_t27_stripped(dev)
+    phase_t27_batched(dev)
+    m20_rows = phase_chains_m20(dev)
+    m20_launches = phase_m20(dev)
     kernels = [
         {
             # per slice: the 13 chains of one m10-t27 slice
@@ -872,6 +1137,15 @@ def main():
             "bound_by": _dominant(r[3] for r in chain_rows),
             # one torch.einsum per chain over complex64 x and its gates
             "library_ms": sum(r[4] for r in chain_rows),
+            # m20-t28: launches of the 16-slice batched call; the rest
+            # per slice, all 38 chains once each
+            "m20_launches": m20_launches,
+            "m20_max_abs_err": max(r[0] for r in m20_rows),
+            "m20_ms": sum(r[1] for r in m20_rows),
+            "m20_plain_ms": sum(r[2] for r in m20_rows),
+            "m20_bound_ms": sum(r[3][0] for r in m20_rows),
+            "m20_bound_by": _dominant(r[3] for r in m20_rows),
+            "m20_library_ms": sum(r[4] for r in m20_rows),
         },
         {
             # per slice: one slice's kernel steps, summed over the plan's

@@ -16,13 +16,17 @@ The counterpart of ``cotengra_tpu/ops/executor.py``:
 3. ``make_full_contractor`` sums inner slices in a host loop and stacks
    and reassembles output-sliced chunks. Slices are visited in flat
    slice-id order (``tree.slice_key``), the order of the reference
-   sidecars under ``plans/``.
+   sidecars under ``plans/``. With ``slice_batch=B`` it sums batches of
+   B slices, each contracted from the raw inputs by a batched core
+   (``build_batched_core_fn``, or the grouped one) that runs the steps
+   no sliced index reaches once per batch (``slices.SliceBatch``).
 
 What the reference had for jit and the TPU compiler has no counterpart:
 ``make_traced_slicer`` (slices are selected on the host as views,
-``slice_arrays``), ``make_staged_contractor`` (staging bounded compile
-cost; eager torch compiles nothing), ``_cached_full`` (a jit cache; the
-port plans per call), and the ``autojit``, ``precision`` and
+``slice_arrays`` and ``slices._select_input``),
+``make_staged_contractor`` (staging bounded compile cost; eager torch
+compiles nothing), ``_cached_full`` (a jit cache; the port plans per
+call), and the ``autojit``, ``precision`` and
 ``preferred_element_type`` arguments (the port runs true float32
 everywhere, ``_device.full_fp32_matmuls``).
 """
@@ -40,6 +44,7 @@ from .bmm_absmax import _bmm_layout, pairwise_bmm_absmax
 from .grouped import _to_planes, make_grouped_contractor
 from .lowering import SingleStep, extract_contractions
 from .pairwise import apply_pairwise, apply_single
+from .slices import SliceBatch, slice_arrays
 
 IMPLEMENTATIONS = (None, "auto", "grouped", "pallas")
 
@@ -76,6 +81,53 @@ def _pallas_step_ok(x, y, step):
     return _bmm_layout(step.l_legs, step.r_legs, step.out_legs) is not None
 
 
+def _run_ir_steps(ir, steps, temps, last_use, strip_exponent=False,
+                  implementation=None):
+    """Run the IR steps ``steps`` (indices, in order) over ``temps`` (id
+    -> tensor, freed after its last use). Returns the summed log10
+    exponent of the stripped steps (None if nothing was stripped)."""
+    use_pallas = strip_exponent and implementation == "pallas"
+    exponent = None
+    for si in steps:
+        step = ir.steps[si]
+        if isinstance(step, SingleStep):
+            out = apply_single(temps[step.inp], step.in_legs, step.out_legs)
+            if last_use.get(step.inp) == si:
+                del temps[step.inp]
+        else:
+            x, y = temps[step.l], temps[step.r]
+            if use_pallas and _pallas_step_ok(x, y, step):
+                out, absmax = pairwise_bmm_absmax(
+                    x, y, step.l_legs, step.r_legs, step.out_legs
+                )
+                scale = torch.where(
+                    absmax == 0, torch.ones_like(absmax), absmax
+                ).to(_real_dtype(out.dtype))
+                out = out / scale
+                e = torch.log10(scale)
+            else:
+                out = apply_pairwise(
+                    x, y, step.l_legs, step.r_legs, step.out_legs
+                )
+                if strip_exponent:
+                    out, e = _strip(out)
+            if strip_exponent:
+                exponent = e if exponent is None else exponent + e
+            del x, y  # operands die at their last use below
+            if last_use.get(step.l) == si:
+                del temps[step.l]
+            if last_use.get(step.r) == si:
+                del temps[step.r]
+        temps[step.out] = out
+    return exponent
+
+
+def _zero_exponent(result):
+    return torch.zeros(
+        (), dtype=_real_dtype(result.dtype), device=result.device
+    )
+
+
 def build_core_fn(ir, strip_exponent=False, implementation=None):
     """Build the function executing the IR on a list of (already sliced)
     tensors. Intermediates are freed as soon as dead (liveness from the
@@ -86,59 +138,57 @@ def build_core_fn(ir, strip_exponent=False, implementation=None):
     through ``bmm_absmax``, which takes max|out| while it forms the
     product; other steps use ``torch.einsum``.
     """
-    steps = ir.steps
-    last_use = ir.last_use
-    final_id = ir.final_id
-    use_pallas = strip_exponent and implementation == "pallas"
 
     def core(*arrays):
         temps = dict(enumerate(arrays))
-        exponent = None
-
-        for si, step in enumerate(steps):
-            if isinstance(step, SingleStep):
-                out = apply_single(
-                    temps[step.inp], step.in_legs, step.out_legs
-                )
-                if last_use.get(step.inp) == si:
-                    del temps[step.inp]
-            else:
-                x, y = temps[step.l], temps[step.r]
-                if use_pallas and _pallas_step_ok(x, y, step):
-                    out, absmax = pairwise_bmm_absmax(
-                        x, y, step.l_legs, step.r_legs, step.out_legs
-                    )
-                    scale = torch.where(
-                        absmax == 0, torch.ones_like(absmax), absmax
-                    ).to(_real_dtype(out.dtype))
-                    out = out / scale
-                    e = torch.log10(scale)
-                else:
-                    out = apply_pairwise(
-                        x, y, step.l_legs, step.r_legs, step.out_legs
-                    )
-                    if strip_exponent:
-                        out, e = _strip(out)
-                if strip_exponent:
-                    exponent = e if exponent is None else exponent + e
-                del x, y  # operands die at their last use below
-                if last_use.get(step.l) == si:
-                    del temps[step.l]
-                if last_use.get(step.r) == si:
-                    del temps[step.r]
-            temps[step.out] = out
-
-        result = temps[final_id]
+        exponent = _run_ir_steps(
+            ir, range(len(ir.steps)), temps, ir.last_use, strip_exponent,
+            implementation,
+        )
+        result = temps[ir.final_id]
         if strip_exponent:
             if exponent is None:
-                exponent = torch.zeros(
-                    (), dtype=_real_dtype(result.dtype),
-                    device=result.device,
-                )
+                exponent = _zero_exponent(result)
             return result, exponent
         return result
 
     return core
+
+
+def _ir_step_io(ir):
+    for step in ir.steps:
+        if isinstance(step, SingleStep):
+            yield (step.inp,), step.out
+        else:
+            yield (step.l, step.r), step.out
+
+
+def build_batched_core_fn(tree, ir, strip_exponent=False,
+                          implementation=None):
+    """The direct core over a batch of slices: ``fn(arrays, slice_ids)``
+    on the RAW (unsliced) tensors, returning the per-slice results
+    stacked on a leading axis (and a ``(len(slice_ids),)`` exponent
+    vector with ``strip_exponent``). The steps that no sliced index
+    reaches run once per call, the others once per slice on views
+    selected from the raw tensors (``slices.SliceBatch``)."""
+    batch = SliceBatch(tree, list(_ir_step_io(ir)), ir.last_use)
+
+    def run_steps(steps, temps, last_use):
+        return _run_ir_steps(
+            ir, steps, temps, last_use, strip_exponent, implementation
+        )
+
+    def fn(arrays, slice_ids):
+        outs, exps = [], []
+        for temps, e in batch.run(arrays, slice_ids, run_steps, lambda v: v):
+            result = temps[ir.final_id]
+            outs.append(result)
+            exps.append(_zero_exponent(result) if e is None else e)
+        res = torch.stack(outs)
+        return (res, torch.stack(exps)) if strip_exponent else res
+
+    fn.batch = batch
+    return fn
 
 
 # IRs whose tensors exceed this rank run on the grouped split-complex
@@ -164,13 +214,15 @@ def _ir_max_rank(ir):
 
 def _build_best_core(
     tree, ir, device, strip_exponent=False, implementation=None,
-    plane_dtype=torch.float32,
+    plane_dtype=torch.float32, slice_batch=None,
 ):
     """Pick the core: grouped split-complex for high-rank IRs (bond-2
     circuit networks) or ``implementation="grouped"``, direct per-step
     execution otherwise. Returns ``(core, plane_io)``: a grouped core
     takes and returns ``(2, *shape)`` planes of ``plane_dtype``
-    (the port's grouped executor is split-complex only)."""
+    (the port's grouped executor is split-complex only). With
+    ``slice_batch`` the core is batched: ``core(raw inputs, slice_ids)``
+    returns the per-slice results stacked."""
     if implementation not in IMPLEMENTATIONS:
         raise ValueError(
             f"implementation must be one of {IMPLEMENTATIONS}, got "
@@ -181,45 +233,16 @@ def _build_best_core(
         and _ir_max_rank(ir) > MAX_RANK_DIRECT
     ) or implementation == "grouped":
         core = make_grouped_contractor(
-            tree, device, plane_dtype, strip_exponent=strip_exponent
+            tree, device, plane_dtype, strip_exponent=strip_exponent,
+            slice_batch=slice_batch,
         )
         return core, True
+    if slice_batch:
+        core = build_batched_core_fn(
+            tree, ir, strip_exponent, implementation
+        )
+        return core, False
     return build_core_fn(ir, strip_exponent, implementation), False
-
-
-def _sliced_axes_per_input(tree):
-    """For each input: the (axis, ind) pairs of sliced indices, in
-    descending axis order (so successive removals keep positions
-    valid)."""
-    out = []
-    for term in tree.inputs:
-        axes = [
-            (ax, ix)
-            for ax, ix in enumerate(term)
-            if ix in tree.sliced_inds
-        ]
-        axes.sort(reverse=True)
-        out.append(tuple(axes))
-    return tuple(out)
-
-
-def slice_arrays(tree, arrays, i, axis_offset=0):
-    """The input arrays of slice number ``i``.
-
-    ``arrays`` are numpy arrays (host) or torch tensors (selected as
-    views on their device); ``axis_offset=1`` addresses plane stacks,
-    whose leading axis is the plane.
-    """
-    key = tree.slice_key(i)
-    out = []
-    for arr, axes in zip(arrays, _sliced_axes_per_input(tree)):
-        for ax, ix in axes:
-            if isinstance(arr, torch.Tensor):
-                arr = arr.select(ax + axis_offset, key[ix])
-            else:
-                arr = np.take(arr, key[ix], axis=ax + axis_offset)
-        out.append(arr)
-    return out
 
 
 def _sum_slices(run, ids):
@@ -321,6 +344,17 @@ def make_contractor(
     return fn
 
 
+def _sum_batch(res):
+    """Sum a batched core's per-slice results over the leading axis; a
+    stripped batch is brought to its largest exponent first."""
+    if not isinstance(res, tuple):
+        return res.sum(0)
+    ms, es = res
+    e = es.amax()
+    scale = (10.0 ** (es - e)).reshape(es.shape + (1,) * (ms.dim() - 1))
+    return (ms * scale.to(ms.dtype)).sum(0), e
+
+
 def make_full_contractor(
     tree, device, strip_exponent=False, slice_batch=None,
     implementation=None, plane_dtype=torch.float32,
@@ -332,20 +366,23 @@ def make_full_contractor(
 
     On the grouped route the raw inputs are split into ``plane_dtype``
     planes once, and slices select views of the planes.
-    ``slice_batch`` (contracting several slices at once) is not ported
-    yet and raises if set.
+    ``slice_batch=B`` contracts the inner slices in batches of ``B``
+    (the last one may be short) through a batched core that runs the
+    steps no sliced index reaches once per batch; batches add as slices
+    do (stripped: each batch brought to its largest exponent, batches
+    added with ``_add_stripped``).
     """
-    if slice_batch:
-        raise NotImplementedError(
-            "slice_batch is not ported yet; slices run one at a time"
-        )
     dev = resolve_device(device)
     pdt = resolve_plane_dtype(plane_dtype)
     ir = extract_contractions(tree)
-    core, plane_io = _build_best_core(
-        tree, ir, dev, strip_exponent, implementation, pdt
-    )
     n_inner, n_chunks, _ = _chunk_structure(tree)
+    if not tree.sliced_inds:
+        slice_batch = None
+    elif slice_batch:
+        slice_batch = min(slice_batch, n_inner)
+    core, plane_io = _build_best_core(
+        tree, ir, dev, strip_exponent, implementation, pdt, slice_batch
+    )
 
     def fn(*arrays):
         if plane_io:
@@ -360,17 +397,29 @@ def make_full_contractor(
             def finish(res):
                 return res
 
-        offset = 1 if plane_io else 0
-
-        def one(sid):
-            return core(*slice_arrays(tree, inputs, sid, offset))
-
         if not tree.sliced_inds:
             return finish(core(*inputs))
-        results = [
-            finish(_sum_slices(one, range(c * n_inner, (c + 1) * n_inner)))
-            for c in range(n_chunks)
-        ]
+        if slice_batch:
+            def chunk(c):
+                ids = range(c * n_inner, (c + 1) * n_inner)
+                return _sum_slices(
+                    lambda k: _sum_batch(
+                        core(inputs, ids[k:k + slice_batch])
+                    ),
+                    range(0, n_inner, slice_batch),
+                )
+        else:
+            offset = 1 if plane_io else 0
+
+            def chunk(c):
+                return _sum_slices(
+                    lambda sid: core(
+                        *slice_arrays(tree, inputs, sid, offset)
+                    ),
+                    range(c * n_inner, (c + 1) * n_inner),
+                )
+
+        results = [finish(chunk(c)) for c in range(n_chunks)]
         if n_chunks == 1:
             return results[0]
         return _stack_chunks(tree, results, ir.output_legs)

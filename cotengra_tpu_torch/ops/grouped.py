@@ -21,6 +21,7 @@ from .gate_chains import run_chain
 from .grouped_plan import plan_grouped
 from .lowering import extract_contractions, sliced_input_legs
 from .pairwise import apply_pairwise, apply_single
+from .slices import SliceBatch
 
 # leg label reserved for the plane axis in single-term ops
 _PLANE = "\x00plane"
@@ -153,11 +154,13 @@ def _split_apply_small_y(xf, x_layout, M, K, N, ykn_r, ykn_i):
 
 # The reference's _maybe_barrier has no counterpart: eager torch ops do
 # not fuse across steps.
-def _exec_steps_split(plans, temps, shapes, last_use, strip_exponent=False):
-    """Run every plan step over ``temps`` (id -> plane-major flat real
-    tensor, freed after its last use); ``shapes`` maps id -> logical
-    complex shape. Returns the summed log10 exponent of the stripped
-    steps (None if nothing was stripped)."""
+def _exec_steps_split(plans, steps, temps, shapes, last_use,
+                      strip_exponent=False):
+    """Run the plan steps ``steps`` (indices into ``plans``, in order)
+    over ``temps`` (id -> plane-major flat real tensor, freed after its
+    last use); ``shapes`` maps id -> logical complex shape. Returns the
+    summed log10 exponent of the stripped steps (None if nothing was
+    stripped)."""
     exponent = None
 
     def store(out_id, flat, shape, si, srcs):
@@ -177,7 +180,8 @@ def _exec_steps_split(plans, temps, shapes, last_use, strip_exponent=False):
         exponent = e if exponent is None else exponent + e
         return flat / scale
 
-    for si, (kind, info) in enumerate(plans):
+    for si in steps:
+        kind, info = plans[si]
         if kind == "single":
             step = info
             x2 = temps[step.inp].view((2,) + tuple(shapes[step.inp]))
@@ -258,8 +262,25 @@ def _exec_steps_split(plans, temps, shapes, last_use, strip_exponent=False):
     return exponent
 
 
+def _step_io(plans):
+    """(source ids, output id) of each plan step."""
+    for kind, info in plans:
+        if kind == "single":
+            yield (info.inp,), info.out
+        elif kind == "fallback":
+            yield (info[1], info[2]), info[0].out
+        elif kind == "inplace":
+            yield (info.x_id, *(y[0] for y in info.ys)), info.out_id
+        else:
+            yield (info.x_id, info.y_id), info.out_id
+
+
+SLICE_BATCH_MODES = ("auto", "scan", "vmap")
+
+
 def make_grouped_contractor(
-    tree, device, plane_dtype, gate_mode="auto", strip_exponent=False
+    tree, device, plane_dtype, gate_mode="auto", strip_exponent=False,
+    slice_batch=None, slice_batch_mode="auto",
 ):
     """Plan ``tree`` once and return ``fn(*planes) -> planes``.
 
@@ -270,6 +291,19 @@ def make_grouped_contractor(
     result renormalised by the max over both its planes (not after
     single steps or in-place chains, as in the reference).
 
+    ``slice_batch=B`` makes it ``fn(planes, slice_ids)``, as the
+    reference's: ``planes`` are the RAW (unsliced) plane stacks and
+    ``slice_ids`` the flat ids of the slices to contract (ints, a range,
+    a numpy array or a CPU tensor; see ``slices._ids_to_digits``), B of
+    them as a rule, though any number runs.
+    It returns the ``(len(slice_ids), 2, *out_shape)`` per-slice planes,
+    and a ``(len(slice_ids),)`` exponent vector under
+    ``strip_exponent``; the caller sums them. The steps that no sliced
+    index reaches run once per call, the others once per slice, on views
+    selected from the raw planes (``slice_batch_mode="scan"``, which
+    ``"auto"`` resolves to: one slice's memory at a time). ``"vmap"``,
+    all slices of the batch at once, is not ported (ROADMAP A8).
+
     ``gate_mode="auto"`` resolves to ``"inplace"`` (gate chains), as the
     reference's split-complex default does; ``None`` plans pairs only.
     There is no staging: it worked around the TPU compiler.
@@ -278,6 +312,17 @@ def make_grouped_contractor(
     pdt = resolve_plane_dtype(plane_dtype)
     if gate_mode == "auto":
         gate_mode = "inplace"
+    if slice_batch_mode not in SLICE_BATCH_MODES:
+        raise ValueError(
+            f"slice_batch_mode must be one of {SLICE_BATCH_MODES}, got "
+            f"{slice_batch_mode!r}"
+        )
+    if slice_batch and slice_batch_mode == "vmap":
+        raise NotImplementedError(
+            "slice_batch_mode='vmap' (all slices of a batch at once) is "
+            "not ported (ROADMAP A8: a batch leg through the chain "
+            "kernel); use 'scan'"
+        )
     ir = extract_contractions(tree)
     input_orders = [sliced_input_legs(tree, i) for i in range(tree.N)]
     plans, _, out_plan, out_shape, last_use = plan_grouped(
@@ -286,36 +331,71 @@ def make_grouped_contractor(
     sizes = tree.size_dict
     in_shapes = [tuple(sizes[ix] for ix in order) for order in input_orders]
 
-    def fn(*planes):
-        if len(planes) != len(in_shapes):
+    def check(planes, shapes):
+        if len(planes) != len(shapes):
             raise ValueError(
-                f"expected {len(in_shapes)} inputs, got {len(planes)}"
+                f"expected {len(shapes)} inputs, got {len(planes)}"
             )
-        temps = {}
-        for i, (a, shape) in enumerate(zip(planes, in_shapes)):
+        for i, (a, shape) in enumerate(zip(planes, shapes)):
             if a.device != dev or a.dtype != pdt:
                 raise ValueError(
                     f"input {i} is {a.dtype} on {a.device}; the "
                     f"contractor runs {pdt} on {dev}"
                 )
-            if tuple(a.shape) != (2,) + shape:
+            if tuple(a.shape) != (2,) + tuple(shape):
                 raise ValueError(
                     f"input {i} has shape {tuple(a.shape)}, expected "
-                    f"{(2,) + shape}"
+                    f"{(2,) + tuple(shape)}"
                 )
-            temps[i] = a.reshape(-1)
+
+    def finish(temps):
+        flat = _apply_block_plan_split(temps[ir.final_id], out_plan)
+        return flat.view((2,) + tuple(out_shape))
+
+    def zero():
+        return torch.zeros((), dtype=pdt, device=dev)
+
+    if slice_batch:
+        batch = SliceBatch(tree, list(_step_io(plans)), last_use)
+
+        def fn(planes, slice_ids):
+            check(planes, tree.get_shapes())
+            shapes = dict(enumerate(in_shapes))
+
+            def run_steps(steps, temps, lu):
+                return _exec_steps_split(
+                    plans, steps, temps, shapes, lu, strip_exponent
+                )
+
+            # a selected view is strided: one explicit copy makes it the
+            # contiguous flat planes that the steps and the chain kernel
+            # take
+            outs, exps = [], []
+            for temps, e in batch.run(
+                planes, slice_ids, run_steps,
+                lambda v: v.contiguous().view(-1), axis_offset=1,
+            ):
+                outs.append(finish(temps))
+                exps.append(zero() if e is None else e)
+            res = torch.stack(outs)
+            return (res, torch.stack(exps)) if strip_exponent else res
+
+        fn.plans = plans
+        fn.batch = batch
+        return fn
+
+    def fn(*planes):
+        check(planes, in_shapes)
+        temps = {i: a.reshape(-1) for i, a in enumerate(planes)}
         shapes = dict(enumerate(in_shapes))
         exponent = _exec_steps_split(
-            plans, temps, shapes, last_use, strip_exponent
+            plans, range(len(plans)), temps, shapes, last_use,
+            strip_exponent,
         )
-        flat = _apply_block_plan_split(temps[ir.final_id], out_plan)
-        planes = flat.view((2,) + tuple(out_shape))
+        planes = finish(temps)
         if not strip_exponent:
             return planes
-        if exponent is None:
-            exponent = torch.zeros((), dtype=pdt, device=dev)
-        return planes, exponent
+        return planes, zero() if exponent is None else exponent
 
     fn.plans = plans
     return fn
-

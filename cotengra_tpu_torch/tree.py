@@ -184,6 +184,45 @@ class ContractionTree:
             tuple(self.size_dict[ix] for ix in term) for term in self.inputs
         )
 
+    def get_size(self, node):
+        """Number of elements of ``node``'s tensor."""
+        return prod(self.size_dict[ix] for ix in self.get_legs(node))
+
+    def max_size(self, log=None):
+        """The largest intermediate (per slice), in elements."""
+        if self.N == 1:
+            size = self.get_size(self.root)
+        else:
+            size = max(map(self.get_size, self.children), default=0) or 1
+        if log is not None:
+            size = math.log(max(size, 1), log)
+        return size
+
+    def peak_size(self, order=None, log=None):
+        """Peak concurrent memory over the contraction in traversal
+        order (per slice, in elements), counting both inputs and the
+        output of each step as live together."""
+        tot = sum(self.get_size(1 << i) for i in range(self.N))
+        peak = tot
+        for p, l, r in self.traverse(order=order):
+            tot += self.get_size(p)
+            peak = max(peak, tot)
+            tot -= self.get_size(l) + self.get_size(r)
+        if log is not None:
+            peak = math.log(max(peak, 1), log)
+        return peak
+
+    @property
+    def nslices(self):
+        return self.multiplicity
+
+    @property
+    def nchunks(self):
+        """Number of output chunks produced by output-sliced indices."""
+        return prod(
+            si.size for si in self.sliced_inds.values() if not si.inner
+        )
+
     # -- construction from paths -----------------------------------------
 
     def contract_nodes_pair(self, l, r):

@@ -3,7 +3,8 @@ its index tables), checked on the CPU: a PyTorch emulation of the
 kernel's passes - gather each tile by the plan's offsets, apply every
 gate through its index maps, the last gate writing out - equals the
 plain version and the reference ``run_chain`` in Pallas interpret mode,
-and the plan keeps its invariants on every chain of the m=10 t27 plan.
+and the plan keeps its invariants on every chain of the m=10 t27 and
+m=20 t28 plans.
 The kernel itself runs only on a card (``tests/test_torch_cuda.py``)."""
 
 import functools
@@ -113,17 +114,18 @@ def test_emulated_passes_match_plain_and_reference(case):
 
 
 @functools.lru_cache(maxsize=None)
-def _t27_chains():
-    """Per in-place chain of the m=10 t27 plan: (port spec, reference
-    spec, c_orders, leg sizes), from both packages' own planners."""
-    inputs, output, _, _, arrays = rand_circuit_tn(53, 10, seed=42)
+def _plan_chains(m, t):
+    """Per in-place chain of the Sycamore-53 m t plan: (port spec,
+    reference spec, c_orders, leg sizes), from both packages' own
+    planners."""
+    inputs, output, _, _, arrays = rand_circuit_tn(53, m, seed=42)
     inputs, arrays = ref_preprocess.absorb_simple_tensors(
         inputs, arrays, output, max_rank=2, max_absorb_size=2**12
     )
     size_dict = {
         ix: int(d) for t, a in zip(inputs, arrays) for ix, d in zip(t, a.shape)
     }
-    tree = load_tree("plans/sycamore53_m10_t27.json", inputs, output,
+    tree = load_tree(f"plans/sycamore53_m{m}_t{t}.json", inputs, output,
                      size_dict)
     orders = [lowering.sliced_input_legs(tree, i) for i in range(tree.N)]
     ours = grouped_plan.plan_grouped(
@@ -139,7 +141,18 @@ def _t27_chains():
         if kind == "inplace":
             c_orders = [o[2:] for o in rec.spec.gate_orders]
             out.append((rec.spec, ref.spec, c_orders, tree.size_dict))
+    return out
+
+
+def _t27_chains():
+    out = _plan_chains(10, 27)
     assert len(out) == 13
+    return out
+
+
+def _m20_chains():
+    out = _plan_chains(20, 28)
+    assert len(out) == 38
     return out
 
 
@@ -184,22 +197,56 @@ def _contiguous_run(offsets):
     return int(steps[0]) if len(steps) else len(offsets)
 
 
+def _check_tile_plan(spec):
+    """The invariants of every pass of ``chain_tile_plan(spec)``; returns
+    the plan."""
+    plan = chain_tile_plan(spec)
+    assert plan[0].gates[0] == 0 and plan[-1].gates[1] == len(spec.gate_orders)
+    assert all(a.gates[1] == b.gates[0] for a, b in zip(plan, plan[1:]))
+    for ps in plan:
+        _check_pass(spec, ps)
+        # a pass ends where one more gate would not fit
+        first, stop = ps.gates
+        if stop < len(spec.gate_orders):
+            assert gate_chains._make_pass(spec, first, stop + 1,
+                                          SMEM_BUDGET) is None
+    return plan
+
+
 @pytest.mark.parametrize("ci", range(13))
 def test_t27_tile_plan_invariants(ci):
     spec, _, _, sizes = _t27_chains()[ci]
-    plan = chain_tile_plan(spec)
+    plan = _check_tile_plan(spec)
     assert len(plan) == 1  # the whole chain in one pass
-    (ps,) = plan
+
+
+@pytest.mark.parametrize("ci", range(38))
+def test_m20_tile_plan_invariants(ci):
+    spec, _, _, sizes = _m20_chains()[ci]
+    _check_tile_plan(spec)
+
+
+def test_m20_tile_plan_passes():
+    """40 passes over the 38 m20 chains: chains 12 and 25 (seven and
+    eight gates on 2^25 elements) outgrow one pass."""
+    passes = [len(chain_tile_plan(c[0])) for c in _m20_chains()]
+    assert sum(passes) == 40
+    assert [ci for ci, n in enumerate(passes) if n > 1] == [12, 25]
+    assert max(passes) == 2
+
+
+def _check_pass(spec, ps):
+    first, stop = ps.gates
     assert ps.smem_bytes <= SMEM_BUDGET
     legs = set(ps.legs)
-    for o_in, o_out, c, ny in spec.gate_orders:
+    for o_in, o_out, c, ny in spec.gate_orders[first:stop]:
         assert set(c) | set(ny) <= legs  # the tile covers every gate
     n_batch = prod(d[0] for d in ps.io.batch)
     tile_in = prod(d[0] for d in ps.io.kdims)
     tile_out = prod(d[0] for d in ps.io.ndims)
     assert tile_in == ps.tile[0].numel_in and tile_out == ps.tile[-1].numel_out
-    assert n_batch * tile_in == spec.gate_strides[0].numel_in
-    assert n_batch * tile_out == spec.gate_strides[-1].numel_out
+    assert n_batch * tile_in == spec.gate_strides[first].numel_in
+    assert n_batch * tile_out == spec.gate_strides[stop - 1].numel_out
     assert 1 <= ps.batch_tile <= n_batch and 2 <= ps.stages <= 4
     # loads and stores coalesce: the tile holds x's and out's innermost
     # 32 floats, unless one more leg (doubling every tile) would not fit

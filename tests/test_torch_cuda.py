@@ -103,6 +103,84 @@ def test_gate_chain_kernel_matches_plain(cuda, n, gates, passes):
     assert (got - ref).abs().max().item() <= 1e-5 * scale
 
 
+_M20_CHAINS = {}
+
+
+def _m20_chains():
+    """The in-place chains of the committed Sycamore-53 m=20 t28 plan,
+    built through the port (instance, absorption, plan, step plan)."""
+    if not _M20_CHAINS:
+        from pathlib import Path
+
+        from cotengra_tpu_torch import (
+            absorb_simple_tensors,
+            load_tree,
+            rand_circuit_tn,
+        )
+        from cotengra_tpu_torch.ops.grouped_plan import plan_grouped
+        from cotengra_tpu_torch.ops.lowering import (
+            extract_contractions,
+            sliced_input_legs,
+        )
+
+        inputs, output, _, _, arrays = rand_circuit_tn(53, 20, seed=42)
+        inputs, arrays = absorb_simple_tensors(
+            inputs, arrays, output, max_rank=2, max_absorb_size=2**12
+        )
+        size_dict = {
+            ix: int(d) for t, a in zip(inputs, arrays)
+            for ix, d in zip(t, a.shape)
+        }
+        plan = Path(__file__).resolve().parent.parent / "plans" / (
+            "sycamore53_m20_t28.json"
+        )
+        tree = load_tree(str(plan), inputs, output, size_dict)
+        orders = [sliced_input_legs(tree, i) for i in range(tree.N)]
+        plans = plan_grouped(
+            extract_contractions(tree), tree.size_dict, orders,
+            gate_mode="inplace",
+        )[0]
+        _M20_CHAINS["recs"] = [rec for k, rec in plans if k == "inplace"]
+    return _M20_CHAINS["recs"]
+
+
+def _kn(rec):
+    return [(K, N) for _, _, K, N in rec.ys]
+
+
+@pytest.mark.parametrize(
+    "which", ["first two-pass", "second two-pass", "(16,32) gate"]
+)
+def test_gate_chain_kernel_on_m20_chains(cuda, which):
+    """m=20 t28 chains at full size that no m=10 path runs: the two
+    chains whose tile outgrows one pass, and the largest one that opens
+    with a (16, 32) gate."""
+    recs = _m20_chains()
+    two = [r for r in recs if len(chain_tile_plan(r.spec)) == 2]
+    assert len(two) == 2
+    if which == "(16,32) gate":
+        rec = max(
+            (r for r in recs if (16, 32) in _kn(r)),
+            key=lambda r: r.spec.gate_strides[0].numel_in,
+        )
+    else:
+        rec = two[which.startswith("second")]
+    passes = len(chain_tile_plan(rec.spec))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(len(_kn(rec)))
+    n_in = rec.spec.gate_strides[0].numel_in
+    x = torch.randn(2 * n_in, generator=gen, device=cuda)
+    ys = [torch.randn((2, K, N), generator=gen, device=cuda)
+          for K, N in _kn(rec)]
+    before = run_chain_cuda.launches
+    got = run_chain(rec.spec, x, ys)
+    assert run_chain_cuda.launches - before == passes
+    ref = run_chain_plain(rec.spec, x, ys)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-5 * scale
+
+
 def test_gate_chain_kernel_rejects_bad_input(cuda):
     spec, x, ys = _chain(17, [((0, 1), 2)], seed=0)
     xt = torch.from_numpy(x).to(cuda)

@@ -176,12 +176,18 @@ def test_stripped_lattice_matches_reference(implementation, sliced,
 
 
 def test_benchmark_tree_and_slice_batch():
-    tree, _ = _chunked()
+    tree, arrays = _chunked()
     res = ctt.benchmark_tree(tree, "cpu", repeats=1)
     assert res["time"] > 0
     assert res["flops"] == tree.total_flops(dtype="float32")
-    with pytest.raises(NotImplementedError):
-        ctt.make_full_contractor(tree, "cpu", slice_batch=4)
+    # batches of 4 inner slices (output chunks reassembled) give the
+    # unbatched value
+    tensors = ctt.to_tensors(arrays, "cpu", torch.float64)
+    batched = ctt.make_full_contractor(tree, "cpu", slice_batch=4,
+                                       plane_dtype=torch.float64)
+    plain = ctt.make_full_contractor(tree, "cpu", plane_dtype=torch.float64)
+    assert_allclose(batched(*tensors).numpy(), plain(*tensors).numpy(),
+                    rtol=F64_RTOL)
 
 
 def test_config_default_implementation_reaches_the_kernel(monkeypatch):

@@ -132,7 +132,7 @@ def test_plans_equal_on_gate_construction():
 
 @pytest.mark.parametrize(
     "m,t,chains",
-    [(10, 27, 13), (10, 29, 0), (20, 28, None)],
+    [(10, 27, 13), (10, 29, 0), (20, 28, 38)],
 )
 def test_plans_equal_on_committed_sycamore_plans(m, t, chains):
     tree = _sycamore_tree(m, t)

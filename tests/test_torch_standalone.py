@@ -185,6 +185,18 @@ def test_plan_slicing_matches_the_reference(plan):
 
 
 @pytest.mark.parametrize("plan", _PLANS)
+def test_plan_sizes_match_the_reference(plan):
+    got, ref = _trees(plan)
+    assert got.max_size() == ref.max_size()
+    assert got.max_size(log=2) == ref.max_size(log=2)
+    assert got.peak_size() == ref.peak_size()
+    assert got.peak_size(log=2) == ref.peak_size(log=2)
+    assert (got.nslices, got.nchunks) == (ref.nslices, ref.nchunks)
+    for node in [*got.children, *(1 << i for i in range(got.N))]:
+        assert got.get_size(node) == ref.get_size(node)
+
+
+@pytest.mark.parametrize("plan", _PLANS)
 def test_plan_lowers_to_the_reference_ir(plan):
     got, ref = _trees(plan)
     assert lowering.extract_contractions(got) == (
