@@ -70,7 +70,29 @@ Run from the root of a checkout. Phases:
    the plan), the warm 16-slice time (best of 3, each pass ending in a
    host pull checked finite and stable), ms per slice and the peak
    device memory;
-12. one JSON line of kernel results (launches on the main path, error,
+12. the front end on the lattice: ``cotengra_tpu_torch.einsum`` on the
+   7x7 lattice's equation (``inputs_output_to_eq``) with
+   ``optimize=<the loaded tree>, strip_exponent=True,
+   implementation="pallas"``, no ``device=`` (the card is the
+   default): 464 ``bmm_absmax`` launches and |delta log10| <= 1e-4
+   against the plan's float64 reference, as phase 7;
+13. the front end on m10-t27: ``cotengra_tpu_torch.array_contract(arrays,
+   inputs, (), optimize=<the loaded tree>, slice_batch=4)``: 52 chain
+   launches and relerr <= 1e-5 against the sidecar's 4-slice
+   amplitude;
+14. for both, the warm time of the front-end call next to that of
+   ``make_full_contractor`` with the same options on the same device
+   tensors, measured in turns (best of 5, each pass ending in a host
+   pull checked finite and stable): the front end may cost at most
+   1.1x, its host canonicalisation, since its expression reuses the
+   contractor that the tree caches;
+15. the front end planning its own path: ``einsum`` on the 6x6 bond-16
+   lattice (uniform [0, 1) float32 from ``default_rng(7)``) with the
+   default ``optimize="auto"`` (random-greedy at this hardness,
+   unsliced), the planned tree's log2 max size (<= 28) and log10 flops
+   printed before it runs, ``bmm_absmax`` launches > 0 and |delta
+   log10| <= 1e-4 against ``LATTICE6_LOG10``;
+16. one JSON line of kernel results (launches on the main path, error,
    ms, plain ms, bound, library ms; the gate chain's m=20 figures
    under ``m20_*`` keys), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -79,7 +101,7 @@ Every instance is built and every plan loaded through the port
 (``cotengra_tpu_torch.rand_circuit_tn``, ``lattice_equation``,
 ``load_tree``): the script imports neither JAX nor the JAX package.
 
-Each main path (4, 5, 7, 8, 9, 11) is driven with every kernel's
+Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15) is driven with every kernel's
 launch count set to 0 just before it and read just after. Any failed
 phase raises, and the script exits non-zero without the last line. It
 needs a CUDA device and never falls back to the CPU.
@@ -115,6 +137,16 @@ M20_SLICES = 16     # the sidecar's largest partial sum
 M20_PASSES = 40     # chain_tile_plan's passes over the 38 chains of M20
 SEED = 1234
 PROFILE_WALL_PASSES = 5
+T27_BATCHED_LAUNCHES = 52   # 4 slices in one batched call (phase 9)
+FRONT_END_OVERHEAD = 1.1    # front-end warm time / make_full_contractor's
+# best of 5 in turns: best-of-3 t27 passes spread by 10% on the host side
+FRONT_END_PASSES = 5
+# log10 of the 6x6 bond-16 lattice's value in float64, from
+# ``python scratch/make_lattice6_ref.py`` (the JAX package on the CPU:
+# random-greedy path, strip_exponent=True, uniform [0, 1) float64 draws
+# from default_rng(7), which phase 15 casts to float32)
+LATTICE6_LOG10 = 61.38831832090792
+LATTICE6_MAX_LOG2 = 28
 # published H100 SXM peaks at a 700 W power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12        # float32 FMA outside the tensor cores
@@ -973,6 +1005,229 @@ def phase_m20(dev, passes=3):
     return counts["gate_chain"]
 
 
+def _in_turns(label, calls, pull, passes=3):
+    """Warm times of ``calls`` (name -> fn) measured in turns, each pass
+    ending in ``pull(result)``, a host pull that must be finite and
+    agree with the first pass's to 1e-6 relative. Returns name -> list
+    of seconds."""
+    names = list(calls)
+    order = ([*names, *reversed(names)] * passes)[:passes * len(names)]
+    times = {k: [] for k in names}
+    first = None
+    for k in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val = pull(calls[k]())
+        times[k].append(time.perf_counter() - t0)
+        first = val if first is None else first
+        if not (np.isfinite(val) and abs(val - first) <= 1e-6 * abs(first)):
+            raise AssertionError(f"{label} {k}: unstable value {val} vs {first}")
+    return times
+
+
+def _check_front_end_time(label, times):
+    best = {k: min(ts) for k, ts in times.items()}
+    front, direct = best["front end"], best["make_full_contractor"]
+    print(
+        f"# front end {label} warm_s "
+        + "; ".join(
+            f"{k} {' '.join(f'{t:.4f}' for t in ts)} (best {best[k]:.4f})"
+            for k, ts in times.items()
+        )
+        + f"; front end / direct {front / direct:.3f}",
+        flush=True,
+    )
+    if not front <= FRONT_END_OVERHEAD * direct:
+        raise AssertionError(
+            f"front end {label}: warm {front:.4f}s > {FRONT_END_OVERHEAD} x "
+            f"make_full_contractor's {direct:.4f}s: it re-plans"
+        )
+
+
+def _stripped_log10(res):
+    m, e = res
+    return float(np.log10(abs(m.item())) + e.item())
+
+
+def phase_front_lattice(dev):
+    """``einsum`` with the loaded 7x7 tree, stripped through the kernel,
+    on the default device; then its warm time against the direct
+    contractor's, in turns."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.utils.eqs import inputs_output_to_eq
+
+    t_phase = time.perf_counter()
+    tree, arrays, ref = _load_lattice()
+    eq = inputs_output_to_eq(tree.inputs, tree.output)
+    expect = sum(_lattice_kernel_shapes(tree).values()) * tree.multiplicity
+    opts = dict(strip_exponent=True, implementation="pallas")
+
+    _reset_launches()
+    res = ctt.einsum(eq, *arrays, optimize=tree, **opts)
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    log10 = _stripped_log10(res)
+    d_log10 = abs(log10 - ref["log10"])
+    if res[0].device != dev:
+        raise AssertionError(f"front end lattice: result on {res[0].device}")
+    if counts != {"gate_chain": 0, "bmm_absmax": expect}:
+        raise AssertionError(
+            f"front end lattice: launches {counts}, plan has {expect}"
+        )
+    if not (np.isfinite(log10) and d_log10 <= LOG10_ATOL):
+        raise AssertionError(
+            f"front end lattice: log10 {log10!r} vs {ref['log10']!r}: "
+            f"|delta| {d_log10:.3e} > {LOG10_ATOL}"
+        )
+    print(
+        f"# front end {LATTICE}: einsum(optimize=tree, strip_exponent=True, "
+        f'implementation="pallas") log10 {log10:.7f} |delta log10| '
+        f"{d_log10:.3e} bmm_absmax launches {counts['bmm_absmax']}",
+        flush=True,
+    )
+
+    tensors = ctt.to_tensors(arrays, dev, torch.float32)
+    direct = ctt.make_full_contractor(tree, dev, **opts)
+    times = _in_turns(
+        "front end lattice",
+        {
+            "front end": lambda: ctt.einsum(
+                eq, *tensors, optimize=tree, **opts
+            ),
+            "make_full_contractor": lambda: direct(*tensors),
+        },
+        _stripped_log10, FRONT_END_PASSES,
+    )
+    _check_front_end_time(LATTICE, times)
+    print(f"# front end {LATTICE} phase_s {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return counts["bmm_absmax"]
+
+
+def phase_front_t27(dev):
+    """``array_contract`` with the loaded t27 tree through the batched
+    call; then its warm time against the direct contractor's, in
+    turns."""
+    import cotengra_tpu_torch as ctt
+
+    t_phase = time.perf_counter()
+    tree, arrays, refs = _load_instance(T27)
+    n = tree.multiplicity
+    if tree.output != ():
+        raise AssertionError(f"{T27}: output {tree.output}, not ()")
+    expect = _batched_chain_passes(
+        ctt.make_grouped_contractor(tree, dev, slice_batch=n), n
+    )
+    if expect != T27_BATCHED_LAUNCHES:
+        raise AssertionError(f"{T27}: the plan gives {expect} launches")
+    ref = refs[n]
+
+    _reset_launches()
+    res = ctt.array_contract(arrays, tree.inputs, (), optimize=tree,
+                             slice_batch=n)
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    amp = complex(res.cpu().item())
+    relerr = abs(amp - ref) / abs(ref)
+    if res.device != dev or res.dtype != torch.complex64:
+        raise AssertionError(
+            f"front end t27: {res.dtype} result on {res.device}"
+        )
+    if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+        raise AssertionError(
+            f"front end t27: launches {counts}, the plan gives {expect}"
+        )
+    if not relerr <= AMP_RTOL:
+        raise AssertionError(
+            f"front end t27: amplitude {amp} vs {ref}: relerr "
+            f"{relerr:.3e} > {AMP_RTOL}"
+        )
+    print(
+        f"# front end {T27}: array_contract(optimize=tree, slice_batch={n}) "
+        f"amplitude {amp.real:.12e}{amp.imag:+.12e}j relerr {relerr:.3e} "
+        f"chain launches {counts['gate_chain']}",
+        flush=True,
+    )
+
+    tensors = ctt.to_tensors(arrays, dev, torch.float32)
+    direct = ctt.make_full_contractor(tree, dev, slice_batch=n)
+    times = _in_turns(
+        "front end t27",
+        {
+            "front end": lambda: ctt.array_contract(
+                tensors, tree.inputs, (), optimize=tree, slice_batch=n
+            ),
+            "make_full_contractor": lambda: direct(*tensors),
+        },
+        lambda r: complex(r.item()), FRONT_END_PASSES,
+    )
+    _check_front_end_time(T27, times)
+    print(f"# front end {T27} phase_s {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return counts["gate_chain"]
+
+
+def phase_front_auto(dev):
+    """``einsum`` on the 6x6 bond-16 lattice with ``optimize="auto"``:
+    the port plans the path (random-greedy at this hardness)."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.utils.eqs import inputs_output_to_eq
+
+    t_phase = time.perf_counter()
+    inputs, output, shapes, _ = ctt.lattice_equation([6, 6], d_min=16)
+    rng = np.random.default_rng(7)
+    arrays = [rng.uniform(size=s).astype(np.float32) for s in shapes]
+    eq = inputs_output_to_eq(inputs, output)
+    opts = dict(strip_exponent=True, implementation="pallas")
+    hardness = ctt.estimate_optimal_hardness(inputs)
+
+    # the expression einsum finds in the cache: planned here, so that its
+    # tree is printed before it runs
+    t0 = time.perf_counter()
+    expr = ctt.einsum_expression(eq, *shapes, **opts)
+    plan_s = time.perf_counter() - t0
+    tree = expr.tree
+    max_log2 = tree.max_size(log=2)
+    print(
+        f"# front end lattice6x6_d16 auto: hardness {hardness:.0f} planned "
+        f"in {plan_s:.2f}s: slices {tree.multiplicity} log2 max size "
+        f"{max_log2:.2f} log2 peak {tree.peak_size(log=2):.2f} log10 flops "
+        f"{tree.total_flops(log=10):.3f}",
+        flush=True,
+    )
+    if max_log2 > LATTICE6_MAX_LOG2 or tree.multiplicity != 1:
+        raise AssertionError(
+            f"auto 6x6: 2^{max_log2:.2f} max size, {tree.multiplicity} "
+            f"slices"
+        )
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = ctt.einsum(eq, *arrays, **opts)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = _read_launches()
+    if ctt.einsum_expression(eq, *shapes, **opts) is not expr:
+        raise AssertionError("auto 6x6: einsum planned another expression")
+    log10 = _stripped_log10(res)
+    d_log10 = abs(log10 - LATTICE6_LOG10)
+    if counts["gate_chain"] != 0 or counts["bmm_absmax"] <= 0:
+        raise AssertionError(f"auto 6x6: launches {counts}")
+    if not (np.isfinite(log10) and d_log10 <= LOG10_ATOL):
+        raise AssertionError(
+            f"auto 6x6: log10 {log10!r} vs {LATTICE6_LOG10!r}: |delta| "
+            f"{d_log10:.3e} > {LOG10_ATOL}"
+        )
+    print(
+        f"# front end lattice6x6_d16 auto: log10 {log10:.7f} (reference "
+        f"{LATTICE6_LOG10:.7f}) |delta log10| {d_log10:.3e} bmm_absmax "
+        f"launches {counts['bmm_absmax']} call_s {first_s:.3f} phase_s "
+        f"{time.perf_counter() - t_phase:.1f}",
+        flush=True,
+    )
+    return counts["bmm_absmax"]
+
+
 def _kernel_class(name):
     if "gate_chain_kernel" in name:
         return "gate-chain kernel"
@@ -1122,6 +1377,9 @@ def main():
     phase_t27_batched(dev)
     m20_rows = phase_chains_m20(dev)
     m20_launches = phase_m20(dev)
+    phase_front_lattice(dev)
+    phase_front_t27(dev)
+    phase_front_auto(dev)
     kernels = [
         {
             # per slice: the 13 chains of one m10-t27 slice

@@ -1,8 +1,8 @@
 """Device and plane-dtype resolution for the PyTorch port.
 
-Every public entry point takes an explicit ``device=``: there is no
-silent device choice, and asking for ``"cuda"`` on a machine without a
-card raises instead of running on the CPU.
+Every public entry point runs on the card unless the caller asks for
+the CPU (``device="cpu"``): the default device is ``"cuda"``, and on a
+machine without a card it raises instead of running on the CPU.
 """
 
 import torch
@@ -22,15 +22,14 @@ def full_fp32_matmuls():
     torch.set_float32_matmul_precision("highest")
 
 
-def resolve_device(device):
-    """``torch.device`` for ``device`` (a name or a device).
+def resolve_device(device="cuda"):
+    """``torch.device`` for ``device`` (a name or a device; ``None`` is
+    the default, ``"cuda"``).
 
-    Raises for ``"cuda"`` when no card is visible, and for device types
-    the port does not run on.
+    Raises for ``"cuda"`` when no card is visible (never falling back to
+    the CPU), and for device types the port does not run on.
     """
-    if device is None:
-        raise ValueError("an explicit device= is required")
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -21,7 +21,7 @@ def to_plane_array(a):
     return np.stack([a, np.zeros_like(a)])
 
 
-def to_plane_tensors(arrays, device, plane_dtype):
+def to_plane_tensors(arrays, device="cuda", plane_dtype=torch.float32):
     """numpy arrays -> ``(2, *shape)`` plane tensors of ``plane_dtype``
     on ``device``."""
     dev = resolve_device(device)
@@ -32,7 +32,7 @@ def to_plane_tensors(arrays, device, plane_dtype):
     ]
 
 
-def to_tensors(arrays, device, dtype):
+def to_tensors(arrays, device="cuda", dtype=torch.float32):
     """numpy arrays (or tensors) -> tensors on ``device``: real arrays
     as ``dtype`` (float32 or float64), complex arrays as the complex
     type of the same precision."""

@@ -21,12 +21,18 @@ The counterpart of ``cotengra_tpu/ops/executor.py``:
    (``build_batched_core_fn``, or the grouped one) that runs the steps
    no sliced index reaches once per batch (``slices.SliceBatch``).
 
+4. ``contract_tree`` and ``contract_core`` reuse the contractor planned
+   for the tree (``_cached_full``, ``_cached_core``): it is kept in
+   ``tree.contraction_cores`` under a key made of every option that
+   shapes it (device, plane dtype, ``strip_exponent``,
+   ``implementation``, ``slice_batch``), so that repeated calls, and the
+   front end's expressions (``interface.py``), plan once.
+
 What the reference had for jit and the TPU compiler has no counterpart:
 ``make_traced_slicer`` (slices are selected on the host as views,
 ``slice_arrays`` and ``slices._select_input``),
 ``make_staged_contractor`` (staging bounded compile cost; eager torch
-compiles nothing), ``_cached_full`` (a jit cache; the port plans per
-call), and the ``autojit``, ``precision`` and
+compiles nothing), and the ``autojit``, ``precision`` and
 ``preferred_element_type`` arguments (the port runs true float32
 everywhere, ``_device.full_fp32_matmuls``).
 """
@@ -320,7 +326,7 @@ def _user_result(res, any_complex):
 
 
 def make_contractor(
-    tree, device, strip_exponent=False, implementation=None,
+    tree, device="cuda", strip_exponent=False, implementation=None,
     plane_dtype=torch.float32,
 ):
     """The *core* (single slice) contraction of ``tree`` on ``device``:
@@ -356,7 +362,7 @@ def _sum_batch(res):
 
 
 def make_full_contractor(
-    tree, device, strip_exponent=False, slice_batch=None,
+    tree, device="cuda", strip_exponent=False, slice_batch=None,
     implementation=None, plane_dtype=torch.float32,
 ):
     """The FULL contraction of ``tree`` on ``device``: ``fn(*tensors)``
@@ -430,15 +436,54 @@ def make_full_contractor(
 # -- public tree-execution entry points ---------------------------------------
 
 
-def contract_core(tree, arrays, device, plane_dtype=torch.float32, **kwargs):
+def _cached(tree, key, build):
+    """The contractor cached on ``tree`` under ``key``, built on a
+    miss. The key holds the resolved device, so that a contractor built
+    for one device is never handed to a call on another."""
+    try:
+        return tree.contraction_cores[key]
+    except KeyError:
+        fn = tree.contraction_cores[key] = build()
+        return fn
+
+
+def _cached_core(tree, device="cuda", strip_exponent=False,
+                 implementation=None, plane_dtype=torch.float32):
+    """``make_contractor``, cached on the tree."""
+    dev = resolve_device(device)
+    key = ("torch", "core", dev, plane_dtype, strip_exponent, implementation)
+    return _cached(tree, key, lambda: make_contractor(
+        tree, dev, strip_exponent=strip_exponent,
+        implementation=implementation, plane_dtype=plane_dtype,
+    ))
+
+
+def _cached_full(tree, device="cuda", strip_exponent=False,
+                 slice_batch=None, implementation=None,
+                 plane_dtype=torch.float32):
+    """``make_full_contractor``, cached on the tree (the reference's
+    ``_cached_full``)."""
+    dev = resolve_device(device)
+    key = ("torch", "full", dev, plane_dtype, strip_exponent,
+           implementation, slice_batch)
+    return _cached(tree, key, lambda: make_full_contractor(
+        tree, dev, strip_exponent=strip_exponent, slice_batch=slice_batch,
+        implementation=implementation, plane_dtype=plane_dtype,
+    ))
+
+
+def contract_core(tree, arrays, device="cuda", plane_dtype=torch.float32,
+                  **kwargs):
     """Contract ``arrays`` (one slice, already sliced if applicable) on
-    ``device``. ``arrays`` are numpy arrays or tensors; real ones run
-    as ``plane_dtype``, complex ones at its precision."""
-    fn = make_contractor(tree, device, plane_dtype=plane_dtype, **kwargs)
-    return fn(*to_tensors(arrays, device, plane_dtype))
+    ``device`` with the tree's cached contractor. ``arrays`` are numpy
+    arrays or tensors; real ones run as ``plane_dtype``, complex ones at
+    its precision."""
+    dev = resolve_device(device)
+    fn = _cached_core(tree, dev, plane_dtype=plane_dtype, **kwargs)
+    return fn(*to_tensors(arrays, dev, plane_dtype))
 
 
-def contract_slice(tree, arrays, i, device, **kwargs):
+def contract_slice(tree, arrays, i, device="cuda", **kwargs):
     """Slice the full input arrays for slice ``i`` and contract."""
     return contract_core(
         tree, slice_arrays(tree, arrays, i), device, **kwargs
@@ -456,22 +501,23 @@ def _defaults(implementation, slice_batch):
 
 
 def contract_tree(
-    tree, arrays, device, plane_dtype=torch.float32, strip_exponent=False,
-    implementation=None, slice_batch=None,
+    tree, arrays, device="cuda", plane_dtype=torch.float32,
+    strip_exponent=False, implementation=None, slice_batch=None,
 ):
     """Contract ``tree`` over all its slices on ``device``.
 
-    ``arrays`` are the raw numpy inputs (the arrays the reference package
-    consumes). Real inputs run as real tensors of ``plane_dtype``;
-    complex ones at its precision, as complex tensors on the direct
-    route and as split-complex planes on the grouped route. Returns the
-    result on ``device``, or ``(mantissa, log10 exponent)`` with
-    ``strip_exponent``. Unset ``implementation`` and ``slice_batch``
-    take ``cotengra_tpu_torch.config``'s defaults.
+    ``arrays`` are the raw inputs, numpy arrays (the arrays the reference
+    package consumes) or tensors. Real inputs run as real tensors of
+    ``plane_dtype``; complex ones at its precision, as complex tensors
+    on the direct route and as split-complex planes on the grouped
+    route. Returns the result on ``device``, or ``(mantissa, log10
+    exponent)`` with ``strip_exponent``. Unset ``implementation`` and
+    ``slice_batch`` take ``cotengra_tpu_torch.config``'s defaults. The
+    contractor is planned once per tree and options (``_cached_full``).
     """
     implementation, slice_batch = _defaults(implementation, slice_batch)
     dev = resolve_device(device)
-    fn = make_full_contractor(
+    fn = _cached_full(
         tree, dev, strip_exponent=strip_exponent, slice_batch=slice_batch,
         implementation=implementation, plane_dtype=plane_dtype,
     )
@@ -479,8 +525,8 @@ def contract_tree(
 
 
 def gen_output_chunks(
-    tree, arrays, device, strip_exponent=False, plane_dtype=torch.float32,
-    **kwargs,
+    tree, arrays, device="cuda", strip_exponent=False,
+    plane_dtype=torch.float32, **kwargs,
 ):
     """Generate the output chunks of an output-sliced contraction one at
     a time, without materializing the full output. Yields
@@ -490,11 +536,12 @@ def gen_output_chunks(
     ``_add_stripped``.
     """
     n_inner, n_chunks, _ = _chunk_structure(tree)
-    core = make_contractor(
-        tree, device, strip_exponent=strip_exponent,
-        plane_dtype=plane_dtype, **kwargs,
+    dev = resolve_device(device)
+    core = _cached_core(
+        tree, dev, strip_exponent=strip_exponent, plane_dtype=plane_dtype,
+        **kwargs,
     )
-    tensors = to_tensors(arrays, device, plane_dtype)
+    tensors = to_tensors(arrays, dev, plane_dtype)
     for c in range(n_chunks):
         acc = _sum_slices(
             lambda sid: core(*slice_arrays(tree, tensors, sid)),
@@ -536,7 +583,7 @@ def _pull(res):
 
 
 def benchmark_tree(
-    tree, device, arrays=None, dtype="float32", repeats=3, **kwargs
+    tree, device="cuda", arrays=None, dtype="float32", repeats=3, **kwargs
 ):
     """Wall-clock benchmark of the full contraction on ``device``:
     seconds per run (best of ``repeats`` after a warm-up, each ending in

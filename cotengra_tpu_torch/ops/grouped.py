@@ -279,8 +279,8 @@ SLICE_BATCH_MODES = ("auto", "scan", "vmap")
 
 
 def make_grouped_contractor(
-    tree, device, plane_dtype, gate_mode="auto", strip_exponent=False,
-    slice_batch=None, slice_batch_mode="auto",
+    tree, device="cuda", plane_dtype=torch.float32, gate_mode="auto",
+    strip_exponent=False, slice_batch=None, slice_batch_mode="auto",
 ):
     """Plan ``tree`` once and return ``fn(*planes) -> planes``.
 

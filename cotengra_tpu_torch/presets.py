@@ -1,0 +1,118 @@
+"""Built-in optimize presets (counterpart of ``cotengra_tpu/presets.py``):
+``auto`` / ``auto-hq`` pick optimal DP for small contractions (hardness
+``n^2 * sqrt(k)`` under a cutoff) and random-greedy otherwise; plus
+``greedy``, ``optimal`` (``dp``), ``optimal-outer``,
+``random-greedy{,-128}``, ``simplify``, ``edgesort`` and ``random``.
+
+The large branch of ``auto`` is the reference's own fallback for when
+its hyper-optimizer cannot be imported: 32 trials of random-greedy. The
+hyper-optimizer and its presets are not ported yet.
+"""
+
+import functools
+
+from .interface import register_preset
+from .pathfinders.basic import (
+    optimize_greedy,
+    optimize_optimal,
+    optimize_random_greedy_track_flops,
+    optimize_simplify,
+)
+from .pathfinders.edgesort import optimize_edgesort
+from .pathfinders.random import optimize_random
+from .tree import ContractionTree
+
+
+def estimate_optimal_hardness(inputs):
+    """Cheap estimate of how hard exact DP would be: ``n^2 * k^0.5``,
+    with n terms and k distinct indices."""
+    n = len(inputs)
+    k = len({ix for term in inputs for ix in term})
+    return n**2 * k**0.5
+
+
+class AutoOptimizer:
+    """Optimal DP (minimizing ``minimize``) if the contraction's hardness
+    is under ``optimal_cutoff``, otherwise 32 trials of random-greedy."""
+
+    def __init__(self, optimal_cutoff=250, minimize="combo"):
+        self.optimal_cutoff = optimal_cutoff
+        self.minimize = minimize
+
+    def search(self, inputs, output, size_dict):
+        if estimate_optimal_hardness(inputs) < self.optimal_cutoff:
+            ssa_path = optimize_optimal(
+                inputs, output, size_dict, minimize=self.minimize,
+                use_ssa=True,
+            )
+        else:
+            ssa_path, _ = optimize_random_greedy_track_flops(
+                inputs, output, size_dict, ntrials=32, use_ssa=True
+            )
+        return ContractionTree.from_path(
+            inputs, output, size_dict, ssa_path=ssa_path
+        )
+
+    def __call__(self, inputs, output, size_dict):
+        return self.search(inputs, output, size_dict).get_path()
+
+
+class AutoHQOptimizer(AutoOptimizer):
+    """``AutoOptimizer`` with a higher optimal cutoff (650), for harder or
+    repeated contractions."""
+
+    def __init__(self, **kwargs):
+        kwargs.setdefault("optimal_cutoff", 650)
+        super().__init__(**kwargs)
+
+
+auto_optimize = AutoOptimizer()
+auto_hq_optimize = AutoHQOptimizer()
+
+
+def _random_greedy(inputs, output, size_dict, ntrials=32, **kwargs):
+    path, _ = optimize_random_greedy_track_flops(
+        inputs, output, size_dict, ntrials=ntrials, **kwargs
+    )
+    return path
+
+
+def _tree_of(fn):
+    @functools.wraps(fn)
+    def tree_fn(inputs, output, size_dict):
+        return ContractionTree.from_path(
+            inputs, output, size_dict, path=fn(inputs, output, size_dict)
+        )
+
+    return tree_fn
+
+
+def register_builtin_presets():
+    greedy_fn = functools.partial(optimize_greedy, use_ssa=False)
+    register_preset("greedy", greedy_fn, _tree_of(greedy_fn))
+
+    optimal_fn = functools.partial(optimize_optimal, use_ssa=False)
+    register_preset(("optimal", "dp"), optimal_fn, _tree_of(optimal_fn))
+
+    optimal_outer_fn = functools.partial(
+        optimize_optimal, use_ssa=False, search_outer=True
+    )
+    register_preset(
+        "optimal-outer", optimal_outer_fn, _tree_of(optimal_outer_fn)
+    )
+
+    rg = functools.partial(_random_greedy, ntrials=32)
+    register_preset("random-greedy", rg, _tree_of(rg))
+    rg128 = functools.partial(_random_greedy, ntrials=128)
+    register_preset("random-greedy-128", rg128, _tree_of(rg128))
+
+    simplify_fn = functools.partial(optimize_simplify, use_ssa=False)
+    register_preset("simplify", simplify_fn, _tree_of(simplify_fn))
+
+    register_preset(
+        "edgesort", optimize_edgesort, _tree_of(optimize_edgesort)
+    )
+    register_preset("random", optimize_random, _tree_of(optimize_random))
+
+    register_preset("auto", auto_optimize, auto_optimize.search)
+    register_preset("auto-hq", auto_hq_optimize, auto_hq_optimize.search)

@@ -13,11 +13,15 @@ This is what the executor reads: the structure (``children``,
 ``multiplicity``, ``slice_key``), shapes and flop counts, with the
 reference's semantics and orders, so that trees from the same plan
 lower to the same steps. Legs are recomputed plainly (cached until the
-slicing changes) where the reference updates them incrementally.
-Planning is not here: no path search, slicing search or reconfiguration
-(the JAX package's ``pathfinders``, ``hyper``, ``slicing``); trees come
-from a saved plan (``utils.io.load_tree``) or an explicit path
-(``ContractionTree.from_path``).
+slicing changes) where the reference updates them incrementally. Trees
+come from a saved plan (``utils.io.load_tree``), an explicit path
+(``ContractionTree.from_path``, which finishes an incomplete path with
+the basic path finders, ``pathfinders/basic.py``) or the front end
+(``interface.py``). Slicing search and reconfiguration are not here.
+
+``contraction_cores`` caches the contractors built for the tree
+(``ops/executor.py::_cached_full``), keyed by every option that shapes
+them; changing the tree's structure or slicing empties it.
 """
 
 import functools
@@ -110,6 +114,14 @@ class ContractionTree:
         self.sliced_inds = {}
         self.multiplicity = 1
         self._legs = {}
+        self.contraction_cores = {}
+
+    def is_complete(self):
+        """Whether the tree joins every input: N - 1 contractions up to
+        the root (a single input is complete alone)."""
+        if self.N == 1:
+            return True
+        return len(self.children) == self.N - 1 and self.root in self.children
 
     def copy(self):
         new = ContractionTree(
@@ -233,24 +245,54 @@ class ContractionTree:
             (l, r) if l.bit_count() >= r.bit_count() else (r, l)
         )
         self._legs.clear()
+        self.contraction_cores.clear()
         return parent
+
+    def contract_nodes(self, nodes, optimize="greedy"):
+        """Contract ``nodes`` into one parent; more than two are joined
+        in the order that ``optimize`` (``"greedy"`` or ``"optimal"``)
+        finds for their sub-contraction."""
+        nodes = list(nodes)
+        if len(nodes) == 1:
+            return nodes[0]
+        if len(nodes) == 2:
+            return self.contract_nodes_pair(*nodes)
+        sub_inputs = [tuple(self.get_legs(n)) for n in nodes]
+        grand = 0
+        for n in nodes:
+            grand |= n
+        if grand == self.root and self.N > 1:
+            sub_output = tuple(
+                ix for ix in self.output if ix not in self.sliced_inds
+            )
+        else:
+            merged = legs_union(self.get_legs(n) for n in nodes)
+            sub_output = tuple(
+                ix for ix, c in merged.items() if c < self.appearances[ix]
+            )
+        ssa_path = _find_sub_path(
+            sub_inputs, sub_output, self.size_dict, optimize
+        )
+        pool = list(nodes)
+        for step in ssa_path:
+            parent = pool[step[0]]
+            for s in step[1:]:
+                parent = self.contract_nodes_pair(parent, pool[s])
+            pool.append(parent)
+        return pool[-1]
 
     @classmethod
     def from_path(cls, inputs, output, size_dict, *, path=None,
-                  ssa_path=None, optimize=None):
-        """Build a tree from an explicit contraction path: exactly one of
-        ``path`` (linear, opt_einsum style) or ``ssa_path``. Multi-way
-        steps are binarized left to right, and a path that leaves two
-        top nodes is closed by contracting them. The port has no path
-        finder: ``optimize`` (the reference's way to plan a tree, or to
-        close a path that leaves more) raises."""
+                  ssa_path=None, optimize="greedy"):
+        """Build a tree from a contraction path: exactly one of ``path``
+        (linear, opt_einsum style) or ``ssa_path``. Multi-way steps are
+        binarized left to right. A path that leaves several top nodes
+        (disconnected pieces, or a partial path) is completed as the
+        reference's ``autocomplete`` does: two are contracted, more are
+        joined in the order ``optimize`` finds (see ``contract_nodes``).
+        """
         if (path is None) == (ssa_path is None):
             raise ValueError("Specify exactly one of path, ssa_path.")
-        if optimize is not None:
-            raise ValueError(
-                f"optimize={optimize!r}: cotengra_tpu_torch has no path "
-                "finder; plan with cotengra_tpu and pass the path"
-            )
         tree = cls(inputs, output, size_dict)
         if path is not None:
             ssa_path = linear_to_ssa(path, tree.N)
@@ -269,13 +311,23 @@ class ContractionTree:
                 )
                 if n not in below
             ]
-            if len(tops) != 2:
-                raise ValueError(
-                    f"the path leaves {len(tops)} subtrees; closing them "
-                    "needs a path finder, which cotengra_tpu_torch has not"
-                )
-            tree.contract_nodes_pair(*tops)
+            tree.contract_nodes(tops, optimize=optimize)
         return tree
+
+    # -- paths -----------------------------------------------------------
+
+    def get_ssa_path(self):
+        """The tree as an SSA path, in the default traversal order."""
+        ssa = {1 << i: i for i in range(self.N)}
+        path = []
+        for c, (p, l, r) in enumerate(self.traverse(), self.N):
+            path.append((ssa[l], ssa[r]))
+            ssa[p] = c
+        return tuple(path)
+
+    def get_path(self):
+        """The tree as a linear (opt_einsum style) path."""
+        return ssa_to_linear(self.get_ssa_path(), self.N)
 
     # -- traversal -------------------------------------------------------
 
@@ -308,6 +360,7 @@ class ContractionTree:
             s.ind: s for s in sorted((*tree.sliced_inds.values(), si))
         }
         tree._legs.clear()
+        tree.contraction_cores.clear()
         return tree
 
     remove_ind_ = functools.partialmethod(remove_ind, inplace=True)
@@ -323,3 +376,90 @@ class ContractionTree:
             else:
                 key[ind] = si.project
         return key
+
+    # -- execution (``ops/executor.py``) ---------------------------------
+
+    def get_contractor(self, device="cuda", **kwargs):
+        """The cached single-slice contractor (``make_contractor``)."""
+        from .ops.executor import _cached_core
+
+        return _cached_core(self, device, **kwargs)
+
+    def contract(self, arrays, device="cuda", **kwargs):
+        """Contract over all slices (``contract_tree``)."""
+        from .ops.executor import contract_tree
+
+        return contract_tree(self, arrays, device, **kwargs)
+
+    def contract_core(self, arrays, device="cuda", **kwargs):
+        """Contract one slice's inputs (``contract_core``)."""
+        from .ops.executor import contract_core
+
+        return contract_core(self, arrays, device, **kwargs)
+
+    def contract_slice(self, arrays, i, device="cuda", **kwargs):
+        """Contract slice ``i`` of the full inputs (``contract_slice``)."""
+        from .ops.executor import contract_slice
+
+        return contract_slice(self, arrays, i, device, **kwargs)
+
+
+def ssa_to_linear(ssa_path, n=None):
+    """Convert an SSA path to linear (shrinking-list) form."""
+    if n is None:
+        n = sum(len(step) for step in ssa_path) - len(ssa_path) + 1
+    ids = list(range(n))
+    out = []
+    ssa = n
+    for step in ssa_path:
+        pos = tuple(ids.index(s) for s in step)
+        out.append(tuple(sorted(pos)))
+        for i in sorted(pos, reverse=True):
+            ids.pop(i)
+        ids.append(ssa)
+        ssa += 1
+    return tuple(out)
+
+
+def edge_path_to_ssa(edge_path, inputs):
+    """An edge-elimination order -> an SSA path: eliminating an index
+    contracts, pairwise in SSA order, every current term holding it; a
+    disconnected remainder is contracted left to right."""
+    live = dict(enumerate(frozenset(term) for term in inputs))
+    ssa = len(live)
+    path = []
+    for ix in edge_path:
+        group = sorted(i for i, term in live.items() if ix in term)
+        while len(group) >= 2:
+            a, b = group[0], group[1]
+            path.append((a, b))
+            live[ssa] = live.pop(a) | live.pop(b)
+            group = [ssa] + group[2:]
+            ssa += 1
+    rest = sorted(live)
+    while len(rest) >= 2:
+        a, b = rest[0], rest[1]
+        path.append((a, b))
+        live[ssa] = live.pop(a) | live.pop(b)
+        rest = sorted(rest[2:] + [ssa])
+        ssa += 1
+    return tuple(path)
+
+
+def edge_path_to_linear(edge_path, inputs):
+    """An edge-elimination order -> a linear path."""
+    return ssa_to_linear(edge_path_to_ssa(edge_path, inputs), len(inputs))
+
+
+def _find_sub_path(sub_inputs, sub_output, size_dict, optimize):
+    """The SSA path of a sub-contraction by ``optimize``, ``"greedy"``
+    or ``"optimal"``."""
+    from .pathfinders.basic import optimize_greedy, optimize_optimal
+
+    if optimize == "optimal":
+        return optimize_optimal(
+            sub_inputs, sub_output, size_dict, use_ssa=True
+        )
+    if optimize == "greedy":
+        return optimize_greedy(sub_inputs, sub_output, size_dict, use_ssa=True)
+    raise ValueError(f"Unknown sub-optimize {optimize!r}.")

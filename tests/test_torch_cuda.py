@@ -301,3 +301,27 @@ def test_bmm_absmax_kernel_propagates_nan_and_rejects(cuda):
         bmm_absmax(x.transpose(1, 2), x)
     with pytest.raises(ValueError):
         bmm_absmax(x, x.cpu())
+
+
+def test_einsum_lattice_launches_the_kernel(cuda):
+    """The front end without ``device=`` runs on the card: the stripped
+    4x4 bond-16 lattice through ``einsum(..., implementation="pallas")``
+    launches ``bmm_absmax`` and matches the CPU run of the same call
+    (the kernel's plain version) in float32."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.utils.eqs import inputs_output_to_eq
+
+    inputs, output, shapes, _ = ctt.lattice_equation([4, 4], d_min=16)
+    rng = np.random.default_rng(7)
+    arrays = [rng.uniform(size=s).astype(np.float32) for s in shapes]
+    eq = inputs_output_to_eq(inputs, output)
+    kw = dict(optimize="greedy", strip_exponent=True, implementation="pallas")
+    before = bmm_absmax_cuda.launches
+    m, e = ctt.einsum(eq, *arrays, **kw)
+    torch.cuda.synchronize()
+    assert m.device == cuda and m.dtype == torch.float32
+    assert bmm_absmax_cuda.launches > before
+    mc, ec = ctt.einsum(eq, *arrays, device="cpu", **kw)
+    log10 = np.log10(abs(m.item())) + e.item()
+    log10_cpu = np.log10(abs(mc.item())) + ec.item()
+    assert np.isfinite(log10) and abs(log10 - log10_cpu) <= 1e-4

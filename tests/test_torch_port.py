@@ -1,5 +1,5 @@
-"""The PyTorch port stands without JAX and never picks a device on its
-own."""
+"""The PyTorch port stands without JAX, runs on the card by default and
+never falls back to the CPU."""
 
 import os
 import subprocess
@@ -82,6 +82,16 @@ _NO_JAX = textwrap.dedent(
     lgot = float(m) * 10.0 ** float(e)
     assert abs(lgot - lref) <= 1e-10 * lref, (lgot, lref)
 
+    # the front end plans its own path ("auto": optimal DP below the
+    # hardness cutoff, random-greedy above it) and contracts on the CPU
+    for n in (5, 14):
+        ei, eo, eshapes, _ = ctt.rand_equation(n, 3, n_out=1, seed=n)
+        earr = [rng.uniform(size=s) for s in eshapes]
+        egot = ctt.einsum(eq(ei, eo), *earr, device="cpu")
+        eref = np.einsum(eq(ei, eo), *earr, optimize="greedy")
+        assert egot.dtype == torch.float64
+        np.testing.assert_allclose(egot.numpy(), eref, rtol=1e-10)
+
     import chip_smoke  # imported, not run
 
     bad = sorted(
@@ -96,7 +106,8 @@ _NO_JAX = textwrap.dedent(
 
 def _reference_paths():
     """Paths planned by the JAX package's greedy optimizer, handed to the
-    blocked subprocess as literals (the port has no path finder)."""
+    blocked subprocess as literals: the trees the JAX package would
+    run."""
     from cotengra_tpu import lattice_equation, optimize_greedy
     from cotengra_tpu.models.circuits import rand_circuit_tn
 
@@ -149,8 +160,11 @@ def test_contract_tree_cuda_without_card_raises(no_card):
 
 
 @pytest.mark.parametrize("device", [None, "meta"])
-def test_device_must_be_explicit_and_supported(device):
-    with pytest.raises(ValueError):
+def test_device_must_be_explicit_and_supported(device, no_card):
+    # no device means the card, which raises where there is none; a
+    # device type the port does not run on is refused
+    error = RuntimeError if device is None else ValueError
+    with pytest.raises(error):
         ctt.resolve_device(device)
 
 

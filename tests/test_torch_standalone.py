@@ -56,7 +56,10 @@ def test_no_import_of_the_jax_package_or_jax(source):
 def test_the_scan_sees_every_module():
     assert "chip_smoke.py" in _SOURCES
     for mod in ("tree.py", "config.py", "utils/io.py", "models/circuits.py",
-                "ops/executor.py", "ops/bmm_absmax.py"):
+                "ops/executor.py", "ops/bmm_absmax.py", "interface.py",
+                "presets.py", "utils/eqs.py", "pathfinders/basic.py",
+                "pathfinders/base.py", "pathfinders/edgesort.py",
+                "pathfinders/random.py"):
         assert f"cotengra_tpu_torch/{mod}" in _SOURCES
 
 
@@ -261,14 +264,26 @@ def test_from_path_without_a_planner():
     ref = ctg.ContractionTree.from_path(inputs, (), size_dict, path=two)
     assert list(got.children.items()) == list(ref.children.items())
     assert got.root in got.children
-    # more left over, a named optimizer, or another traversal order need
-    # what the port does not have yet
-    with pytest.raises(ValueError, match="path finder"):
-        ctt.ContractionTree.from_path(inputs, (), size_dict, path=[])
-    with pytest.raises(ValueError, match="path finder"):
+    # more left over are joined by the port's own greedy, as the
+    # reference's pure-Python greedy joins them (its native one breaks
+    # ties otherwise)
+    got = ctt.ContractionTree.from_path(inputs, (), size_dict, path=[])
+    ref = ctg.ContractionTree.from_path(
+        inputs, (), size_dict, ssa_path=ctg.optimize_greedy(
+            inputs, (), size_dict, use_ssa=True, accel=False
+        ),
+    )
+    assert list(got.children.items()) == list(ref.children.items())
+    assert got.is_complete()
+    got = ctt.ContractionTree.from_path(
+        inputs, (), size_dict, path=[], optimize="optimal"
+    )
+    assert got.is_complete()
+    with pytest.raises(ValueError, match="sub-optimize"):
         ctt.ContractionTree.from_path(
-            inputs, (), size_dict, path=two, optimize="greedy"
+            inputs, (), size_dict, path=[], optimize="kahypar"
         )
+    # another traversal order needs what the port does not have yet
     with pytest.raises(ValueError, match="order"):
         list(got.traverse(order=lambda node: -node))
 
