@@ -92,7 +92,23 @@ Run from the root of a checkout. Phases:
    unsliced), the planned tree's log2 max size (<= 28) and log10 flops
    printed before it runs, ``bmm_absmax`` launches > 0 and |delta
    log10| <= 1e-4 against ``LATTICE6_LOG10``;
-16. one JSON line of kernel results (launches on the main path, error,
+16. compressed contraction of the 16x16 bond-4 lattice at chi=32
+   (``1 + 0.05 * normal`` float64 entries from ``default_rng(0)``): the
+   port plans it (``greedy_compressed_ssa(..., chi=32)``; planning
+   seconds, the SSA path's hash held to ``COMPRESSED_PATH_HASH``, the
+   compressed log2 max, log2 peak and log10 flops), then
+   ``ContractionTreeCompressed.contract_compressed(arrays, chi=32,
+   strip_exponent=True)`` runs on the card in float64 and with the
+   inputs cast to float32, each held to ``COMPRESSED_LOG10`` (from
+   ``scratch/make_compressed_ref.py``) at |delta log10| <= 1e-4 and
+   1e-3; per dtype the QR and SVD calls and the host syncs of one pass
+   (``torch.cuda.set_sync_debug_mode("warn")``), the warm time-to-value
+   (best of 3, each pass ending in a host pull checked finite and
+   stable) and the peak device memory; the host seconds of the
+   neighbour bookkeeping (``compress_with_neighbors``, under cProfile);
+   one SVD of a 128x128 core and one QR of the largest tall-skinny
+   operand, timed; no kernel of the port is launched;
+17. one JSON line of kernel results (launches on the main path, error,
    ms, plain ms, bound, library ms; the gate chain's m=20 figures
    under ``m20_*`` keys), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -101,23 +117,28 @@ Every instance is built and every plan loaded through the port
 (``cotengra_tpu_torch.rand_circuit_tn``, ``lattice_equation``,
 ``load_tree``): the script imports neither JAX nor the JAX package.
 
-Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15) is driven with every kernel's
+Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15, 16) is driven with every kernel's
 launch count set to 0 just before it and read just after. Any failed
 phase raises, and the script exits non-zero without the last line. It
 needs a CUDA device and never falls back to the CPU.
 
 ``--profile`` instead runs ``torch.profiler`` over one warm pass of each
 main path (m10-t27 slice by slice and through the batched call,
-m10-t29, the lattice, 16 slices of m20-t28) and prints the median wall
-time of 5 unprofiled passes, the device's busy time and idle share, and
-every device kernel's time grouped by class (the breakdown in
-``PERF.md`` section 5).
+m10-t29, the lattice, 16 slices of m20-t28, the compressed 16x16 lattice
+in float64) and prints the median wall time of 5 unprofiled passes, the
+device's busy time and idle share, and every device kernel's time
+grouped by class (the breakdown in ``PERF.md`` section 5).
 """
 
+import contextlib
+import cProfile
+import hashlib
 import json
+import pstats
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -147,6 +168,22 @@ FRONT_END_PASSES = 5
 # from default_rng(7), which phase 15 casts to float32)
 LATTICE6_LOG10 = 61.38831832090792
 LATTICE6_MAX_LOG2 = 28
+# the compressed 16x16 bond-4 lattice at chi=32, from
+# ``python scratch/make_compressed_ref.py`` (the JAX package on the CPU
+# with x64: the same planner, path and float64 inputs; its stripped
+# exponent is a float32 sum, whose ulp at 289 is 3.05e-5)
+COMPRESSED = "lattice16x16_d4_chi32"
+COMPRESSED_DIMS = (16, 16)
+COMPRESSED_BOND = 4
+COMPRESSED_CHI = 32
+COMPRESSED_PATH_HASH = (
+    "849afce1fe0f9957606833839d80c6439a64fc5500173c2588466ff6fb148c08"
+)
+COMPRESSED_LOG10 = 288.9674377441406
+# float64 on the card: the exponent's float32 rounding and cuSOLVER's QR
+# rounding otherwise than LAPACK's; float32: QR and SVD in float32 over
+# 255 steps on top of that
+COMPRESSED_ATOL = {torch.float64: 1e-4, torch.float32: 1e-3}
 # published H100 SXM peaks at a 700 W power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12        # float32 FMA outside the tensor cores
@@ -1228,6 +1265,206 @@ def phase_front_auto(dev):
     return counts["bmm_absmax"]
 
 
+def _compressed_inputs():
+    """The 16x16 bond-4 lattice and its float64 inputs, as
+    ``scratch/make_compressed_ref.py`` makes them."""
+    from cotengra_tpu_torch import lattice_equation
+
+    inputs, output, shapes, size_dict = lattice_equation(
+        list(COMPRESSED_DIMS), d_min=COMPRESSED_BOND
+    )
+    rng = np.random.default_rng(0)
+    arrays = [np.ones(s) + 0.05 * rng.normal(size=s) for s in shapes]
+    return inputs, output, size_dict, arrays
+
+
+def _path_hash(ssa_path):
+    text = repr(tuple(tuple(int(i) for i in step) for step in ssa_path))
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+@contextlib.contextmanager
+def _count_linalg():
+    """Count ``torch.linalg.qr`` and ``torch.linalg.svd`` calls (looked up
+    at call time by ``ops/compressed.py``) and the host syncs that
+    ``set_sync_debug_mode("warn")`` reports, inside the block."""
+    counts = {"qr": 0, "svd": 0, "syncs": 0}
+    real = {k: getattr(torch.linalg, k) for k in ("qr", "svd")}
+
+    def counted(k):
+        def fn(*args, **kwargs):
+            counts[k] += 1
+            return real[k](*args, **kwargs)
+
+        return fn
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for k in real:
+            setattr(torch.linalg, k, counted(k))
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield counts
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            for k, fn in real.items():
+                setattr(torch.linalg, k, fn)
+    counts["syncs"] = sum(
+        "synchroniz" in str(w.message) for w in caught
+    )
+
+
+def _stripped_pass(tree, tensors):
+    """One compressed contraction at chi=32, pulled to the host."""
+    m, e = tree.contract_compressed(
+        tensors, chi=COMPRESSED_CHI, strip_exponent=True,
+        device=tensors[0].device,
+    )
+    if m.shape != () or e.dtype != torch.float32:
+        raise AssertionError(f"{COMPRESSED}: mantissa {m.shape}, {e.dtype}")
+    return m.item(), e.item()
+
+
+def phase_compressed(dev, passes=3):
+    """The compressed 16x16 lattice: planned by the port, contracted on
+    the card in float64 and float32, held to the JAX package's value."""
+    from cotengra_tpu_torch.pathfinders.compressed import (
+        greedy_compressed_ssa,
+    )
+    from cotengra_tpu_torch.tree_compressed import ContractionTreeCompressed
+
+    t_phase = time.perf_counter()
+    inputs, output, size_dict, arrays = _compressed_inputs()
+    t0 = time.perf_counter()
+    ssa_path = greedy_compressed_ssa(
+        inputs, output, size_dict, chi=COMPRESSED_CHI
+    )
+    tree = ContractionTreeCompressed.from_path(
+        inputs, output, size_dict, ssa_path=ssa_path
+    )
+    plan_s = time.perf_counter() - t0
+    phash = _path_hash(ssa_path)
+    print(
+        f"# {COMPRESSED}: planned in {plan_s:.3f}s, ssa path hash {phash}",
+        flush=True,
+    )
+    if phash != COMPRESSED_PATH_HASH:
+        raise AssertionError(
+            f"{COMPRESSED}: path hash {phash} != {COMPRESSED_PATH_HASH}"
+        )
+    stats = tree.compressed_contract_stats(chi=COMPRESSED_CHI)
+    print(
+        f"# {COMPRESSED}: compressed log2 max {np.log2(stats.max_size):.3f} "
+        f"log2 peak {np.log2(stats.peak_size):.3f} log10 flops "
+        f"{np.log10(stats.flops):.3f}",
+        flush=True,
+    )
+
+    for dtype in (torch.float64, torch.float32):
+        tensors = [torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _count_linalg() as counts:
+            m, e = tree.contract_compressed(
+                tensors, chi=COMPRESSED_CHI, strip_exponent=True, device=dev
+            )
+        mant, expo = m.item(), e.item()
+        first_s = time.perf_counter() - t0
+        launches = _read_launches()
+        log10 = float(np.log10(abs(mant)) + expo)
+        d_log10 = abs(log10 - COMPRESSED_LOG10)
+        if launches != {"gate_chain": 0, "bmm_absmax": 0}:
+            raise AssertionError(f"{COMPRESSED}: launches {launches}")
+        if m.dtype != dtype or m.device != dev:
+            raise AssertionError(f"{COMPRESSED}: {m.dtype} on {m.device}")
+        if not (np.isfinite(log10) and d_log10 <= COMPRESSED_ATOL[dtype]):
+            raise AssertionError(
+                f"{COMPRESSED} {dtype}: log10 {log10!r} vs "
+                f"{COMPRESSED_LOG10!r}: |delta| {d_log10:.3e} > "
+                f"{COMPRESSED_ATOL[dtype]}"
+            )
+        times = []
+        for _ in range(passes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pm, pe = _stripped_pass(tree, tensors)
+            times.append(time.perf_counter() - t0)
+            val = float(np.log10(abs(pm)) + pe)
+            if not (np.isfinite(val) and abs(val - log10) <= 1e-6):
+                raise AssertionError(
+                    f"{COMPRESSED} {dtype}: unstable log10 {val!r} vs "
+                    f"{log10!r}"
+                )
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(
+            f"# main path {COMPRESSED} {str(dtype).removeprefix('torch.')}: "
+            f"value {mant!r} x 10^{expo!r} log10 {log10!r} (reference "
+            f"{COMPRESSED_LOG10!r}) |delta log10| {d_log10:.3e} qr "
+            f"{counts['qr']} svd {counts['svd']} host syncs "
+            f"{counts['syncs']} first_call_s {first_s:.3f} time_to_value_s "
+            f"{' '.join(f'{t:.4f}' for t in times)} (best {min(times):.4f}) "
+            f"peak_mem_gib {peak:.2f} launches {launches}",
+            flush=True,
+        )
+        if dtype == torch.float64:
+            _compressed_host_share(tree, tensors)
+        _time_compressed_linalg(dtype, dev, int(stats.max_size))
+        del tensors, m, e
+        torch.cuda.empty_cache()
+    print(f"# {COMPRESSED} phase_s {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
+def _compressed_host_share(tree, tensors):
+    """Host seconds of the neighbour bookkeeping in one pass under
+    cProfile: the own time of ``compress_with_neighbors`` (its index-holder
+    count over every live tensor, per neighbour) and ``neighbors_of``."""
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    _stripped_pass(tree, tensors)
+    prof.disable()
+    wall = time.perf_counter() - t0
+    own = {}
+    for (path, _, name), row in pstats.Stats(prof).stats.items():
+        if path.endswith("compressed.py") and name in (
+            "compress_with_neighbors", "neighbors_of"
+        ):
+            own[name] = own.get(name, 0.0) + row[2]
+    print(
+        f"# {COMPRESSED} host bookkeeping under cProfile: "
+        + " ".join(f"{k} {v:.4f}s" for k, v in sorted(own.items()))
+        + f" of a {wall:.3f}s profiled pass ({tree.N} tensors)",
+        flush=True,
+    )
+
+
+def _time_compressed_linalg(dtype, dev, max_size):
+    """One SVD of the largest core (D x D, D = 4 * chi = 128 here) and
+    one QR of the largest operand as a tall-skinny (max_size / D, D)
+    matrix, by CUDA events."""
+    D = COMPRESSED_BOND * COMPRESSED_CHI
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    core = torch.randn(D, D, generator=gen, device=dev, dtype=dtype)
+    tall = torch.randn(max_size // D, D, generator=gen, device=dev, dtype=dtype)
+    for _ in range(2):
+        torch.linalg.svd(core, full_matrices=False)
+        torch.linalg.qr(tall)
+    svd_ms = _cuda_ms(lambda: torch.linalg.svd(core, full_matrices=False), 20)
+    qr_ms = _cuda_ms(lambda: torch.linalg.qr(tall), 5)
+    print(
+        f"# {COMPRESSED} {str(dtype).removeprefix('torch.')}: one svd "
+        f"({D}, {D}) {svd_ms:.3f} ms; one qr ({max_size // D}, {D}) "
+        f"{qr_ms:.3f} ms",
+        flush=True,
+    )
+    del core, tall
+
+
 def _kernel_class(name):
     if "gate_chain_kernel" in name:
         return "gate-chain kernel"
@@ -1243,11 +1480,44 @@ def _kernel_class(name):
     return "other"
 
 
+def _compressed_class(name):
+    """Device kernels of the compressed path by class."""
+    low = name.lower()
+    if "qr" in low or "larf" in low:
+        return "QR"
+    if any(k in low for k in ("svd", "gebrd", "bdsqr", "jacobi")):
+        return "SVD"
+    if "gemm" in low or "gemv" in low or "xmma" in low or "cutlass" in low:
+        return "GEMM"
+    if "copy" in low or "memcpy" in low or "memset" in low:
+        return "copies"
+    if "elementwise" in low or "reduce" in low:
+        return "elementwise"
+    return "other"
+
+
 def _warm_pass(plan_name, dev, slice_batch=None):
     """One warm pass of a main path as a function (contractor and device
     inputs made once), ending in a host pull; with ``slice_batch``, one
     batched call over the first ``slice_batch`` slices."""
     import cotengra_tpu_torch as ctt
+
+    if plan_name == COMPRESSED:
+        from cotengra_tpu_torch.pathfinders.compressed import (
+            greedy_compressed_ssa,
+        )
+        from cotengra_tpu_torch.tree_compressed import (
+            ContractionTreeCompressed,
+        )
+
+        inputs, output, size_dict, arrays = _compressed_inputs()
+        tree = ContractionTreeCompressed.from_path(
+            inputs, output, size_dict, ssa_path=greedy_compressed_ssa(
+                inputs, output, size_dict, chi=COMPRESSED_CHI
+            ),
+        )
+        tensors = [torch.as_tensor(a, device=dev) for a in arrays]
+        return lambda: _stripped_pass(tree, tensors)
 
     if plan_name == LATTICE:
         tree, arrays, _ = _load_lattice()
@@ -1278,8 +1548,9 @@ def _warm_pass(plan_name, dev, slice_batch=None):
     return one_pass
 
 
-def phase_profile(plan_name, dev, slice_batch=None):
-    """Device time by kernel over one warm pass of the main path."""
+def phase_profile(plan_name, dev, slice_batch=None, classify=None):
+    """Device time by kernel over one warm pass of the main path,
+    grouped by ``classify`` (default ``_kernel_class``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1319,9 +1590,10 @@ def phase_profile(plan_name, dev, slice_batch=None):
         f"idle share {1 - busy / (wall * 1e3):.3f}",
         flush=True,
     )
+    classify = classify or _kernel_class
     by_class = {}
     for name, (ms, n) in per_kernel.items():
-        cls = _kernel_class(name)
+        cls = classify(name)
         c_ms, c_n = by_class.get(cls, (0.0, 0))
         by_class[cls] = (c_ms + ms, c_n + n)
     for cls, (ms, n) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
@@ -1329,7 +1601,7 @@ def phase_profile(plan_name, dev, slice_batch=None):
         for name, (k_ms, k_n) in sorted(
             per_kernel.items(), key=lambda kv: -kv[1][0]
         ):
-            if _kernel_class(name) == cls:
+            if classify(name) == cls:
                 print(f"#     {k_ms:9.3f} ms x {k_n:5d}  {name[:110]}",
                       flush=True)
 
@@ -1367,6 +1639,7 @@ def main():
         phase_profile("sycamore53_m10_t29", dev)
         phase_profile(LATTICE, dev)
         phase_profile(M20, dev, slice_batch=M20_SLICES)
+        phase_profile(COMPRESSED, dev, classify=_compressed_class)
         return 0
     chain_rows = phase_chains(dev)
     chain_launches = phase_main_path(T27, 4, dev)
@@ -1380,6 +1653,7 @@ def main():
     phase_front_lattice(dev)
     phase_front_t27(dev)
     phase_front_auto(dev)
+    phase_compressed(dev)
     kernels = [
         {
             # per slice: the 13 chains of one m10-t27 slice

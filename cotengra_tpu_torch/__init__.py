@@ -5,12 +5,18 @@ its own copies of what it needs from the JAX package - the contraction
 tree (``tree``), plan loading (``utils.io.load_tree``), the instance
 builders (``models``), the executor defaults (``config``), the
 host-side lowering and step planning (``ops``), the basic path finders
-(``pathfinders``), and the ``einsum`` / ``array_contract`` / ``ncon``
-front end with its presets (``interface``, ``presets``) - and runs
-trees on torch tensors, with hand-written CUDA kernels for in-place
-gate chains and for matmuls with a fused max|out| (exponent stripping).
-The hyper-optimizer and slicing search are not ported yet: ``"auto"``
-plans hard contractions with random-greedy.
+(``pathfinders``), the ``einsum`` / ``array_contract`` / ``ncon``
+front end with its presets (``interface``, ``presets``), and the
+compressed (chi-capped) planner: the hypergraph (``hypergraph``), the
+objectives with the compressed cost model (``scoring``),
+``ContractionTreeCompressed`` (``tree_compressed``), the compressed path
+finders and refiners (``pathfinders.compressed``, ``windowed_opt``,
+``compressed_bb``) - and runs trees on torch tensors, with hand-written
+CUDA kernels for in-place gate chains and for matmuls with a fused
+max|out| (exponent stripping). Compressed trees run through
+``contract_compressed`` (``ops.compressed``: QR and SVD bond truncation
+with ``torch.linalg``). The hyper-optimizer and slicing search are not
+ported yet: ``"auto"`` plans hard contractions with random-greedy.
 
 Entry points run on the card (``device="cuda"``, the default) unless
 the caller passes ``device="cpu"``; without a card ``"cuda"`` raises.
@@ -20,6 +26,7 @@ __version__ = "0.1.0"
 
 from ._device import resolve_device
 from .convert import to_plane_array, to_plane_tensors, to_tensors
+from .hypergraph import HyperGraph, get_hypergraph
 from .interface import (
     Via,
     array_contract,
@@ -68,6 +75,14 @@ from .presets import (
     estimate_optimal_hardness,
     register_builtin_presets,
 )
+from .scoring import (
+    ComboObjective,
+    FlopsObjective,
+    LimitObjective,
+    SizeObjective,
+    WriteObjective,
+    get_score_fn,
+)
 from .tree import (
     ContractionTree,
     SliceInfo,
@@ -76,6 +91,7 @@ from .tree import (
     linear_to_ssa,
     ssa_to_linear,
 )
+from .tree_compressed import ContractionTreeCompressed
 from .utils.eqs import hash_contraction
 from .utils.io import load_tree
 from .utils.symbols import get_symbol
@@ -91,18 +107,30 @@ greedy_optimize = GreedyOptimizer()
 optimal_optimize = OptimalOptimizer()
 optimal_outer_optimize = OptimalOptimizer(search_outer=True)
 
+# the reference's module aliases (``cotengra.__init__``)
+from .pathfinders import compressed as path_compressed_greedy  # noqa: E402
+from .pathfinders import windowed_opt as path_compressed  # noqa: E402
+from .pathfinders import compressed_bb as path_compressed_branchbound  # noqa: E402,E501
+
 __all__ = [
     "AutoHQOptimizer",
     "AutoOptimizer",
+    "ComboObjective",
     "ContractionTree",
+    "ContractionTreeCompressed",
     "EdgeSortOptimizer",
+    "FlopsObjective",
     "GreedyOptimizer",
+    "HyperGraph",
+    "LimitObjective",
     "OptimalOptimizer",
     "PathOptimizer",
     "RandomGreedyOptimizer",
     "RandomOptimizer",
+    "SizeObjective",
     "SliceInfo",
     "Via",
+    "WriteObjective",
     "absorb_simple_tensors",
     "array_contract",
     "array_contract_expression",
@@ -125,6 +153,8 @@ __all__ = [
     "estimate_optimal_hardness",
     "gather_slices",
     "gen_output_chunks",
+    "get_hypergraph",
+    "get_score_fn",
     "get_symbol",
     "greedy_optimize",
     "hash_contraction",
@@ -144,6 +174,9 @@ __all__ = [
     "optimize_random",
     "optimize_random_greedy_track_flops",
     "optimize_simplify",
+    "path_compressed",
+    "path_compressed_branchbound",
+    "path_compressed_greedy",
     "rand_circuit_tn",
     "rand_equation",
     "register_builtin_presets",

@@ -1,6 +1,7 @@
-"""Basic path finders (counterpart of ``cotengra_tpu/pathfinders``:
-``base``, ``basic``, ``edgesort``, ``random``). The hyper-optimizer and
-the other path finders are not ported yet."""
+"""Path finders (counterpart of ``cotengra_tpu/pathfinders``: ``base``,
+``basic``, ``edgesort``, ``random``, and the compressed ``compressed``,
+``windowed_opt``, ``compressed_bb``). The hyper-optimizer and the other
+path finders are not ported yet."""
 
 from .base import PathOptimizer
 from .basic import (

@@ -2,11 +2,14 @@
 ``auto`` / ``auto-hq`` pick optimal DP for small contractions (hardness
 ``n^2 * sqrt(k)`` under a cutoff) and random-greedy otherwise; plus
 ``greedy``, ``optimal`` (``dp``), ``optimal-outer``,
-``random-greedy{,-128}``, ``simplify``, ``edgesort`` and ``random``.
+``random-greedy{,-128}``, ``simplify``, ``edgesort`` and ``random``;
+and the compressed ``greedy-compressed`` and ``greedy-span``, whose tree
+functions return a ``ContractionTreeCompressed``.
 
 The large branch of ``auto`` is the reference's own fallback for when
 its hyper-optimizer cannot be imported: 32 trials of random-greedy. The
-hyper-optimizer and its presets are not ported yet.
+hyper-optimizer and its presets (``hyper-compressed`` included) are not
+ported yet.
 """
 
 import functools
@@ -18,9 +21,16 @@ from .pathfinders.basic import (
     optimize_random_greedy_track_flops,
     optimize_simplify,
 )
+from .pathfinders.compressed import (
+    greedy_compressed_ssa,
+    greedy_span_ssa,
+    optimize_greedy_compressed,
+    optimize_greedy_span,
+)
 from .pathfinders.edgesort import optimize_edgesort
 from .pathfinders.random import optimize_random
 from .tree import ContractionTree
+from .tree_compressed import ContractionTreeCompressed
 
 
 def estimate_optimal_hardness(inputs):
@@ -87,6 +97,17 @@ def _tree_of(fn):
     return tree_fn
 
 
+def _compressed_tree_of(ssa_fn):
+    @functools.wraps(ssa_fn)
+    def tree_fn(inputs, output, size_dict):
+        return ContractionTreeCompressed.from_path(
+            inputs, output, size_dict,
+            ssa_path=ssa_fn(inputs, output, size_dict),
+        )
+
+    return tree_fn
+
+
 def register_builtin_presets():
     greedy_fn = functools.partial(optimize_greedy, use_ssa=False)
     register_preset("greedy", greedy_fn, _tree_of(greedy_fn))
@@ -113,6 +134,15 @@ def register_builtin_presets():
         "edgesort", optimize_edgesort, _tree_of(optimize_edgesort)
     )
     register_preset("random", optimize_random, _tree_of(optimize_random))
+
+    register_preset(
+        "greedy-compressed", optimize_greedy_compressed,
+        _compressed_tree_of(greedy_compressed_ssa),
+    )
+    register_preset(
+        "greedy-span", optimize_greedy_span,
+        _compressed_tree_of(greedy_span_ssa),
+    )
 
     register_preset("auto", auto_optimize, auto_optimize.search)
     register_preset("auto-hq", auto_hq_optimize, auto_hq_optimize.search)

@@ -19,17 +19,27 @@ come from a saved plan (``utils.io.load_tree``), an explicit path
 the basic path finders, ``pathfinders/basic.py``) or the front end
 (``interface.py``). Slicing search and reconfiguration are not here.
 
+For the compressed (chi-capped) cost model, ``traverse`` and
+``get_ssa_path`` also take an order (a callable, or
+``"surface_order"``: the order in which contractions were added), and
+``compressed_contract_stats`` replays the contraction on a
+``HyperGraph`` with ``compress`` steps (pure Python; the reference's
+native replay is not ported), behind the ``*_compressed`` cost methods
+that ``tree_compressed.ContractionTreeCompressed`` swaps in.
+
 ``contraction_cores`` caches the contractors built for the tree
 (``ops/executor.py::_cached_full``), keyed by every option that shapes
 them; changing the tree's structure or slicing empties it.
 """
 
 import functools
+import heapq
 import itertools
 import math
 from dataclasses import dataclass
 from typing import Optional
 
+from .scoring import DEFAULT_COMBO_FACTOR, parse_minimize
 from .utils.misc import prod
 
 
@@ -95,9 +105,12 @@ class ContractionTree:
     children : dict[int, (int, int)], optional
         The tree: parent bitmask -> (left, right), in the order the plan
         lists them (which ``traverse`` keeps among nodes of one size).
+    objective : str or Objective, optional
+        Default objective for refinement operations on this tree.
     """
 
-    def __init__(self, inputs, output, size_dict, children=None):
+    def __init__(self, inputs, output, size_dict, children=None,
+                 objective="flops"):
         self.inputs = tuple(map(tuple, inputs))
         self.output = tuple(output)
         self.size_dict = dict(size_dict)
@@ -115,6 +128,20 @@ class ContractionTree:
         self.multiplicity = 1
         self._legs = {}
         self.contraction_cores = {}
+        self._objective = parse_minimize(objective)
+
+    def set_default_objective(self, objective):
+        self._objective = parse_minimize(objective)
+
+    def get_default_objective(self):
+        return self._objective
+
+    def get_default_combo_factor(self):
+        return getattr(self._objective, "factor", DEFAULT_COMBO_FACTOR)
+
+    def gen_leaves(self):
+        for i in range(self.N):
+            yield 1 << i
 
     def is_complete(self):
         """Whether the tree joins every input: N - 1 contractions up to
@@ -124,8 +151,9 @@ class ContractionTree:
         return len(self.children) == self.N - 1 and self.root in self.children
 
     def copy(self):
-        new = ContractionTree(
-            self.inputs, self.output, self.size_dict, self.children
+        new = type(self)(
+            self.inputs, self.output, self.size_dict, self.children,
+            objective=self._objective,
         )
         new.sliced_inds = dict(self.sliced_inds)
         new.multiplicity = self.multiplicity
@@ -191,6 +219,33 @@ class ContractionTree:
             C = math.log(max(C, 1), log)
         return C
 
+    def total_write(self, log=None):
+        """Elements written over all slices: every intermediate's size."""
+        W = self.multiplicity * sum(map(self.get_size, self.children))
+        if log is not None:
+            W = math.log(max(W, 1), log)
+        return W
+
+    def combo_cost(self, factor=DEFAULT_COMBO_FACTOR, combine=sum, log=None):
+        t = self.multiplicity * sum(
+            combine((self.get_flops(p), factor * self.get_size(p)))
+            for p in self.children
+        )
+        if log is not None:
+            t = math.log(max(t, 1), log)
+        return t
+
+    def contract_stats(self, force=False):
+        """``{"flops", "write", "size"}``, as the objectives read them
+        (each at least 1), exact even where a subclass swaps in other
+        cost methods. Computed afresh; ``force`` is the reference's
+        signature, whose totals are incremental."""
+        return {
+            "flops": max(ContractionTree.total_flops(self), 1),
+            "write": max(ContractionTree.total_write(self), 1),
+            "size": max(ContractionTree.max_size(self), 1),
+        }
+
     def get_shapes(self):
         return tuple(
             tuple(self.size_dict[ix] for ix in term) for term in self.inputs
@@ -244,6 +299,7 @@ class ContractionTree:
         self.children[parent] = (
             (l, r) if l.bit_count() >= r.bit_count() else (r, l)
         )
+        self.__dict__.pop("_surface_seq", None)
         self._legs.clear()
         self.contraction_cores.clear()
         return parent
@@ -283,7 +339,7 @@ class ContractionTree:
 
     @classmethod
     def from_path(cls, inputs, output, size_dict, *, path=None,
-                  ssa_path=None, optimize="greedy"):
+                  ssa_path=None, optimize="greedy", objective="flops"):
         """Build a tree from a contraction path: exactly one of ``path``
         (linear, opt_einsum style) or ``ssa_path``. Multi-way steps are
         binarized left to right. A path that leaves several top nodes
@@ -293,7 +349,7 @@ class ContractionTree:
         """
         if (path is None) == (ssa_path is None):
             raise ValueError("Specify exactly one of path, ssa_path.")
-        tree = cls(inputs, output, size_dict)
+        tree = cls(inputs, output, size_dict, objective=objective)
         if path is not None:
             ssa_path = linear_to_ssa(path, tree.N)
         pool = [1 << i for i in range(tree.N)]
@@ -316,11 +372,12 @@ class ContractionTree:
 
     # -- paths -----------------------------------------------------------
 
-    def get_ssa_path(self):
-        """The tree as an SSA path, in the default traversal order."""
+    def get_ssa_path(self, order=None):
+        """The tree as an SSA path, in the default traversal order or any
+        ``traverse`` ``order``."""
         ssa = {1 << i: i for i in range(self.N)}
         path = []
-        for c, (p, l, r) in enumerate(self.traverse(), self.N):
+        for c, (p, l, r) in enumerate(self.traverse(order), self.N):
             path.append((ssa[l], ssa[r]))
             ssa[p] = c
         return tuple(path)
@@ -332,16 +389,162 @@ class ContractionTree:
     # -- traversal -------------------------------------------------------
 
     def traverse(self, order=None):
-        """Generate ``(parent, left, right)`` bottom up, by subtree size:
-        children before parents, plan order among equal sizes (the
-        reference's default order, which the lowering relies on)."""
-        if order is not None:
-            raise ValueError(
-                f"traverse order {order!r}: the port has the default only"
-            )
-        for parent in sorted(self.children, key=int.bit_count):
+        """Generate ``(parent, left, right)`` bottom up.
+
+        With no ``order``: by subtree size, children before parents, plan
+        order among equal sizes (the reference's default order, which the
+        lowering relies on). With a callable ``order`` (or
+        ``"surface_order"``): contractions sorted by ``order(node)``
+        among those whose children are done.
+        """
+        if order is None:
+            for parent in sorted(self.children, key=int.bit_count):
+                l, r = self.children[parent]
+                yield parent, l, r
+            return
+
+        if isinstance(order, str):
+            order = self._resolve_order(order)
+
+        parent_map = self._parent_map()
+        ready = []
+        counts = {}
+        seq = itertools.count()
+        for parent, (l, r) in self.children.items():
+            need = (l.bit_count() > 1) + (r.bit_count() > 1)
+            counts[parent] = need
+            if need == 0:
+                heapq.heappush(ready, (order(parent), next(seq), parent))
+        while ready:
+            _, _, parent = heapq.heappop(ready)
             l, r = self.children[parent]
             yield parent, l, r
+            gp = parent_map.get(parent)
+            if gp is not None:
+                counts[gp] -= 1
+                if counts[gp] == 0:
+                    heapq.heappush(ready, (order(gp), next(seq), gp))
+
+    def _parent_map(self):
+        pm = {}
+        for parent, (l, r) in self.children.items():
+            pm[l] = parent
+            pm[r] = parent
+        return pm
+
+    def surface_order(self, node):
+        """Ordering key of the 'surface order': the order in which
+        contractions were added to the tree (that of the generating
+        path), the natural sweep order of a compressed contraction."""
+        try:
+            return self._surface_seq[node]
+        except (AttributeError, KeyError):
+            self._surface_seq = {n: i for i, n in enumerate(self.children)}
+            return self._surface_seq.get(node, len(self._surface_seq))
+
+    def _resolve_order(self, order):
+        if order == "surface_order":
+            return self.surface_order
+        return order
+
+    def _adopt(self, other):
+        """Take over another tree's structure and state (same inputs)."""
+        self.children = other.children
+        self._legs = other._legs
+        self.sliced_inds = other.sliced_inds
+        self.multiplicity = other.multiplicity
+        self.contraction_cores = {}
+
+    # -- compressed (chi-capped) cost model ------------------------------
+
+    def get_hypergraph(self, accel=False):
+        from .hypergraph import get_hypergraph
+
+        return get_hypergraph(
+            self.inputs, self.output, self.size_dict, accel=accel
+        )
+
+    def get_default_chi(self):
+        return max(self.size_dict.values(), default=2) ** 2
+
+    def get_default_compress_late(self):
+        return False
+
+    def compressed_contract_stats(
+        self,
+        chi=None,
+        order="surface_order",
+        compress_late=None,
+        tracker_cls=None,
+        accel="auto",
+    ):
+        """Replay the contraction on a hypergraph with chi-capped
+        ``compress()`` steps and return the stats tracker (flops, write,
+        max_size, peak_size). The replay is pure Python: ``accel=True``
+        (the reference's native engine) raises."""
+        from .scoring import CompressedStatsTracker, tracked_contract_step
+
+        if chi is None or chi == "auto":
+            chi = self.get_default_chi()
+        if compress_late is None:
+            compress_late = self.get_default_compress_late()
+        if tracker_cls is None:
+            tracker_cls = CompressedStatsTracker
+
+        hg = self.get_hypergraph(accel=accel)
+        tree_map = dict(zip(self.gen_leaves(), range(hg.get_num_nodes())))
+        tracker = tracker_cls(hg, chi)
+        for p, l, r in self.traverse(self._resolve_order(order)):
+            tree_map[p] = tracked_contract_step(
+                hg, tracker, tree_map[l], tree_map[r], chi, compress_late
+            )
+        return tracker
+
+    def total_flops_compressed(self, chi=None, order="surface_order",
+                               compress_late=None, log=None):
+        C = self.compressed_contract_stats(chi, order, compress_late).flops
+        if log is not None:
+            C = math.log(max(C, 1), log)
+        return C
+
+    def total_write_compressed(self, chi=None, order="surface_order",
+                               compress_late=None, log=None):
+        W = self.compressed_contract_stats(chi, order, compress_late).write
+        if log is not None:
+            W = math.log(max(W, 1), log)
+        return W
+
+    def max_size_compressed(self, chi=None, order="surface_order",
+                            compress_late=None, log=None):
+        S = self.compressed_contract_stats(
+            chi, order, compress_late
+        ).max_size
+        if log is not None:
+            S = math.log(max(S, 1), log)
+        return S
+
+    def peak_size_compressed(self, chi=None, order="surface_order",
+                             compress_late=None, log=None):
+        P = self.compressed_contract_stats(
+            chi, order, compress_late
+        ).peak_size
+        if log is not None:
+            P = math.log(max(P, 1), log)
+        return P
+
+    def total_cost_compressed(self, chi=None, order="surface_order",
+                              compress_late=None,
+                              factor=DEFAULT_COMBO_FACTOR, log=None):
+        stats = self.compressed_contract_stats(chi, order, compress_late)
+        t = stats.flops + factor * stats.write
+        if log is not None:
+            t = math.log(max(t, 1), log)
+        return t
+
+    def contraction_width_compressed(self, chi=None,
+                                     order="surface_order",
+                                     compress_late=None, log=2):
+        return self.max_size_compressed(chi, order, compress_late, log=log)
 
     # -- slicing ---------------------------------------------------------
 

@@ -92,6 +92,22 @@ _NO_JAX = textwrap.dedent(
         assert egot.dtype == torch.float64
         np.testing.assert_allclose(egot.numpy(), eref, rtol=1e-10)
 
+    # a compressed plan made by the port, contracted with truncation on
+    # the CPU; near-product tensors, so chi=9 stays close to the exact
+    # value (chi large enough never to truncate)
+    ci, co, cshapes, csizes = ctt.lattice_equation([6, 6], d_min=3)
+    ctree = ctt.array_contract_tree(
+        ci, co, size_dict=csizes, optimize="greedy-compressed"
+    )
+    assert isinstance(ctree, ctt.ContractionTreeCompressed)
+    carr = [np.ones(s) + 0.05 * rng.normal(size=s) for s in cshapes]
+    cm, ce = ctree.contract_compressed(
+        carr, chi=9, strip_exponent=True, device="cpu"
+    )
+    cexact = ctree.contract_compressed(carr, chi=10**6, device="cpu")
+    clog = np.log10(abs(cm.item())) + ce.item()
+    assert abs(clog - np.log10(abs(cexact.item()))) <= 1e-5, clog
+
     import chip_smoke  # imported, not run
 
     bad = sorted(
@@ -125,7 +141,9 @@ def _reference_paths():
 
 
 def test_port_runs_without_jax():
-    """The port runs with jax, jaxlib and the JAX package all blocked."""
+    """The port runs with jax, jaxlib and the JAX package all blocked:
+    sliced and stripped contractions, ``einsum`` planning its own path,
+    and a compressed plan contracted with truncation."""
     path, lpath = _reference_paths()
     proc = subprocess.run(
         [sys.executable, "-c",

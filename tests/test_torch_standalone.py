@@ -59,7 +59,10 @@ def test_the_scan_sees_every_module():
                 "ops/executor.py", "ops/bmm_absmax.py", "interface.py",
                 "presets.py", "utils/eqs.py", "pathfinders/basic.py",
                 "pathfinders/base.py", "pathfinders/edgesort.py",
-                "pathfinders/random.py"):
+                "pathfinders/random.py", "hypergraph.py", "scoring.py",
+                "tree_compressed.py", "ops/compressed.py",
+                "pathfinders/compressed.py", "pathfinders/windowed_opt.py",
+                "pathfinders/compressed_bb.py"):
         assert f"cotengra_tpu_torch/{mod}" in _SOURCES
 
 
@@ -283,9 +286,14 @@ def test_from_path_without_a_planner():
         ctt.ContractionTree.from_path(
             inputs, (), size_dict, path=[], optimize="kahypar"
         )
-    # another traversal order needs what the port does not have yet
-    with pytest.raises(ValueError, match="order"):
-        list(got.traverse(order=lambda node: -node))
+    # another traversal order: the ready contractions by priority, as
+    # the reference orders them
+    ref = ctg.ContractionTree.from_path(
+        inputs, (), size_dict, ssa_path=got.get_ssa_path()
+    )
+    order = lambda node: -node  # noqa: E731
+    assert list(got.traverse(order=order)) == list(ref.traverse(order=order))
+    assert got.get_ssa_path(order) == ref.get_ssa_path(order)
 
 
 # -- config -------------------------------------------------------------
