@@ -88,10 +88,11 @@ Run from the root of a checkout. Phases:
    contractor that the tree caches;
 15. the front end planning its own path: ``einsum`` on the 6x6 bond-16
    lattice (uniform [0, 1) float32 from ``default_rng(7)``) with the
-   default ``optimize="auto"`` (random-greedy at this hardness,
-   unsliced), the planned tree's log2 max size (<= 28) and log10 flops
-   printed before it runs, ``bmm_absmax`` launches > 0 and |delta
-   log10| <= 1e-4 against ``LATTICE6_LOG10``;
+   default ``optimize="auto"`` (the hyper-optimizer at this hardness:
+   its planning seconds and trials, unsliced), the planned tree's log2
+   max size (<= 28) and log10 flops printed before it runs,
+   ``bmm_absmax`` launches > 0 and |delta log10| <= 1e-4 against
+   ``LATTICE6_LOG10``;
 16. compressed contraction of the 16x16 bond-4 lattice at chi=32
    (``1 + 0.05 * normal`` float64 entries from ``default_rng(0)``): the
    port plans it (``greedy_compressed_ssa(..., chi=32)``; planning
@@ -108,17 +109,36 @@ Run from the root of a checkout. Phases:
    neighbour bookkeeping (``compress_with_neighbors``, under cProfile);
    one SVD of a 128x128 core and one QR of the largest tall-skinny
    operand, timed; no kernel of the port is launched;
-17. one JSON line of kernel results (launches on the main path, error,
+17. Sycamore-53 m=10 planned by the port: ``HyperOptimizer(methods=
+   ["greedy", "labels"], max_repeats=16, seed=8, slicing_reconf_opts=
+   {"target_size": 2**27}, parallel=False)`` on the host (planning
+   seconds, seconds per trial, slices, log2 max and peak, log10 flops,
+   beside the committed t27 plan's), max size <= 2^27 and log10 flops
+   <= the t27 plan's + 1 (the search is not repeatable: unseeded
+   greedy noise and slice finder); all its slices contracted through
+   ``contract_tree`` and held to the sidecar's full amplitude (key
+   ``"4"``, the sum over all slices of any plan) at relerr <= 1e-5,
+   with the chain kernel's launches (the plan's passes x slices, > 0),
+   the warm time-to-amplitude and peak memory beside the t27 plan's,
+   measured in turns;
+18. the 7x7 bond-16 lattice planned by the port the same way (target
+   2^28), contracted stripped through ``bmm_absmax`` (launches = the
+   plan's kernel steps x slices, > 0) and held to the plan file's
+   float64 ``"reference"`` at |delta log10| <= 1e-4, its plan stats,
+   warm time-to-value and launches beside the committed plan's;
+19. one JSON line of kernel results (launches on the main path, error,
    ms, plain ms, bound, library ms; the gate chain's m=20 figures
-   under ``m20_*`` keys), then the last line
+   under ``m20_*`` keys, the launches of phases 17 and 18 under
+   ``hyper_*`` keys), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every instance is built and every plan loaded through the port
 (``cotengra_tpu_torch.rand_circuit_tn``, ``lattice_equation``,
 ``load_tree``): the script imports neither JAX nor the JAX package.
 
-Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15, 16) is driven with every kernel's
-launch count set to 0 just before it and read just after. Any failed
+Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15, 16, 17, 18) is driven with
+every kernel's launch count set to 0 just before it and read just
+after. Any failed
 phase raises, and the script exits non-zero without the last line. It
 needs a CUDA device and never falls back to the CPU.
 
@@ -134,6 +154,7 @@ import contextlib
 import cProfile
 import hashlib
 import json
+import math
 import pstats
 import subprocess
 import sys
@@ -184,6 +205,14 @@ COMPRESSED_LOG10 = 288.9674377441406
 # rounding otherwise than LAPACK's; float32: QR and SVD in float32 over
 # 255 steps on top of that
 COMPRESSED_ATOL = {torch.float64: 1e-4, torch.float32: 1e-3}
+# phases 17-18: the port's own hyper-optimizer, as a user would call it
+HYPER_TRIALS = 16
+HYPER_SEED = 8
+HYPER_M10_TARGET = 2**27
+HYPER_LATTICE_TARGET = 2**28
+# log10 flops above the committed t27 plan's that a port-planned m10
+# tree may reach: the search is not repeatable, so the bound is loose
+HYPER_FLOPS_SLACK = 1.0
 # published H100 SXM peaks at a 700 W power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12        # float32 FMA outside the tensor cores
@@ -1206,7 +1235,7 @@ def phase_front_t27(dev):
 
 def phase_front_auto(dev):
     """``einsum`` on the 6x6 bond-16 lattice with ``optimize="auto"``:
-    the port plans the path (random-greedy at this hardness)."""
+    the port plans the path (the hyper-optimizer at this hardness)."""
     import cotengra_tpu_torch as ctt
     from cotengra_tpu_torch.utils.eqs import inputs_output_to_eq
 
@@ -1225,9 +1254,11 @@ def phase_front_auto(dev):
     plan_s = time.perf_counter() - t0
     tree = expr.tree
     max_log2 = tree.max_size(log=2)
+    trials = len(ctt.auto_optimize._get_hyperoptimizer().trials)
     print(
-        f"# front end lattice6x6_d16 auto: hardness {hardness:.0f} planned "
-        f"in {plan_s:.2f}s: slices {tree.multiplicity} log2 max size "
+        f"# front end lattice6x6_d16 auto: hardness {hardness:.0f}, the "
+        f"hyper-optimizer's {trials} trials planned in {plan_s:.2f}s: "
+        f"slices {tree.multiplicity} log2 max size "
         f"{max_log2:.2f} log2 peak {tree.peak_size(log=2):.2f} log10 flops "
         f"{tree.total_flops(log=10):.3f}",
         flush=True,
@@ -1465,6 +1496,199 @@ def _time_compressed_linalg(dtype, dev, max_size):
     del core, tall
 
 
+def _hyper_plan(tree, target):
+    """The port's hyper-optimizer on the instance of a committed ``tree``,
+    sliced to ``target`` (planned on the host, serially: the process has
+    initialised CUDA). Returns the planned tree, the planning seconds and
+    the trials."""
+    import cotengra_tpu_torch as ctt
+
+    opt = ctt.HyperOptimizer(
+        methods=["greedy", "labels"], max_repeats=HYPER_TRIALS,
+        seed=HYPER_SEED, slicing_reconf_opts={"target_size": target},
+        parallel=False,
+    )
+    t0 = time.perf_counter()
+    planned = opt.search(tree.inputs, tree.output, tree.size_dict)
+    plan_s = time.perf_counter() - t0
+    if planned.max_size() > target:
+        raise AssertionError(
+            f"hyper plan: 2^{planned.max_size(log=2):.2f} > target "
+            f"2^{math.log2(target):.0f}"
+        )
+    return planned, plan_s, len(opt.trials)
+
+
+def _plan_stats(tree):
+    return (
+        f"slices {tree.multiplicity} log2 max {tree.max_size(log=2):.2f} "
+        f"log2 peak {tree.peak_size(log=2):.2f} log10 flops "
+        f"{tree.total_flops(log=10):.3f}"
+    )
+
+
+def _warm_in_turns(label, passes_of, passes=3):
+    """Warm seconds of each one-pass function in ``passes_of`` (name ->
+    fn returning a host value), taken in turns; each pass's value is
+    finite and within 1e-4 relative of that function's first."""
+    times = {k: [] for k in passes_of}
+    first = {}
+    for _ in range(passes):
+        for k, fn in passes_of.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            val = fn()
+            times[k].append(time.perf_counter() - t0)
+            first.setdefault(k, val)
+            if not (np.isfinite(val) and abs(val - first[k])
+                    <= 1e-4 * abs(first[k])):
+                raise AssertionError(
+                    f"{label} {k}: unstable value {val} vs {first[k]}"
+                )
+    return times
+
+
+def _amp_pass(tree, dev, planes):
+    """One warm slice-by-slice pass of a circuit tree, as phase 4's."""
+    import cotengra_tpu_torch as ctt
+
+    core = ctt.make_grouped_contractor(tree, dev, torch.float32)
+
+    def one_pass():
+        out = ctt.contract_slices(tree, core, planes)
+        return abs(complex(out[0].item(), out[1].item()))
+
+    return one_pass
+
+
+def phase_hyper_m10(dev):
+    """Sycamore-53 m=10 planned by the port's hyper-optimizer, all its
+    slices contracted through the chain kernel, held to the sidecar's
+    full amplitude."""
+    import cotengra_tpu_torch as ctt
+
+    t_phase = time.perf_counter()
+    committed, arrays, refs = _load_instance(T27)
+    ref = refs[committed.multiplicity]
+    tree, plan_s, trials = _hyper_plan(committed, HYPER_M10_TARGET)
+    print(
+        f"# hyper m10: planned in {plan_s:.1f}s ({plan_s / trials:.2f}s per "
+        f"trial, {trials} trials): {_plan_stats(tree)}; committed {T27}: "
+        f"{_plan_stats(committed)}",
+        flush=True,
+    )
+    slack = committed.total_flops(log=10) + HYPER_FLOPS_SLACK
+    if tree.total_flops(log=10) > slack:
+        raise AssertionError(
+            f"hyper m10: log10 flops {tree.total_flops(log=10):.3f} > "
+            f"{slack:.3f}"
+        )
+    expect = _chain_passes(tree) * tree.multiplicity
+    torch.cuda.reset_peak_memory_stats()
+
+    _reset_launches()
+    amp = ctt.contract_tree(tree, arrays, device=dev)
+    torch.cuda.synchronize()
+    counts = _read_launches()
+
+    amp0 = complex(amp.cpu().item())
+    relerr = abs(amp0 - ref) / abs(ref)
+    if counts != {"gate_chain": expect, "bmm_absmax": 0} or expect <= 0:
+        raise AssertionError(
+            f"hyper m10: launches {counts}, the plan has {expect} passes"
+        )
+    if not relerr <= AMP_RTOL:
+        raise AssertionError(
+            f"hyper m10: amplitude {amp0} vs reference {ref}: relerr "
+            f"{relerr:.3e} > {AMP_RTOL}"
+        )
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    times = _warm_in_turns("hyper m10", {
+        "port-planned": _amp_pass(tree, dev, planes),
+        T27: _amp_pass(committed, dev, planes),
+    })
+    print(
+        f"# main path hyper m10: slices {tree.multiplicity} amplitude "
+        f"{amp0.real:.12e}{amp0.imag:+.12e}j relerr {relerr:.3e} chain "
+        f"launches {counts['gate_chain']} ({_chain_passes(tree)} per slice) "
+        f"peak_mem_gib {peak:.2f} time_to_amplitude_s "
+        + "; ".join(
+            f"{k} {' '.join(f'{t:.4f}' for t in ts)} (best {min(ts):.4f})"
+            for k, ts in times.items()
+        )
+        + f" phase_s {time.perf_counter() - t_phase:.1f}",
+        flush=True,
+    )
+    return counts["gate_chain"]
+
+
+def phase_hyper_lattice(dev):
+    """The 7x7 bond-16 lattice planned by the port's hyper-optimizer,
+    contracted stripped through ``bmm_absmax``, held to the plan file's
+    float64 reference."""
+    import cotengra_tpu_torch as ctt
+
+    t_phase = time.perf_counter()
+    committed, arrays, ref = _load_lattice()
+    tree, plan_s, trials = _hyper_plan(committed, HYPER_LATTICE_TARGET)
+    print(
+        f"# hyper {LATTICE.split('_s')[0]}: planned in {plan_s:.1f}s "
+        f"({plan_s / trials:.2f}s per trial, {trials} trials): "
+        f"{_plan_stats(tree)}; committed {LATTICE}: "
+        f"{_plan_stats(committed)}",
+        flush=True,
+    )
+    expect = sum(_lattice_kernel_shapes(tree).values()) * tree.multiplicity
+    opts = dict(strip_exponent=True, implementation="pallas")
+    torch.cuda.reset_peak_memory_stats()
+
+    _reset_launches()
+    res = ctt.contract_tree(tree, arrays, device=dev, **opts)
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    log10 = _stripped_log10(res)
+    d_log10 = abs(log10 - ref["log10"])
+    if counts != {"gate_chain": 0, "bmm_absmax": expect} or expect <= 0:
+        raise AssertionError(
+            f"hyper lattice: launches {counts}, the plan has {expect} "
+            f"kernel steps"
+        )
+    if not (np.isfinite(log10) and d_log10 <= LOG10_ATOL):
+        raise AssertionError(
+            f"hyper lattice: log10 {log10!r} vs {ref['log10']!r}: |delta| "
+            f"{d_log10:.3e} > {LOG10_ATOL}"
+        )
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tensors = ctt.to_tensors(arrays, dev, torch.float32)
+    fn = ctt.make_full_contractor(tree, dev, **opts)
+    committed_pass = _warm_pass(LATTICE, dev)
+
+    def committed_log10():
+        m, e = committed_pass()
+        return float(np.log10(abs(m)) + e)
+
+    times = _warm_in_turns("hyper lattice", {
+        "port-planned": lambda: _stripped_log10(fn(*tensors)),
+        LATTICE: committed_log10,
+    })
+    print(
+        f"# main path hyper lattice: slices {tree.multiplicity} log10 "
+        f"{log10:.7f} (reference {ref['log10']:.7f}) |delta log10| "
+        f"{d_log10:.3e} bmm_absmax launches {counts['bmm_absmax']} (committed "
+        f"plan: {sum(_lattice_kernel_shapes(committed).values())} per slice "
+        f"x {committed.multiplicity}) peak_mem_gib {peak:.2f} "
+        "time_to_value_s "
+        + "; ".join(
+            f"{k} {' '.join(f'{t:.4f}' for t in ts)} (best {min(ts):.4f})"
+            for k, ts in times.items()
+        )
+        + f" phase_s {time.perf_counter() - t_phase:.1f}",
+        flush=True,
+    )
+    return counts["bmm_absmax"]
+
+
 def _kernel_class(name):
     if "gate_chain_kernel" in name:
         return "gate-chain kernel"
@@ -1654,6 +1878,8 @@ def main():
     phase_front_t27(dev)
     phase_front_auto(dev)
     phase_compressed(dev)
+    hyper_m10_launches = phase_hyper_m10(dev)
+    hyper_lattice_launches = phase_hyper_lattice(dev)
     kernels = [
         {
             # per slice: the 13 chains of one m10-t27 slice
@@ -1678,6 +1904,8 @@ def main():
             "m20_bound_ms": sum(r[3][0] for r in m20_rows),
             "m20_bound_by": _dominant(r[3] for r in m20_rows),
             "m20_library_ms": sum(r[4] for r in m20_rows),
+            # all slices of the m10 tree the port's hyper-optimizer plans
+            "hyper_m10_launches": hyper_m10_launches,
         },
         {
             # per slice: one slice's kernel steps, summed over the plan's
@@ -1694,6 +1922,8 @@ def main():
             "bound_by": _dominant((r[3], r[4]) for r in bmm_rows),
             # torch.bmm + abs().amax(): the plain version's own calls
             "library_ms": sum(r[2] for r in bmm_rows),
+            # all slices of the 7x7 tree the port's hyper-optimizer plans
+            "hyper_lattice_launches": hyper_lattice_launches,
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,12 +11,16 @@ compressed (chi-capped) planner: the hypergraph (``hypergraph``), the
 objectives with the compressed cost model (``scoring``),
 ``ContractionTreeCompressed`` (``tree_compressed``), the compressed path
 finders and refiners (``pathfinders.compressed``, ``windowed_opt``,
-``compressed_bb``) - and runs trees on torch tensors, with hand-written
-CUDA kernels for in-place gate chains and for matmuls with a fused
-max|out| (exponent stripping). Compressed trees run through
-``contract_compressed`` (``ops.compressed``: QR and SVD bond truncation
-with ``torch.linalg``). The hyper-optimizer and slicing search are not
-ported yet: ``"auto"`` plans hard contractions with random-greedy.
+``compressed_bb``), and the sliced planner: the tree's incremental
+bookkeeping with slicing and subtree reconfiguration (``tree``),
+``SliceFinder`` (``slicing``), the labels partitioner and simulated
+annealing (``pathfinders.labels``, ``annealing``), host pools
+(``parallel``) and the hyper-optimizer with its samplers and presets
+(``hyper``), which ``"auto"`` runs on hard contractions - and runs trees
+on torch tensors, with hand-written CUDA kernels for in-place gate
+chains and for matmuls with a fused max|out| (exponent stripping).
+Compressed trees run through ``contract_compressed`` (``ops.compressed``:
+QR and SVD bond truncation with ``torch.linalg``).
 
 Entry points run on the card (``device="cuda"``, the default) unless
 the caller passes ``device="cpu"``; without a card ``"cuda"`` raises.
@@ -83,6 +87,7 @@ from .scoring import (
     WriteObjective,
     get_score_fn,
 )
+from .slicing import ContractionCosts, SliceFinder
 from .tree import (
     ContractionTree,
     SliceInfo,
@@ -98,6 +103,23 @@ from .utils.symbols import get_symbol
 
 register_builtin_presets()
 
+from .hyper import (  # noqa: E402
+    HyperCompressedOptimizer,
+    HyperOptimizer,
+    ReusableHyperCompressedOptimizer,
+    ReusableHyperOptimizer,
+    ReusableRandomGreedyOptimizer,
+    UniformOptimizer,
+    get_hyper_space,
+    hyper_compressed_optimize,
+    list_hyper_functions,
+    register_hyper_function,
+    register_hyper_optlib,
+)
+from .hyper import register_hyper_presets as _register_hyper_presets  # noqa: E402,E501
+
+_register_hyper_presets()
+
 # the reference's aliases (``cotengra.__init__``)
 contract = einsum
 contract_expression = einsum_expression
@@ -106,6 +128,15 @@ contract_expression = einsum_expression
 greedy_optimize = GreedyOptimizer()
 optimal_optimize = OptimalOptimizer()
 optimal_outer_optimize = OptimalOptimizer(search_outer=True)
+
+
+def hyper_optimize(inputs, output, size_dict, memory_limit=None, **opts):
+    """One-shot hyper-optimized linear path: a fresh
+    :class:`HyperOptimizer` (``memory_limit`` slices to that size)."""
+    if memory_limit is not None:
+        opts.setdefault("slicing_opts", {"target_size": memory_limit})
+    opt = HyperOptimizer(**opts)
+    return opt.search(inputs, output, size_dict).get_path()
 
 # the reference's module aliases (``cotengra.__init__``)
 from .pathfinders import compressed as path_compressed_greedy  # noqa: E402
@@ -116,19 +147,27 @@ __all__ = [
     "AutoHQOptimizer",
     "AutoOptimizer",
     "ComboObjective",
+    "ContractionCosts",
     "ContractionTree",
     "ContractionTreeCompressed",
     "EdgeSortOptimizer",
     "FlopsObjective",
     "GreedyOptimizer",
+    "HyperCompressedOptimizer",
     "HyperGraph",
+    "HyperOptimizer",
     "LimitObjective",
     "OptimalOptimizer",
     "PathOptimizer",
     "RandomGreedyOptimizer",
     "RandomOptimizer",
+    "ReusableHyperCompressedOptimizer",
+    "ReusableHyperOptimizer",
+    "ReusableRandomGreedyOptimizer",
     "SizeObjective",
+    "SliceFinder",
     "SliceInfo",
+    "UniformOptimizer",
     "Via",
     "WriteObjective",
     "absorb_simple_tensors",
@@ -153,13 +192,17 @@ __all__ = [
     "estimate_optimal_hardness",
     "gather_slices",
     "gen_output_chunks",
+    "get_hyper_space",
     "get_hypergraph",
     "get_score_fn",
     "get_symbol",
     "greedy_optimize",
     "hash_contraction",
+    "hyper_compressed_optimize",
+    "hyper_optimize",
     "lattice_equation",
     "linear_to_ssa",
+    "list_hyper_functions",
     "list_presets",
     "load_tree",
     "make_contractor",
@@ -180,6 +223,8 @@ __all__ = [
     "rand_circuit_tn",
     "rand_equation",
     "register_builtin_presets",
+    "register_hyper_function",
+    "register_hyper_optlib",
     "register_preset",
     "resolve_device",
     "slice_arrays",

@@ -6,7 +6,8 @@ intermediate is one flat real tensor of length ``2 * numel`` (real
 plane, then imaginary plane), its leg order tracked by the plan, and
 each step works on merged blocks of legs, never at full rank. The
 intermediates of the Sycamore plans reach rank 27, beyond the 25 dims a
-CUDA TensorIterator takes.
+CUDA TensorIterator takes; a block transpose that still keeps more than
+25 blocks apart is copied in parts (``permute_copy``).
 
 What the reference carries only for the TPU and its compiler is gone:
 the (8, 128) tile splitting of block transposes, the one-hot matmul
@@ -42,21 +43,55 @@ def _planes_to_complex(flat, shape):
     return torch.complex(planes[0], planes[1])
 
 
+# a CUDA TensorIterator copy takes at most this many dims
+MAX_COPY_DIMS = 25
+
+
+def _copy_permuted(out, src, max_dims):
+    """``out.copy_(src)`` for a contiguous ``out`` and a strided ``src``
+    of the same shape, in copies of at most ``max_dims`` dims: above it,
+    one copy per index of the narrowest output axis but the last."""
+    if src.dim() <= max_dims:
+        out.copy_(src)
+        return
+    k = min(range(src.dim() - 1), key=lambda a: src.shape[a])
+    for j in range(src.shape[k]):
+        _copy_permuted(out.select(k, j), src.select(k, j), max_dims)
+
+
+def permute_copy(x, perm, max_dims=None):
+    """``x.permute(perm)`` as a new contiguous tensor.
+
+    A block transpose of a rank-27 Sycamore intermediate can keep more
+    blocks apart than a CUDA copy takes dims (``max_dims``, by default
+    ``MAX_COPY_DIMS``); such a copy is split over the narrowest output
+    axes (a rank-28 view of binary legs: 8 copies).
+    """
+    if max_dims is None:
+        max_dims = MAX_COPY_DIMS
+    src = x.permute(perm)
+    if src.dim() <= max_dims:
+        return src.contiguous()
+    out = torch.empty(src.shape, dtype=x.dtype, device=x.device)
+    _copy_permuted(out, src, max_dims)
+    return out
+
+
 # The reference's _apply_plan_matmul (one-hot matmul transposes),
 # _multipass_plan / transpose_synth.py (multipass copies) and
 # _split_block_factors (128-split tiles) worked around TPU tiling; a
 # GPU copy needs none of them.
 def _apply_block_plan_split(flat, plan):
     """Block transpose of plane-major flat storage: both planes move with
-    the same plan, the plane dim stays leading. One permuted copy."""
+    the same plan, the plane dim stays leading. One permuted copy, split
+    where it has more than ``MAX_COPY_DIMS`` dims."""
     if plan is None:
         return flat
     block_dims, perm = plan
-    return (
-        flat.view((2,) + tuple(block_dims))
-        .permute((0,) + tuple(p + 1 for p in perm))
-        .reshape(-1)
-    )
+    return permute_copy(
+        flat.view((2,) + tuple(block_dims)),
+        (0,) + tuple(p + 1 for p in perm),
+    ).view(-1)
 
 
 def _split_pair_scattered(x_flat, yf, p, block_dims, kpos):

@@ -27,6 +27,7 @@ import functools
 import heapq
 import itertools
 import math
+import operator
 
 from ..utils.misc import GumbelBatchedGenerator, get_rng
 from .base import PathOptimizer
@@ -88,91 +89,43 @@ def _pair_flops(a, b, sizes):
 
 # -- DP cost functions --------------------------------------------------------
 #
-# Each takes the merged (pre-filtered) legs *list*, removes contracted
-# indices in place, and returns the new subgraph score.
-
-
-def _cc_flops(temp, appearances, sizes, si, sj):
-    c = 1
-    for i in range(len(temp) - 1, -1, -1):
-        ix, cnt = temp[i]
-        c *= sizes[ix]
-        if cnt == appearances[ix]:
-            del temp[i]
-    return si + sj + c
-
-
-def _cc_max(temp, appearances, sizes, si, sj):
-    c = 1
-    for i in range(len(temp) - 1, -1, -1):
-        ix, cnt = temp[i]
-        c *= sizes[ix]
-        if cnt == appearances[ix]:
-            del temp[i]
-    return max(si, sj, c)
-
-
-def _cc_size(temp, appearances, sizes, si, sj):
-    s = 1
-    for i in range(len(temp) - 1, -1, -1):
-        ix, cnt = temp[i]
-        if cnt == appearances[ix]:
-            del temp[i]
-        else:
-            s *= sizes[ix]
-    return max(si, sj, s)
-
-
-def _cc_write(temp, appearances, sizes, si, sj):
-    s = 1
-    for i in range(len(temp) - 1, -1, -1):
-        ix, cnt = temp[i]
-        if cnt == appearances[ix]:
-            del temp[i]
-        else:
-            s *= sizes[ix]
-    return si + sj + s
-
-
-def _make_cc_combo(factor, limit=False):
-    def _cc(temp, appearances, sizes, si, sj):
-        c = 1
-        s = 1
-        for i in range(len(temp) - 1, -1, -1):
-            ix, cnt = temp[i]
-            d = sizes[ix]
-            c *= d
-            if cnt == appearances[ix]:
-                del temp[i]
-            else:
-                s *= d
-        if limit:
-            return si + sj + max(c, factor * s)
-        return si + sj + (c + factor * s)
-
-    return _cc
+# A DP entry's score combines its two parts' scores with the cost of the
+# step that joins them, a function of ``c`` (the product of the sizes of
+# every index involved) and ``s`` (that of the indices kept): the sum
+# for "flops" (c), "write" (s), "combo" (c + f s) and "limit"
+# (max(c, f s)); the max for "max" (c) and "size" (s).
 
 
 @functools.lru_cache(maxsize=128)
 def dp_cost_fn(minimize):
-    """Resolve a minimize string into a DP contraction-cost function.
-    Accepts 'flops', 'max', 'size', 'write', 'combo[-f]', 'limit[-f]'.
+    """Resolve a minimize string into ``(additive, step)`` for the optimal
+    DP: ``step(c, s)`` is one contraction's cost, added to the parts'
+    scores if ``additive``, else maxed with them. Accepts 'flops', 'max',
+    'size', 'write', 'combo[-f]', 'limit[-f]'.
     """
     if minimize == "flops":
-        return _cc_flops
+        return True, lambda c, s: c
     if minimize == "max":
-        return _cc_max
+        return False, lambda c, s: c
     if minimize == "size":
-        return _cc_size
+        return False, lambda c, s: s
     if minimize == "write":
-        return _cc_write
+        return True, lambda c, s: s
     name, _, fstr = minimize.partition("-")
     factor = int(fstr) if fstr.isdigit() else float(fstr) if fstr else 64
     if name == "combo":
-        return _make_cc_combo(factor, limit=False)
+        return True, lambda c, s: c + factor * s
     if name == "limit":
-        return _make_cc_combo(factor, limit=True)
+        return True, lambda c, s: max(c, factor * s)
     raise ValueError(f"Can't parse minimize={minimize!r} for optimal DP.")
+
+
+def _bits(mask):
+    """The positions of a bitmask's set bits."""
+    while mask:
+        low = mask & -mask
+        yield low.bit_length() - 1
+        mask ^= low
 
 
 # -- the mutable planning graph ------------------------------------------------
@@ -485,20 +438,70 @@ class PlanGraph:
         contractions of all connected subgraphs in order of size, sieved by
         a doubling cost cap (arXiv:1304.6112).
         """
-        cost_fn = dp_cost_fn(minimize)
-        appearances = self.appearances
-        sizes = self.sizes
-
+        additive, step = dp_cost_fn(minimize)
+        appearances, sizes = self.appearances, self.sizes
         nterms = len(where)
         # best[m][bitset] = (legs, score, bitpath)
         best = [{} for _ in range(nterms + 1)]
         bit_to_node = {}
+        # a subset's legs do not depend on how it was split: kept once per
+        # subset, with the bitmask of their indices
+        legs_of, mask_of = {}, {}
         for b, node in enumerate(where):
             bit = 1 << b
             bit_to_node[bit] = node
-            best[1][bit] = (self.terms[node], 0, ())
+            legs = self.terms[node]
+            best[1][bit] = (legs, 0, ())
+            legs_of[bit] = legs
+            mask_of[bit] = functools.reduce(
+                operator.or_, (1 << ix for ix, _ in legs), 0
+            )
+        # the product of the sizes of a bitmask's indices, by size class
+        by_size = {}
+        for ix in _bits(functools.reduce(operator.or_, mask_of.values(), 0)):
+            by_size[sizes[ix]] = by_size.get(sizes[ix], 0) | (1 << ix)
+        by_size = tuple(by_size.items())
 
+        def size_of(mask):
+            p = 1
+            for d, md in by_size:
+                k = (mask & md).bit_count()
+                if k:
+                    p *= d**k
+            return p
+
+        def join(bi, bj):
+            """The legs of ``bi | bj`` and the step's own cost, or None
+            for an outer product (unless ``search_outer``)."""
+            mi, mj = mask_of[bi], mask_of[bj]
+            if not (mi & mj or search_outer):
+                return None
+            bk = bi | bj
+            if bk not in legs_of:
+                counts = dict(legs_of[bi])
+                for x, c in legs_of[bj]:
+                    counts[x] = counts.get(x, 0) + c
+                legs = tuple(
+                    (x, c) for x, c in sorted(counts.items())
+                    if c != appearances[x]
+                )
+                legs_of[bk] = legs
+                mask_of[bk] = functools.reduce(
+                    operator.or_, (1 << x for x, _ in legs), 0
+                )
+            return legs_of[bk], step(size_of(mi | mj), size_of(mask_of[bk]))
+
+        # Each round re-runs the whole sieve at a doubled cost cap, keeping
+        # the tables. Two shortcuts leave every table exactly as the plain
+        # rounds leave it: each pair is joined once (``joined``: (bi, bj)
+        # -> the legs and the step's own cost, or None), and after a round
+        # that changed no table the cap jumps past the rounds that would
+        # accept nothing, to the first doubling that reaches the least
+        # score it turned away.
+        joined = {}
         while not best[nterms]:
+            changed = False
+            least_refused = math.inf
             for m in range(2, nterms + 1):
                 best_m = best[m]
                 for k in range(1, m // 2 + 1):
@@ -508,47 +511,33 @@ class PlanGraph:
                         )
                     else:
                         pairs = itertools.combinations(best[k].items(), 2)
-                    for (bi, (ilegs, si, pi)), (bj, (jlegs, sj, pj)) in pairs:
+                    for (bi, (_, si, pi)), (bj, (_, sj, pj)) in pairs:
                         if bi & bj:
                             continue
-
-                        # sorted merge, tracking whether any index is shared
-                        temp = []
-                        ip = jp = 0
-                        ni, nj = len(ilegs), len(jlegs)
-                        disjoint = not search_outer
-                        while ip < ni and jp < nj:
-                            xi, ci = ilegs[ip]
-                            xj, cj = jlegs[jp]
-                            if xi < xj:
-                                temp.append((xi, ci))
-                                ip += 1
-                            elif xi > xj:
-                                temp.append((xj, cj))
-                                jp += 1
-                            else:
-                                temp.append((xi, ci + cj))
-                                ip += 1
-                                jp += 1
-                                disjoint = False
-                        if disjoint:
-                            # outer products excluded unless requested
+                        try:
+                            res = joined[bi, bj]
+                        except KeyError:
+                            res = joined[bi, bj] = join(bi, bj)
+                        if res is None:
                             continue
-                        temp.extend(ilegs[ip:])
-                        temp.extend(jlegs[jp:])
-
-                        new_score = cost_fn(temp, appearances, sizes, si, sj)
+                        legs, cost = res
+                        if additive:
+                            new_score = si + sj + cost
+                        else:
+                            new_score = max(si, sj, cost)
                         if new_score > cost_cap:
+                            if new_score < least_refused:
+                                least_refused = new_score
                             continue
                         bk = bi | bj
                         cur = best_m.get(bk)
                         if cur is None or new_score < cur[1]:
-                            best_m[bk] = (
-                                tuple(temp),
-                                new_score,
-                                (*pi, *pj, (bi, bj)),
-                            )
+                            best_m[bk] = (legs, new_score, (*pi, *pj, (bi, bj)))
+                            changed = True
             cost_cap *= 2
+            if not changed and least_refused < math.inf:
+                while cost_cap < least_refused:
+                    cost_cap *= 2
 
         ((_, _, bitpath),) = best[nterms].values()
         for bi, bj in bitpath:
@@ -722,18 +711,35 @@ def optimize_optimal(
     use for <= ~16 effective terms, or more with the native kernel).
     """
     _check_accel(accel)
-    g = PlanGraph(inputs, output, size_dict)
-    if simplify:
-        g.simplify()
-    g.optimize_optimal(
-        minimize=minimize, cost_cap=cost_cap, search_outer=search_outer
+    inputs = tuple(map(tuple, inputs))
+    sizes = tuple(
+        (ix, size_dict[ix])
+        for ix in dict.fromkeys(ix for term in inputs for ix in term)
     )
-    path = g.finalize()
+    path = list(_optimal_ssa_path(
+        inputs, tuple(output), sizes, minimize, cost_cap, search_outer,
+        simplify,
+    ))
     if use_ssa:
         return path
     from ..tree import ssa_to_linear
 
     return ssa_to_linear(path, len(inputs))
+
+
+@functools.lru_cache(maxsize=2**14)
+def _optimal_ssa_path(inputs, output, sizes, minimize, cost_cap,
+                      search_outer, simplify):
+    """The optimal DP's SSA path, kept per contraction: subtree
+    reconfiguration re-solves the same small subtrees after every slicing
+    step, and the answer is a function of its arguments alone."""
+    g = PlanGraph(inputs, output, dict(sizes))
+    if simplify:
+        g.simplify()
+    g.optimize_optimal(
+        minimize=minimize, cost_cap=cost_cap, search_outer=search_outer
+    )
+    return tuple(g.finalize())
 
 
 # -- native acceleration hook ---------------------------------------------------
@@ -754,21 +760,6 @@ def _check_accel(accel):
 
 
 # -- optimizer classes -----------------------------------------------------------
-
-
-def _parse_parallel(parallel):
-    """``False``/``None`` (serial) or an executor with ``submit`` (a
-    ``concurrent.futures`` pool, used as given). The reference's named
-    pools (``True``, ``"threads"``, ``"processes"``, ...) come with its
-    ``parallel/pools.py``, not ported yet."""
-    if parallel is False or parallel is None:
-        return None
-    if hasattr(parallel, "submit"):
-        return parallel
-    raise NotImplementedError(
-        f"parallel={parallel!r}: pass an executor with submit(); named "
-        "pools are not ported to cotengra_tpu_torch yet (ROADMAP A7)"
-    )
 
 
 class GreedyOptimizer(PathOptimizer):
@@ -839,7 +830,10 @@ class RandomGreedyOptimizer(PathOptimizer):
 
     def ssa_path(self, inputs, output, size_dict):
         rng = get_rng(self.seed)
-        pool = _parse_parallel(self.parallel)
+
+        from ..parallel.pools import parse_parallel_arg, submit
+
+        pool = parse_parallel_arg(self.parallel)
         if pool is None:
             nbatch, per = 1, self.max_repeats
         else:
@@ -866,7 +860,8 @@ class RandomGreedyOptimizer(PathOptimizer):
                 )
             else:
                 jobs.append(
-                    pool.submit(
+                    submit(
+                        pool,
                         optimize_random_greedy_track_flops,
                         inputs,
                         output,

@@ -1,18 +1,20 @@
 """Built-in optimize presets (counterpart of ``cotengra_tpu/presets.py``):
 ``auto`` / ``auto-hq`` pick optimal DP for small contractions (hardness
-``n^2 * sqrt(k)`` under a cutoff) and random-greedy otherwise; plus
-``greedy``, ``optimal`` (``dp``), ``optimal-outer``,
-``random-greedy{,-128}``, ``simplify``, ``edgesort`` and ``random``;
-and the compressed ``greedy-compressed`` and ``greedy-span``, whose tree
-functions return a ``ContractionTreeCompressed``.
+``n^2 * sqrt(k)`` under a cutoff) and otherwise a thread-local
+hyper-optimizer search (``hyper.HyperOptimizer``, stopping at
+``max_time="rate:1e9"`` / ``"rate:1e8"``, each trial reconfigured);
+plus ``greedy``, ``optimal`` (``dp``), ``optimal-outer``,
+``random-greedy{,-128}``, ``simplify``, ``edgesort`` and ``random``; and
+the compressed ``greedy-compressed`` and ``greedy-span``, whose tree
+functions return a ``ContractionTreeCompressed``. The ``hyper`` presets
+are registered by ``hyper.register_hyper_presets``.
 
-The large branch of ``auto`` is the reference's own fallback for when
-its hyper-optimizer cannot be imported: 32 trials of random-greedy. The
-hyper-optimizer and its presets (``hyper-compressed`` included) are not
-ported yet.
+As in the reference, ``auto`` falls back to 32 trials of random-greedy
+only if the hyper-optimizer cannot be imported.
 """
 
 import functools
+import threading
 
 from .interface import register_preset
 from .pathfinders.basic import (
@@ -43,11 +45,39 @@ def estimate_optimal_hardness(inputs):
 
 class AutoOptimizer:
     """Optimal DP (minimizing ``minimize``) if the contraction's hardness
-    is under ``optimal_cutoff``, otherwise 32 trials of random-greedy."""
+    is under ``optimal_cutoff``, otherwise a (thread-local)
+    hyper-optimizer search with an early-stopping rate."""
 
-    def __init__(self, optimal_cutoff=250, minimize="combo"):
+    def __init__(
+        self,
+        optimal_cutoff=250,
+        minimize="combo",
+        methods=None,
+        max_time="rate:1e9",
+        max_repeats=128,
+        **hyperoptimizer_opts,
+    ):
         self.optimal_cutoff = optimal_cutoff
         self.minimize = minimize
+        self.hyperoptimizer_opts = dict(
+            methods=methods,
+            max_time=max_time,
+            max_repeats=max_repeats,
+            minimize=minimize,
+            reconf_opts={},
+            parallel=False,
+            **hyperoptimizer_opts,
+        )
+        self._local = threading.local()
+
+    def _get_hyperoptimizer(self):
+        try:
+            return self._local.opt
+        except AttributeError:
+            from .hyper import HyperOptimizer
+
+            self._local.opt = HyperOptimizer(**self.hyperoptimizer_opts)
+            return self._local.opt
 
     def search(self, inputs, output, size_dict):
         if estimate_optimal_hardness(inputs) < self.optimal_cutoff:
@@ -55,28 +85,37 @@ class AutoOptimizer:
                 inputs, output, size_dict, minimize=self.minimize,
                 use_ssa=True,
             )
-        else:
+            return ContractionTree.from_path(
+                inputs, output, size_dict, ssa_path=ssa_path
+            )
+        try:
+            opt = self._get_hyperoptimizer()
+            return opt.search(inputs, output, size_dict)
+        except ImportError:
+            # the hyper-optimizer is not importable: random-greedy
             ssa_path, _ = optimize_random_greedy_track_flops(
                 inputs, output, size_dict, ntrials=32, use_ssa=True
             )
-        return ContractionTree.from_path(
-            inputs, output, size_dict, ssa_path=ssa_path
-        )
+            return ContractionTree.from_path(
+                inputs, output, size_dict, ssa_path=ssa_path
+            )
 
     def __call__(self, inputs, output, size_dict):
         return self.search(inputs, output, size_dict).get_path()
 
 
 class AutoHQOptimizer(AutoOptimizer):
-    """``AutoOptimizer`` with a higher optimal cutoff (650), for harder or
-    repeated contractions."""
+    """``AutoOptimizer`` for harder or repeated contractions: a higher
+    optimal cutoff (650) and a slower stopping rate (``"rate:1e8"``)."""
 
     def __init__(self, **kwargs):
         kwargs.setdefault("optimal_cutoff", 650)
+        kwargs.setdefault("max_time", "rate:1e8")
+        kwargs.setdefault("max_repeats", 128)
         super().__init__(**kwargs)
 
 
-auto_optimize = AutoOptimizer()
+auto_optimize = AutoOptimizer(optimal_cutoff=250, max_time="rate:1e9")
 auto_hq_optimize = AutoHQOptimizer()
 
 

@@ -8,12 +8,14 @@ import numpy as np
 import pytest
 import torch
 from numpy.testing import assert_allclose
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import cotengra_tpu as ctg
 from cotengra_tpu.models.circuits import rand_circuit_tn
 from cotengra_tpu.ops.grouped import make_grouped_staged_contractor
 
 import cotengra_tpu_torch as ctt
+from cotengra_tpu_torch.ops import grouped
 
 torch.set_num_threads(1)
 
@@ -175,3 +177,69 @@ def test_slice_arrays_host_matches_planes():
         dev = ctt.slice_arrays(tree, planes, i, axis_offset=1)
         for h, d in zip(host, dev):
             assert_allclose(d[0].numpy() + 1j * d[1].numpy(), h)
+
+
+class _CopyDims(TorchDispatchMode):
+    """Records the widest tensor of every copy made under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.dims = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket in (torch.ops.aten.copy_, torch.ops.aten.clone):
+            self.dims.append(
+                max(a.dim() for a in args if isinstance(a, torch.Tensor))
+            )
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("max_dims", [1, 2, 3, 5, 6])
+@pytest.mark.parametrize("seed", range(3))
+def test_permute_copy_keeps_each_copy_within_max_dims(max_dims, seed):
+    """A permuted copy wider than ``max_dims`` (a CUDA copy takes 25) is
+    made in parts, none wider, to the same contiguous tensor."""
+    rng = np.random.default_rng(seed)
+    shape = tuple(int(d) for d in rng.integers(1, 4, size=6))
+    x = torch.from_numpy(rng.normal(size=shape))
+    perm = tuple(int(p) for p in rng.permutation(6))
+    rec = _CopyDims()
+    with rec:
+        got = grouped.permute_copy(x, perm, max_dims)
+    assert got.is_contiguous() and torch.equal(got, x.permute(perm))
+    assert max(rec.dims, default=0) <= max_dims
+    # the narrowest output axes go first: 3 levels of binary axes
+    if max_dims == 3 and sorted(shape[p] for p in perm[:-1])[:3] == [2] * 3:
+        assert len(rec.dims) == 8
+
+
+@pytest.mark.parametrize("gate_mode", ["inplace", None])
+def test_grouped_contractor_with_split_copies(gate_mode, monkeypatch):
+    """Block transposes wider than the copy limit (lowered to 3 here, so
+    that a small network reaches it) give the same value as whole ones
+    and as the reference."""
+    tree, arrays = _state_network()
+    arrays = [np.asarray(a, np.complex128) for a in arrays]
+    planes = ctt.to_plane_tensors(arrays, "cpu", torch.float64)
+
+    def run():
+        core = ctt.make_grouped_contractor(
+            tree, "cpu", torch.float64, gate_mode=gate_mode
+        )
+        out = ctt.contract_slices(tree, core, planes).numpy()
+        return out[0] + 1j * out[1]
+
+    want = run()
+    split = []
+    copy_permuted = grouped._copy_permuted
+
+    def record(out, src, max_dims):
+        split.append(src.dim())
+        copy_permuted(out, src, max_dims)
+
+    monkeypatch.setattr(grouped, "MAX_COPY_DIMS", 3)
+    monkeypatch.setattr(grouped, "_copy_permuted", record)
+    got = run()
+    assert max(split, default=0) > 3
+    assert_allclose(got, want, rtol=1e-10)
+    assert_allclose(got, np.asarray(tree.contract(arrays)), rtol=1e-10)

@@ -352,3 +352,59 @@ def test_contract_compressed_on_the_card(cuda):
     assert abs(
         np.log10(abs(m.item())) + e.item() - np.log10(abs(want.item()))
     ) <= 1e-5
+
+
+def test_port_planned_circuit_through_the_chain_kernel(cuda):
+    """A circuit sliced and reconfigured by the port itself (greedy,
+    then ``slice_and_reconfigure`` to 2^20) runs its in-place chains
+    through the kernel on the card, and its amplitude matches the CPU
+    run of the same tree (the kernel's plain version) in float32."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.ops.grouped_plan import plan_grouped
+    from cotengra_tpu_torch.ops.lowering import (
+        extract_contractions,
+        sliced_input_legs,
+    )
+
+    inputs, output, _, _, arrays = ctt.rand_circuit_tn(40, 10, seed=5)
+    inputs, arrays = ctt.absorb_simple_tensors(
+        inputs, arrays, output, max_rank=2, max_absorb_size=2**12
+    )
+    size_dict = {
+        ix: int(d) for t, a in zip(inputs, arrays) for ix, d in zip(t, a.shape)
+    }
+    tree = ctt.ContractionTree.from_path(
+        inputs, output, size_dict, ssa_path=ctt.optimize_greedy(
+            inputs, output, size_dict, use_ssa=True, seed=2,
+            temperature=0.01,
+        ),
+    )
+    tree.slice_and_reconfigure_(2**20, temperature=0)
+    assert tree.multiplicity > 1 and tree.max_size() <= 2**20
+    ir = extract_contractions(tree)
+    orders = [sliced_input_legs(tree, i) for i in range(tree.N)]
+    plans, *_ = plan_grouped(ir, tree.size_dict, orders, gate_mode="inplace")
+    assert any(kind == "inplace" for kind, _ in plans)
+    before = run_chain_cuda.launches
+    got = complex(ctt.contract_tree(tree, arrays, device=cuda).item())
+    torch.cuda.synchronize()
+    assert run_chain_cuda.launches > before
+    want = complex(ctt.contract_tree(tree, arrays, device="cpu").item())
+    assert abs(got - want) <= 1e-5 * abs(want)
+
+
+def test_permute_copy_beyond_the_copy_dims_limit(cuda):
+    """A block transpose of 26 binary blocks, more than a CUDA copy takes
+    in one go (a port-planned Sycamore-53 m=10 tree reached it), made in
+    parts on the card, equals the CPU's whole copy."""
+    from cotengra_tpu_torch.ops.grouped import MAX_COPY_DIMS, permute_copy
+
+    n = MAX_COPY_DIMS + 1
+    x = torch.randn((2,) * n, generator=torch.Generator().manual_seed(0))
+    perm = tuple(reversed(range(n)))
+    xc = x.to(cuda)
+    with pytest.raises(RuntimeError, match="too many"):
+        xc.permute(perm).contiguous()
+    got = permute_copy(xc, perm)
+    assert got.is_contiguous()
+    assert torch.equal(got.cpu(), x.permute(perm).contiguous())

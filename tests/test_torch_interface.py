@@ -263,9 +263,9 @@ def test_edge_path_converters():
 @pytest.mark.parametrize("entry", ["einsum", "array_contract", "ncon"])
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_front_end_matches_reference(entry, seed):
-    """The default ``optimize="auto"`` in the port (random-greedy at
-    this hardness) against the JAX package's greedy plan: the value does
-    not depend on the path."""
+    """The default ``optimize="auto"`` in the port (the hyper-optimizer
+    at this hardness) against the JAX package's greedy plan: the value
+    does not depend on the path."""
     inputs, output, _, arrays = _rand(seed)
     eq = inputs_output_to_eq(inputs, output)
     expected = np.asarray(ctg.einsum(eq, *arrays, optimize="greedy"))
@@ -386,13 +386,17 @@ def test_optimizers_match_reference():
             accel=False,
         ),
     ).get_ssa_path()
-    # no native path finders, and no named pools, in the port yet
+    # no native path finders in the port yet
     with pytest.raises(NotImplementedError, match="A7"):
         ctt.optimize_greedy(inputs, output, size_dict, accel=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ctt.RandomGreedyOptimizer(parallel=True).ssa_path(
-            inputs, output, size_dict
-        )
+    # named pools (parallel/pools.py): one batch per worker, as the
+    # reference's
+    got = ctt.RandomGreedyOptimizer(parallel="threads:2", **rg)
+    ref = ctg.RandomGreedyOptimizer(parallel="threads:2", **rg)
+    assert got.ssa_path(inputs, output, size_dict) == ref.ssa_path(
+        inputs, output, size_dict
+    )
+    assert got.best_flops == ref.best_flops
 
 
 @pytest.mark.parametrize("form", ["array_contract", "einsum"])

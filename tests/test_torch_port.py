@@ -83,7 +83,8 @@ _NO_JAX = textwrap.dedent(
     assert abs(lgot - lref) <= 1e-10 * lref, (lgot, lref)
 
     # the front end plans its own path ("auto": optimal DP below the
-    # hardness cutoff, random-greedy above it) and contracts on the CPU
+    # hardness cutoff, the hyper-optimizer above it) and contracts on the
+    # CPU
     for n in (5, 14):
         ei, eo, eshapes, _ = ctt.rand_equation(n, 3, n_out=1, seed=n)
         earr = [rng.uniform(size=s) for s in eshapes]
@@ -107,6 +108,23 @@ _NO_JAX = textwrap.dedent(
     cexact = ctree.contract_compressed(carr, chi=10**6, device="cpu")
     clog = np.log10(abs(cm.item())) + ce.item()
     assert abs(clog - np.log10(abs(cexact.item()))) <= 1e-5, clog
+
+    # the port plans a sliced tree itself (the hyper-optimizer, slicing
+    # and subtree reconfiguration) and contracts it on the CPU
+    hi, ho, hshapes, hsizes = ctt.rand_equation(16, 3, n_out=1, seed=2)
+    target = ctt.array_contract_tree(
+        hi, ho, size_dict=hsizes, optimize="greedy"
+    ).max_size() // 8
+    htree = ctt.HyperOptimizer(
+        max_repeats=4, seed=1, slicing_reconf_opts={{"target_size": target}}
+    ).search(hi, ho, hsizes)
+    assert htree.multiplicity > 1 and htree.max_size() <= target
+    harr = [rng.uniform(size=s) for s in hshapes]
+    hgot = ctt.contract_tree(
+        htree, harr, device="cpu", plane_dtype=torch.float64
+    )
+    href = np.einsum(eq(hi, ho), *harr, optimize="greedy")
+    np.testing.assert_allclose(hgot.numpy(), href, rtol=1e-10)
 
     import chip_smoke  # imported, not run
 
@@ -143,7 +161,8 @@ def _reference_paths():
 def test_port_runs_without_jax():
     """The port runs with jax, jaxlib and the JAX package all blocked:
     sliced and stripped contractions, ``einsum`` planning its own path,
-    and a compressed plan contracted with truncation."""
+    a compressed plan contracted with truncation, and a sliced plan that
+    the port's hyper-optimizer makes."""
     path, lpath = _reference_paths()
     proc = subprocess.run(
         [sys.executable, "-c",
