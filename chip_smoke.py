@@ -9,7 +9,11 @@ Run from the root of a checkout. Phases:
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build the CUDA kernels from ``cotengra_tpu_torch/csrc`` (one nvcc
-   per source, sm_90a, started together) and print the build seconds;
+   per source, sm_90a, started together) and, in parallel, the host
+   planning library from ``cotengra_tpu_torch/ops/native/kernels.cpp``
+   (g++), and print the build seconds and the library's path; the run
+   fails where the host library does not build (no silent pure-Python
+   planning);
 3. the gate-chain kernel against its plain PyTorch version on every
    chain of the Sycamore-53 m=10 t27 plan at full size, float32 inputs
    from a fixed numpy seed: max|kernel - plain| <= 1e-5 * max|plain|,
@@ -88,8 +92,9 @@ Run from the root of a checkout. Phases:
    contractor that the tree caches;
 15. the front end planning its own path: ``einsum`` on the 6x6 bond-16
    lattice (uniform [0, 1) float32 from ``default_rng(7)``) with the
-   default ``optimize="auto"`` (the hyper-optimizer at this hardness:
-   its planning seconds and trials, unsliced), the planned tree's log2
+   default ``optimize="auto"`` (the hyper-optimizer at this hardness,
+   with its default methods ``["greedy", "ctgpart"]``: its planning
+   seconds, trials and accel, unsliced), the planned tree's log2
    max size (<= 28) and log10 flops printed before it runs,
    ``bmm_absmax`` launches > 0 and |delta log10| <= 1e-4 against
    ``LATTICE6_LOG10``;
@@ -111,9 +116,10 @@ Run from the root of a checkout. Phases:
    operand, timed; no kernel of the port is launched;
 17. Sycamore-53 m=10 planned by the port: ``HyperOptimizer(methods=
    ["greedy", "labels"], max_repeats=16, seed=8, slicing_reconf_opts=
-   {"target_size": 2**27}, parallel=False)`` on the host (planning
-   seconds, seconds per trial, slices, log2 max and peak, log10 flops,
-   beside the committed t27 plan's), max size <= 2^27 and log10 flops
+   {"target_size": 2**27}, parallel=False)`` on the host, on the native
+   library (``accel="auto"``; planning seconds, seconds per trial, the
+   methods and accel, slices, log2 max and peak, log10 flops, beside
+   the committed t27 plan's), max size <= 2^27 and log10 flops
    <= the t27 plan's + 1 (the search is not repeatable: unseeded
    greedy noise and slice finder); all its slices contracted through
    ``contract_tree`` and held to the sidecar's full amplitude (key
@@ -126,17 +132,28 @@ Run from the root of a checkout. Phases:
    plan's kernel steps x slices, > 0) and held to the plan file's
    float64 ``"reference"`` at |delta log10| <= 1e-4, its plan stats,
    warm time-to-value and launches beside the committed plan's;
-19. one JSON line of kernel results (launches on the main path, error,
+19. phase 17 again with the hyper-optimizer's default methods
+   (``methods`` unset: ``["greedy", "ctgpart"]``, asserted), the same
+   checks and limits;
+20. phase 18 again with the default methods;
+21. planning alone, pure Python (every finder as with ``accel=False``)
+   against native, in turns (Python, native, native, Python): one
+   seeded m10 greedy path and the committed unsliced t29 tree sliced
+   and reconfigured to 2^25 at temperature 0; the seconds of each and
+   their ratio;
+22. one JSON line of kernel results (launches on the main path, error,
    ms, plain ms, bound, library ms; the gate chain's m=20 figures
    under ``m20_*`` keys, the launches of phases 17 and 18 under
-   ``hyper_*`` keys), then the last line
-   ``{"ok": true, "device": {...}}``.
+   ``hyper_*`` keys and of phases 19 and 20 under ``default_*`` keys),
+   one JSON line ``{"host_native": {...}}`` of the host library's build
+   seconds and the planning seconds of phases 15, 17-21, then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Every instance is built and every plan loaded through the port
 (``cotengra_tpu_torch.rand_circuit_tn``, ``lattice_equation``,
 ``load_tree``): the script imports neither JAX nor the JAX package.
 
-Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15, 16, 17, 18) is driven with
+Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15-20) is driven with
 every kernel's launch count set to 0 just before it and read just
 after. Any failed
 phase raises, and the script exits non-zero without the last line. It
@@ -205,11 +222,19 @@ COMPRESSED_LOG10 = 288.9674377441406
 # rounding otherwise than LAPACK's; float32: QR and SVD in float32 over
 # 255 steps on top of that
 COMPRESSED_ATOL = {torch.float64: 1e-4, torch.float32: 1e-3}
-# phases 17-18: the port's own hyper-optimizer, as a user would call it
+# phases 17-20: the port's own hyper-optimizer, as a user would call it:
+# with the methods named (17-18), then with its default methods (19-20)
 HYPER_TRIALS = 16
 HYPER_SEED = 8
 HYPER_M10_TARGET = 2**27
 HYPER_LATTICE_TARGET = 2**28
+HYPER_LABELS = ["greedy", "labels"]
+DEFAULT_METHODS = ["greedy", "ctgpart"]   # where the native library builds
+# phase 21: one refinement of a planning trial, timed pure Python against
+# native: the committed unsliced t29 tree sliced and reconfigured to 2^25
+# (temperature 0: no noise), after one seeded greedy path
+TIMING_TARGET = 2**25
+TIMING_GREEDY = {"costmod": 2.0, "temperature": 0.03, "seed": HYPER_SEED}
 # log10 flops above the committed t27 plan's that a port-planned m10
 # tree may reach: the search is not repeatable, so the bound is loose
 HYPER_FLOPS_SLACK = 1.0
@@ -393,15 +418,46 @@ def phase_device():
     )
 
 
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
 def phase_build():
+    """The CUDA kernels (nvcc) and, beside them in a thread, the host
+    planning library (g++). Returns the host library's build seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cotengra_tpu_torch.ops import native
     from cotengra_tpu_torch.ops._build import library_path, load_library
 
-    t0 = time.perf_counter()
-    load_library()
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(_timed, native.is_available)
+        _, cuda_s = _timed(load_library)
+        ok, host_s = host.result()
+    print(f"# build: {library_path().name} in {cuda_s:.2f}s", flush=True)
+    if not ok:
+        raise RuntimeError(
+            f"the native planning library did not build: "
+            f"{native.build_error()}"
+        )
     print(
-        f"# build: {library_path().name} in "
-        f"{time.perf_counter() - t0:.2f}s",
+        f"# build: host planning library {native.library()._name} in "
+        f"{host_s:.2f}s (g++, in parallel with nvcc)",
         flush=True,
+    )
+    return host_s
+
+
+def _accel_note():
+    """Which path finders ``accel="auto"`` (every finder's default)
+    takes in this process."""
+    from cotengra_tpu_torch.pathfinders.basic import _get_native
+
+    return (
+        "accel auto: native library" if _get_native("auto") is not None
+        else "accel auto: pure Python"
     )
 
 
@@ -1254,10 +1310,14 @@ def phase_front_auto(dev):
     plan_s = time.perf_counter() - t0
     tree = expr.tree
     max_log2 = tree.max_size(log=2)
-    trials = len(ctt.auto_optimize._get_hyperoptimizer().trials)
+    hyper = ctt.auto_optimize._get_hyperoptimizer()
+    trials = len(hyper.trials)
+    if hyper._methods != DEFAULT_METHODS:
+        raise AssertionError(f"auto 6x6: methods {hyper._methods}")
     print(
         f"# front end lattice6x6_d16 auto: hardness {hardness:.0f}, the "
-        f"hyper-optimizer's {trials} trials planned in {plan_s:.2f}s: "
+        f"hyper-optimizer's {trials} trials (methods {hyper._methods}, "
+        f"{_accel_note()}) planned in {plan_s:.2f}s: "
         f"slices {tree.multiplicity} log2 max size "
         f"{max_log2:.2f} log2 peak {tree.peak_size(log=2):.2f} log10 flops "
         f"{tree.total_flops(log=10):.3f}",
@@ -1293,7 +1353,7 @@ def phase_front_auto(dev):
         f"{time.perf_counter() - t_phase:.1f}",
         flush=True,
     )
-    return counts["bmm_absmax"]
+    return plan_s
 
 
 def _compressed_inputs():
@@ -1496,18 +1556,21 @@ def _time_compressed_linalg(dtype, dev, max_size):
     del core, tall
 
 
-def _hyper_plan(tree, target):
+def _hyper_plan(tree, target, methods):
     """The port's hyper-optimizer on the instance of a committed ``tree``,
     sliced to ``target`` (planned on the host, serially: the process has
-    initialised CUDA). Returns the planned tree, the planning seconds and
-    the trials."""
+    initialised CUDA), with ``methods`` (``None``: its defaults, which
+    must be ``DEFAULT_METHODS``). Returns the planned tree, the planning
+    seconds, the trials and a note of the methods and accel."""
     import cotengra_tpu_torch as ctt
 
     opt = ctt.HyperOptimizer(
-        methods=["greedy", "labels"], max_repeats=HYPER_TRIALS,
+        methods=methods, max_repeats=HYPER_TRIALS,
         seed=HYPER_SEED, slicing_reconf_opts={"target_size": target},
         parallel=False,
     )
+    if opt._methods != (methods or DEFAULT_METHODS):
+        raise AssertionError(f"hyper plan: methods {opt._methods}")
     t0 = time.perf_counter()
     planned = opt.search(tree.inputs, tree.output, tree.size_dict)
     plan_s = time.perf_counter() - t0
@@ -1516,7 +1579,11 @@ def _hyper_plan(tree, target):
             f"hyper plan: 2^{planned.max_size(log=2):.2f} > target "
             f"2^{math.log2(target):.0f}"
         )
-    return planned, plan_s, len(opt.trials)
+    note = (
+        f"methods {opt._methods}{' (defaults)' if methods is None else ''}"
+        f", {_accel_note()}"
+    )
+    return planned, plan_s, len(opt.trials), note
 
 
 def _plan_stats(tree):
@@ -1561,26 +1628,29 @@ def _amp_pass(tree, dev, planes):
     return one_pass
 
 
-def phase_hyper_m10(dev):
-    """Sycamore-53 m=10 planned by the port's hyper-optimizer, all its
-    slices contracted through the chain kernel, held to the sidecar's
-    full amplitude."""
+def phase_hyper_m10(dev, methods, label):
+    """Sycamore-53 m=10 planned by the port's hyper-optimizer with
+    ``methods`` (``None``: its defaults), all its slices contracted
+    through the chain kernel, held to the sidecar's full amplitude.
+    Returns the chain launches and the planning seconds."""
     import cotengra_tpu_torch as ctt
 
     t_phase = time.perf_counter()
     committed, arrays, refs = _load_instance(T27)
     ref = refs[committed.multiplicity]
-    tree, plan_s, trials = _hyper_plan(committed, HYPER_M10_TARGET)
+    tree, plan_s, trials, note = _hyper_plan(
+        committed, HYPER_M10_TARGET, methods
+    )
     print(
-        f"# hyper m10: planned in {plan_s:.1f}s ({plan_s / trials:.2f}s per "
-        f"trial, {trials} trials): {_plan_stats(tree)}; committed {T27}: "
-        f"{_plan_stats(committed)}",
+        f"# {label}: planned in {plan_s:.1f}s ({plan_s / trials:.2f}s per "
+        f"trial, {trials} trials; {note}): {_plan_stats(tree)}; committed "
+        f"{T27}: {_plan_stats(committed)}",
         flush=True,
     )
     slack = committed.total_flops(log=10) + HYPER_FLOPS_SLACK
     if tree.total_flops(log=10) > slack:
         raise AssertionError(
-            f"hyper m10: log10 flops {tree.total_flops(log=10):.3f} > "
+            f"{label}: log10 flops {tree.total_flops(log=10):.3f} > "
             f"{slack:.3f}"
         )
     expect = _chain_passes(tree) * tree.multiplicity
@@ -1595,21 +1665,21 @@ def phase_hyper_m10(dev):
     relerr = abs(amp0 - ref) / abs(ref)
     if counts != {"gate_chain": expect, "bmm_absmax": 0} or expect <= 0:
         raise AssertionError(
-            f"hyper m10: launches {counts}, the plan has {expect} passes"
+            f"{label}: launches {counts}, the plan has {expect} passes"
         )
     if not relerr <= AMP_RTOL:
         raise AssertionError(
-            f"hyper m10: amplitude {amp0} vs reference {ref}: relerr "
+            f"{label}: amplitude {amp0} vs reference {ref}: relerr "
             f"{relerr:.3e} > {AMP_RTOL}"
         )
     peak = torch.cuda.max_memory_allocated() / 2**30
     planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
-    times = _warm_in_turns("hyper m10", {
+    times = _warm_in_turns(label, {
         "port-planned": _amp_pass(tree, dev, planes),
         T27: _amp_pass(committed, dev, planes),
     })
     print(
-        f"# main path hyper m10: slices {tree.multiplicity} amplitude "
+        f"# main path {label}: slices {tree.multiplicity} amplitude "
         f"{amp0.real:.12e}{amp0.imag:+.12e}j relerr {relerr:.3e} chain "
         f"launches {counts['gate_chain']} ({_chain_passes(tree)} per slice) "
         f"peak_mem_gib {peak:.2f} time_to_amplitude_s "
@@ -1620,21 +1690,24 @@ def phase_hyper_m10(dev):
         + f" phase_s {time.perf_counter() - t_phase:.1f}",
         flush=True,
     )
-    return counts["gate_chain"]
+    return counts["gate_chain"], plan_s
 
 
-def phase_hyper_lattice(dev):
-    """The 7x7 bond-16 lattice planned by the port's hyper-optimizer,
-    contracted stripped through ``bmm_absmax``, held to the plan file's
-    float64 reference."""
+def phase_hyper_lattice(dev, methods, label):
+    """The 7x7 bond-16 lattice planned by the port's hyper-optimizer with
+    ``methods`` (``None``: its defaults), contracted stripped through
+    ``bmm_absmax``, held to the plan file's float64 reference. Returns
+    the kernel launches and the planning seconds."""
     import cotengra_tpu_torch as ctt
 
     t_phase = time.perf_counter()
     committed, arrays, ref = _load_lattice()
-    tree, plan_s, trials = _hyper_plan(committed, HYPER_LATTICE_TARGET)
+    tree, plan_s, trials, note = _hyper_plan(
+        committed, HYPER_LATTICE_TARGET, methods
+    )
     print(
-        f"# hyper {LATTICE.split('_s')[0]}: planned in {plan_s:.1f}s "
-        f"({plan_s / trials:.2f}s per trial, {trials} trials): "
+        f"# {label}: planned in {plan_s:.1f}s "
+        f"({plan_s / trials:.2f}s per trial, {trials} trials; {note}): "
         f"{_plan_stats(tree)}; committed {LATTICE}: "
         f"{_plan_stats(committed)}",
         flush=True,
@@ -1651,12 +1724,12 @@ def phase_hyper_lattice(dev):
     d_log10 = abs(log10 - ref["log10"])
     if counts != {"gate_chain": 0, "bmm_absmax": expect} or expect <= 0:
         raise AssertionError(
-            f"hyper lattice: launches {counts}, the plan has {expect} "
+            f"{label}: launches {counts}, the plan has {expect} "
             f"kernel steps"
         )
     if not (np.isfinite(log10) and d_log10 <= LOG10_ATOL):
         raise AssertionError(
-            f"hyper lattice: log10 {log10!r} vs {ref['log10']!r}: |delta| "
+            f"{label}: log10 {log10!r} vs {ref['log10']!r}: |delta| "
             f"{d_log10:.3e} > {LOG10_ATOL}"
         )
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1668,12 +1741,12 @@ def phase_hyper_lattice(dev):
         m, e = committed_pass()
         return float(np.log10(abs(m)) + e)
 
-    times = _warm_in_turns("hyper lattice", {
+    times = _warm_in_turns(label, {
         "port-planned": lambda: _stripped_log10(fn(*tensors)),
         LATTICE: committed_log10,
     })
     print(
-        f"# main path hyper lattice: slices {tree.multiplicity} log10 "
+        f"# main path {label}: slices {tree.multiplicity} log10 "
         f"{log10:.7f} (reference {ref['log10']:.7f}) |delta log10| "
         f"{d_log10:.3e} bmm_absmax launches {counts['bmm_absmax']} (committed "
         f"plan: {sum(_lattice_kernel_shapes(committed).values())} per slice "
@@ -1686,7 +1759,67 @@ def phase_hyper_lattice(dev):
         + f" phase_s {time.perf_counter() - t_phase:.1f}",
         flush=True,
     )
-    return counts["bmm_absmax"]
+    return counts["bmm_absmax"], plan_s
+
+
+@contextlib.contextmanager
+def _pure_python_planning():
+    """Every path finder and the compressed replay as with
+    ``accel=False``: the port's native hooks answer ``None``."""
+    import cotengra_tpu_torch.pathfinders.basic as basic
+    import cotengra_tpu_torch.tree as tree_mod
+
+    saved = basic._get_native, tree_mod._get_native_replay
+    basic._get_native = lambda accel: None
+    tree_mod._get_native_replay = lambda accel: None
+    try:
+        yield
+    finally:
+        basic._get_native, tree_mod._get_native_replay = saved
+
+
+def phase_plan_timing():
+    """Planning alone, pure Python (``accel=False``) against native, in
+    turns on the host: one seeded m10 greedy path, and the committed
+    unsliced t29 tree sliced and reconfigured to ``TIMING_TARGET`` (the
+    refinement that takes most of a trial; the DP answers are not kept
+    between runs). Returns the best seconds of each."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.pathfinders.basic import _optimal_ssa_path
+
+    t29, _, _ = _load_instance("sycamore53_m10_t29")
+    modes = {"pure Python": _pure_python_planning,
+             "native": contextlib.nullcontext}
+    best = {}
+    for mode in ("pure Python", "native", "native", "pure Python"):
+        _optimal_ssa_path.cache_clear()
+        with modes[mode]():
+            path, greedy_s = _timed(lambda: ctt.optimize_greedy(
+                t29.inputs, t29.output, t29.size_dict, **TIMING_GREEDY
+            ))
+            tree, refine_s = _timed(lambda: t29.slice_and_reconfigure(
+                TIMING_TARGET, temperature=0
+            ))
+        greedy = ctt.ContractionTree.from_path(
+            t29.inputs, t29.output, t29.size_dict, path=path
+        )
+        total = greedy_s + refine_s
+        best[mode] = min(best.get(mode, total), total)
+        print(
+            f"# planning timing m10, {mode}: greedy {greedy_s:.3f}s (log2 "
+            f"max {greedy.max_size(log=2):.2f}, log10 flops "
+            f"{greedy.total_flops(log=10):.3f}); t29 sliced and "
+            f"reconfigured to 2^{math.log2(TIMING_TARGET):.0f} in "
+            f"{refine_s:.3f}s ({_plan_stats(tree)})",
+            flush=True,
+        )
+    print(
+        f"# planning timing m10: pure Python {best['pure Python']:.3f}s, "
+        f"native {best['native']:.3f}s (best of 2 in turns): "
+        f"{best['pure Python'] / best['native']:.2f}x",
+        flush=True,
+    )
+    return best
 
 
 def _kernel_class(name):
@@ -1856,7 +1989,7 @@ def main():
 
     dev = resolve_device("cuda")
     phase_device()
-    phase_build()
+    host_build_s = phase_build()
     if args == ["--profile"]:
         phase_profile(T27, dev)
         phase_profile(T27, dev, slice_batch=4)
@@ -1876,10 +2009,21 @@ def main():
     m20_launches = phase_m20(dev)
     phase_front_lattice(dev)
     phase_front_t27(dev)
-    phase_front_auto(dev)
+    auto_plan_s = phase_front_auto(dev)
     phase_compressed(dev)
-    hyper_m10_launches = phase_hyper_m10(dev)
-    hyper_lattice_launches = phase_hyper_lattice(dev)
+    hyper_m10_launches, labels_m10_s = phase_hyper_m10(
+        dev, HYPER_LABELS, "hyper m10"
+    )
+    hyper_lattice_launches, labels_lattice_s = phase_hyper_lattice(
+        dev, HYPER_LABELS, "hyper lattice7x7_d16"
+    )
+    default_m10_launches, default_m10_s = phase_hyper_m10(
+        dev, None, "default m10"
+    )
+    default_lattice_launches, default_lattice_s = phase_hyper_lattice(
+        dev, None, "default lattice7x7_d16"
+    )
+    timing = phase_plan_timing()
     kernels = [
         {
             # per slice: the 13 chains of one m10-t27 slice
@@ -1905,7 +2049,9 @@ def main():
             "m20_bound_by": _dominant(r[3] for r in m20_rows),
             "m20_library_ms": sum(r[4] for r in m20_rows),
             # all slices of the m10 tree the port's hyper-optimizer plans
+            # with greedy + labels, and with its default methods
             "hyper_m10_launches": hyper_m10_launches,
+            "default_m10_launches": default_m10_launches,
         },
         {
             # per slice: one slice's kernel steps, summed over the plan's
@@ -1923,10 +2069,22 @@ def main():
             # torch.bmm + abs().amax(): the plain version's own calls
             "library_ms": sum(r[2] for r in bmm_rows),
             # all slices of the 7x7 tree the port's hyper-optimizer plans
+            # with greedy + labels, and with its default methods
             "hyper_lattice_launches": hyper_lattice_launches,
+            "default_lattice_launches": default_lattice_launches,
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"host_native": {
+        "build_s": host_build_s,
+        "m10_plan_s": default_m10_s,
+        "m10_labels_plan_s": labels_m10_s,
+        "lattice_plan_s": default_lattice_s,
+        "lattice_labels_plan_s": labels_lattice_s,
+        "auto6x6_plan_s": auto_plan_s,
+        "m10_trial_s": timing["native"],
+        "m10_trial_s_py": timing["pure Python"],
+    }}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

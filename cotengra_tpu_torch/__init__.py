@@ -16,7 +16,10 @@ bookkeeping with slicing and subtree reconfiguration (``tree``),
 ``SliceFinder`` (``slicing``), the labels partitioner and simulated
 annealing (``pathfinders.labels``, ``annealing``), host pools
 (``parallel``) and the hyper-optimizer with its samplers and presets
-(``hyper``), which ``"auto"`` runs on hard contractions - and runs trees
+(``hyper``), which ``"auto"`` runs on hard contractions, with the native
+planning library (``ops.native``: host C++ greedy, random-greedy,
+optimal DP, compressed replay and the ``ctgpart`` partitioner,
+``pathfinders.partition``, built with ``g++`` at first use) - and runs trees
 on torch tensors, with hand-written CUDA kernels for in-place gate
 chains and for matmuls with a fused max|out| (exponent stripping).
 Compressed trees run through ``contract_compressed`` (``ops.compressed``:

@@ -1,11 +1,11 @@
 """Hyper-optimization (counterpart of ``cotengra_tpu/hyper``): the method
 registry with the built-in methods (``greedy``, ``random-greedy``,
-``edgesort``, ``labels``, ``labels-agglom``, ``greedy-compressed``,
-``greedy-span``), the samplers, the driver, and the ``hyper`` presets.
+``edgesort``, ``labels``, ``labels-agglom``, the native partitioner's
+``ctgpart``, ``ctgpart-balanced`` and ``ctgpart-agglom``,
+``greedy-compressed``, ``greedy-span``), the samplers, the driver, and
+the ``hyper`` presets.
 
-Not ported yet: ``HyperMultiOptimizer`` (with ``tree_multi.py``) and the
-native ``ctgpart`` partitioner and its methods; ``methods=["ctgpart"]``
-raises the registry's ``ValueError``, as any unknown method does.
+Not ported yet: ``HyperMultiOptimizer`` (with ``tree_multi.py``).
 """
 
 import functools
@@ -134,6 +134,12 @@ register_hyper_function(
         },
     },
 )
+
+
+# the native multilevel partitioner (the kahypar slot)
+from ..pathfinders.partition import register_ctgpart_hyper_methods  # noqa: E402,E501
+
+register_ctgpart_hyper_methods()
 
 
 def _hyper_ssa_greedy_compressed(inputs, output, size_dict, **params):

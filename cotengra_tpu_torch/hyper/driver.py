@@ -11,9 +11,10 @@ pre-dispatched to a pool and harvested in completion order, termination
 by ``max_repeats`` / ``max_time`` seconds / ``"rate:F"`` /
 ``"equil:N"``, and disk-cached reusable optimizers. Pure Python on the
 host: with seeded methods, the same seed gives the reference's trials
-and best tree. Not ported yet: the multi-contraction trials
-(``multi_opts``, ``tree_multi.py``) and the native ``ctgpart``
-partitioner, so the default methods are ``greedy`` and ``labels``.
+and best tree. The default methods are the reference's: ``greedy`` and
+the native partitioner ``ctgpart`` where the native library builds,
+else ``greedy`` and ``labels``. Not ported yet: the multi-contraction
+trials (``multi_opts``, ``tree_multi.py``).
 """
 
 import math
@@ -53,10 +54,14 @@ def get_hyper_space():
 
 
 def _default_methods():
-    # the reference prefers its native multilevel partitioner (ctgpart)
-    # where g++ builds it; the port has none yet, so labels, the
-    # dependency-free partitioner, takes that slot
-    for cand in (["greedy", "labels"], ["greedy"]):
+    # the native multilevel partitioner (the kahypar slot) where its
+    # library builds; labels is the dependency-free fallback
+    from ..pathfinders.partition import ctgpart_available
+
+    cands = (
+        (["greedy", "ctgpart"],) if ctgpart_available() else ()
+    ) + (["greedy", "labels"], ["greedy"])
+    for cand in cands:
         if all(m in _HYPER_FNS for m in cand):
             return cand
     return list(_HYPER_FNS)[:1]

@@ -352,14 +352,11 @@ class HyperGraph:
 
 
 def get_hypergraph(inputs, output=None, size_dict=None, accel=False):
-    """Single entry point for building hypergraphs. ``accel``: ``False``,
-    ``None`` and ``"auto"`` give the Python one; ``True`` (the native C++
-    engine) raises, as it is not ported."""
-    if accel is True:
-        raise NotImplementedError(
-            "accel=True: the native C++ hypergraph engine is not ported "
-            "to cotengra_tpu_torch yet (ROADMAP A7)"
-        )
-    if accel not in (False, None, "auto"):
+    """Single entry point for building hypergraphs. Every ``accel``
+    (``False``, ``None``, ``"auto"``, ``True``) gives the Python one, as
+    the reference's does: the native library replays whole contraction
+    orders (``ContractionTree.compressed_contract_stats``) and has no
+    hypergraph object of its own."""
+    if accel not in (False, None, "auto", True):
         raise ValueError(f"Unknown accel={accel!r}")
     return HyperGraph(inputs, output, size_dict)

@@ -1,18 +1,22 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's native libraries.
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface at first use, and loaded with
-ctypes. The library lands in ``build/cotengra_tpu_torch/`` at the root
-of the checkout that holds the package, named by a hash of the sources
-and flags, so an edited source rebuilds and an unchanged one loads at
-once. An installed copy of the package (no checkout around it) has no
-build location and raises at first use.
+The CUDA kernels (``csrc/*.cu``) are compiled with ``nvcc`` for Hopper
+(``sm_90a``), and the host planning library (``ops/native/kernels.cpp``)
+with the host C++ compiler (``g++``), each into a shared library with a
+plain C interface at first use, loaded with ctypes. The libraries land
+in ``build/cotengra_tpu_torch/`` at the root of the checkout that holds
+the package, named by a hash of the sources and flags (and, for the host
+library, the machine), so an edited source rebuilds and an unchanged one
+loads at once. An installed copy of the package (no checkout around it)
+has no build location and raises at first use.
 """
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
@@ -25,6 +29,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+HOST_CXX = "g++"
+HOST_CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
 
 def _sources():
@@ -119,6 +125,62 @@ def build_library():
                *_driver_link_flags(nvcc)]
         _finish(_start(cmd), cmd)
         os.replace(lib, path)
+    return path
+
+
+def host_library_path(src):
+    """Where the host library built from the C++ source ``src`` lives."""
+    h = hashlib.sha256()
+    h.update(" ".join((HOST_CXX, *HOST_CXX_FLAGS)).encode())
+    h.update(platform.machine().encode())
+    h.update(Path(src).read_bytes())
+    return build_dir() / f"lib{Path(src).stem}_host_{h.hexdigest()[:16]}.so"
+
+
+def _compile_host(src, out):
+    """``g++ -O3 -march=native ...``, then, where that fails, the same
+    without ``-march=native``. Raises with the compiler's messages."""
+    errors = []
+    for drop in ((), ("-march=native",)):
+        flags = [f for f in HOST_CXX_FLAGS if f not in drop]
+        cmd = [HOST_CXX, *flags, str(src), "-o", str(out)]
+        try:
+            proc = subprocess.run(
+                cmd, capture_output=True, text=True, timeout=600
+            )
+        except (OSError, subprocess.TimeoutExpired) as exc:
+            errors.append(f"{' '.join(cmd)}: {exc}")
+            continue
+        if proc.returncode == 0:
+            return
+        errors.append(
+            f"{' '.join(cmd)}: exit {proc.returncode}\n{proc.stderr}"
+        )
+    raise RuntimeError(
+        "the host C++ compiler could not build "
+        f"{Path(src).name}:\n" + "\n".join(errors)
+    )
+
+
+def build_host_library(src):
+    """Compile the C++ source ``src`` into a host shared library unless
+    the library for this source, these flags and this machine exists, and
+    return its path. Concurrent processes take turns on a file lock, so
+    one compiles and the others load its result; the library is written
+    under a private name and renamed, so no process loads a half-written
+    file."""
+    path = host_library_path(src)
+    if path.exists():
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path.with_name(path.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            return path
+        with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
+            out = Path(tmp) / path.name
+            _compile_host(src, out)
+            os.replace(out, path)
     return path
 
 

@@ -1,10 +1,10 @@
 """Path finders (counterpart of ``cotengra_tpu/pathfinders``: ``base``,
-``basic``, ``edgesort``, ``random``, the partitioner ``labels``, the
-tree refiner ``annealing``, and the compressed ``compressed``,
-``windowed_opt``, ``compressed_bb``). The hyper-optimizer that drives
-them is ``cotengra_tpu_torch.hyper``. Not ported yet: the native
-``partition`` (ctgpart), ``kahypar``, ``igraph``, ``mcts``,
-``linegraph`` and the external adapters."""
+``basic``, ``edgesort``, ``random``, the partitioners ``labels`` and
+``partition`` (ctgpart, the native multilevel one), the tree refiner
+``annealing``, and the compressed ``compressed``, ``windowed_opt``,
+``compressed_bb``). The hyper-optimizer that drives them is
+``cotengra_tpu_torch.hyper``. Not ported yet: ``kahypar``, ``igraph``,
+``mcts``, ``linegraph`` and the external adapters."""
 
 from .base import PathOptimizer
 from .basic import (

@@ -12,10 +12,12 @@ Algorithms (all published):
 - pre-simplification: size-1 index stripping, batch-index removal,
   single-term reductions, scalar folding, hadamard deduplication.
 
-Pure Python. Given the same inputs and seed, each finder returns the
-reference's path with ``accel=False``. The reference's native C++ path
-finders (``accel=True``, its ``ops/native``) are not ported yet:
-``accel=True`` raises.
+Each finder takes ``accel``, as the reference's: ``"auto"`` (the
+default) runs the port's native C++ library (``ops/native``) where
+``g++`` builds it and the pure-Python version below elsewhere; ``True``
+requires the library and raises its build error; ``False`` and ``None``
+run pure Python. Given the same inputs and seed, each finder returns the
+reference's path with the same ``accel``.
 
 Internal representation: each current term is a *sorted tuple* of
 ``(index_id, count)`` pairs; an index is contracted away exactly when its
@@ -606,7 +608,19 @@ def optimize_greedy(
     """Greedy contraction path. Signature-compatible with the reference's
     ``optimize_greedy`` (``path_basic.py:1038``, native ``cotengrust``).
     """
-    _check_accel(accel)
+    native = _get_native(accel)
+    if native is not None:
+        return native.optimize_greedy(
+            inputs,
+            output,
+            size_dict,
+            costmod=costmod,
+            temperature=temperature,
+            max_neighbors=max_neighbors,
+            simplify=simplify,
+            seed=seed,
+            use_ssa=use_ssa,
+        )
     g = PlanGraph(inputs, output, size_dict)
     if simplify:
         g.simplify()
@@ -643,7 +657,20 @@ def optimize_random_greedy_track_flops(
     ``costmod`` is sampled uniformly and ``temperature`` log-uniformly from
     their ranges per trial (pass scalars to fix them).
     """
-    _check_accel(accel)
+    native = _get_native(accel)
+    if native is not None:
+        return native.optimize_random_greedy_track_flops(
+            inputs,
+            output,
+            size_dict,
+            ntrials=ntrials,
+            costmod=costmod,
+            temperature=temperature,
+            max_neighbors=max_neighbors,
+            simplify=simplify,
+            seed=seed,
+            use_ssa=use_ssa,
+        )
     rng = get_rng(seed)
     if isinstance(costmod, (int, float)):
         costmod = (costmod, costmod)
@@ -710,7 +737,18 @@ def optimize_optimal(
     """Optimal contraction path by dynamic programming (exponential time -
     use for <= ~16 effective terms, or more with the native kernel).
     """
-    _check_accel(accel)
+    native = _get_native(accel)
+    if native is not None:
+        return native.optimize_optimal(
+            inputs,
+            output,
+            size_dict,
+            minimize=minimize,
+            cost_cap=cost_cap,
+            search_outer=search_outer,
+            simplify=simplify,
+            use_ssa=use_ssa,
+        )
     inputs = tuple(map(tuple, inputs))
     sizes = tuple(
         (ix, size_dict[ix])
@@ -730,9 +768,10 @@ def optimize_optimal(
 @functools.lru_cache(maxsize=2**14)
 def _optimal_ssa_path(inputs, output, sizes, minimize, cost_cap,
                       search_outer, simplify):
-    """The optimal DP's SSA path, kept per contraction: subtree
-    reconfiguration re-solves the same small subtrees after every slicing
-    step, and the answer is a function of its arguments alone."""
+    """The pure-Python optimal DP's SSA path, kept per contraction:
+    subtree reconfiguration re-solves the same small subtrees after every
+    slicing step, and the answer is a function of its arguments alone.
+    (The native DP answers as fast as the cache, so it has none.)"""
     g = PlanGraph(inputs, output, dict(sizes))
     if simplify:
         g.simplify()
@@ -745,17 +784,20 @@ def _optimal_ssa_path(inputs, output, sizes, minimize, cost_cap,
 # -- native acceleration hook ---------------------------------------------------
 
 
-def _check_accel(accel):
-    """The reference's ``_get_native``: ``"auto"``, ``False`` and
-    ``None`` mean pure Python (the port has no native path finders yet);
-    ``True`` raises."""
-    if accel is False or accel is None or accel == "auto":
-        return
+def _get_native(accel):
+    """The native library module for ``accel``, or ``None`` for pure
+    Python: ``"auto"`` takes the library where it builds, ``True``
+    requires it (raising its build error), ``False`` and ``None`` never
+    take it."""
+    if accel is False or accel is None:
+        return None
+    from ..ops import native
+
     if accel is True:
-        raise NotImplementedError(
-            "accel=True: the native C++ path finders are not ported to "
-            "cotengra_tpu_torch yet (ROADMAP A7)"
-        )
+        native.library()
+        return native
+    if accel == "auto":
+        return native if native.is_available() else None
     raise ValueError(f"Unknown accel={accel!r}")
 
 

@@ -33,9 +33,10 @@ For the compressed (chi-capped) cost model, ``traverse`` and
 ``get_ssa_path`` also take an order (a callable, or
 ``"surface_order"``: the order in which contractions were added), and
 ``compressed_contract_stats`` replays the contraction on a
-``HyperGraph`` with ``compress`` steps (pure Python; the reference's
-native replay is not ported), behind the ``*_compressed`` cost methods
-that ``tree_compressed.ContractionTreeCompressed`` swaps in.
+``HyperGraph`` with ``compress`` steps (in the native library,
+``ops/native``, where it builds; else in pure Python), behind the
+``*_compressed`` cost methods that
+``tree_compressed.ContractionTreeCompressed`` swaps in.
 
 ``contraction_cores`` caches the contractors built for the tree
 (``ops/executor.py::_cached_full``), keyed by every option that shapes
@@ -683,8 +684,9 @@ class ContractionTree:
     ):
         """Replay the contraction on a hypergraph with chi-capped
         ``compress()`` steps and return the stats tracker (flops, write,
-        max_size, peak_size). The replay is pure Python: ``accel=True``
-        (the reference's native engine) raises."""
+        max_size, peak_size). With ``accel`` (default ``"auto"``) the
+        replay runs in the native library where it builds, as the
+        reference's does; the tracker then holds those four stats only."""
         from .scoring import CompressedStatsTracker, tracked_contract_step
 
         if chi is None or chi == "auto":
@@ -694,13 +696,51 @@ class ContractionTree:
         if tracker_cls is None:
             tracker_cls = CompressedStatsTracker
 
-        hg = self.get_hypergraph(accel=accel)
+        native = _get_native_replay(accel)
+        if native is not None:
+            return self._native_compressed_stats(
+                native, chi, order, compress_late, tracker_cls
+            )
+
+        hg = self.get_hypergraph(accel=False)
         tree_map = dict(zip(self.gen_leaves(), range(hg.get_num_nodes())))
         tracker = tracker_cls(hg, chi)
         for p, l, r in self.traverse(self._resolve_order(order)):
             tree_map[p] = tracked_contract_step(
                 hg, tracker, tree_map[l], tree_map[r], chi, compress_late
             )
+        return tracker
+
+    def _native_compressed_stats(self, native, chi, order, compress_late,
+                                 tracker_cls):
+        tree_map = dict(zip(self.gen_leaves(), range(self.N)))
+        pairs = []
+        for nid, (p, l, r) in enumerate(
+            self.traverse(self._resolve_order(order)), self.N
+        ):
+            pairs.append(tree_map[l])
+            pairs.append(tree_map[r])
+            tree_map[p] = nid
+        flops, write, max_size, peak_size = native.compressed_stats(
+            self.inputs,
+            [ix for ix in self.output if ix not in self.sliced_inds],
+            self.size_dict,
+            pairs,
+            chi,
+            compress_late,
+        )
+        from .scoring import _NULL_STEP
+
+        tracker = tracker_cls.__new__(tracker_cls)
+        tracker.chi = chi
+        tracker.flops = flops
+        tracker.write = write
+        tracker.max_size = max_size
+        tracker.peak_size = peak_size
+        tracker.total_size = 0
+        tracker.last = _NULL_STEP
+        tracker.secondary_weight = 1e-3
+        tracker.factor = None
         return tracker
 
     def total_flops_compressed(self, chi=None, order="surface_order",
@@ -1401,6 +1441,17 @@ def is_ssa_path(path, n=None):
     if n is not None and any(s >= n for s in flat):
         return True
     return len(flat) == len(set(flat))
+
+
+def _get_native_replay(accel):
+    """The native library module for the compressed replay, or ``None``
+    for pure Python: any true ``accel`` takes the library where it
+    builds (as the reference's, ``True`` falls back rather than raise)."""
+    if not accel:
+        return None
+    from .ops import native
+
+    return native if native.is_available() else None
 
 
 def _find_sub_path(sub_inputs, sub_output, size_dict, optimize):

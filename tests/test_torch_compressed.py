@@ -4,9 +4,9 @@ JAX package's, on the CPU: the hypergraph, the compressed cost model
 refiners (the same paths from the same seeds), and
 ``contract_compressed(device="cpu")`` on the same numpy inputs in
 float64 (rtol 1e-10; stripped values |delta log10| <= 1e-6, where the
-two float32 exponent sums may round apart). The reference's cost
-replay runs in pure Python (its native engine is patched out), as the
-port's does."""
+two float32 exponent sums may round apart). Both packages' cost replays
+run in pure Python (their native engines are patched out), except where
+a test compares the two native replays (``accel=True``)."""
 
 import numpy as np
 import pytest
@@ -24,6 +24,7 @@ from cotengra_tpu.tree_compressed import (
 )
 
 import cotengra_tpu_torch as ctt
+import cotengra_tpu_torch.tree as port_tree_mod
 from cotengra_tpu_torch import interface
 from cotengra_tpu_torch.hypergraph import HyperGraph
 from cotengra_tpu_torch.pathfinders import compressed as pc
@@ -42,12 +43,15 @@ torch.set_num_threads(1)
 F64_RTOL = 1e-10
 # two float32 exponent sums over different roundings of the same scales
 LOG10_ATOL = 1e-6
+NATIVE_REPLAY = {port_tree_mod: port_tree_mod._get_native_replay,
+                 ref_tree_mod: ref_tree_mod._get_native_replay}
 
 
 @pytest.fixture(autouse=True)
 def _pure_python_reference(monkeypatch):
-    """The reference's cost replay in pure Python, as the port's."""
-    monkeypatch.setattr(ref_tree_mod, "_get_native_replay", lambda a: None)
+    """Both packages' cost replays in pure Python."""
+    for mod in NATIVE_REPLAY:
+        monkeypatch.setattr(mod, "_get_native_replay", lambda a: None)
     interface.clear_caches()
     yield
     interface.clear_caches()
@@ -148,15 +152,22 @@ def test_hypergraph_matches_reference(net):
 def test_get_hypergraph_accel():
     inputs, output, _, size_dict = ctt.lattice_equation([3, 3], d_min=2)
     assert ctt.get_hypergraph(inputs, output, size_dict).get_num_nodes() == 9
-    with pytest.raises(NotImplementedError):
-        ctt.get_hypergraph(inputs, output, size_dict, accel=True)
+    # every accel gives the Python hypergraph, as the reference's does
+    for accel in (True, "auto", None):
+        hg = ctt.get_hypergraph(inputs, output, size_dict, accel=accel)
+        assert type(hg) is HyperGraph
+        assert _hg_state(hg) == _hg_state(
+            ctg.get_hypergraph(inputs, output, size_dict, accel=accel)
+        )
+    with pytest.raises(ValueError, match="accel"):
+        ctt.get_hypergraph(inputs, output, size_dict, accel="no-such")
 
 
 # -- the compressed cost model ---------------------------------------------
 
 
 @pytest.mark.parametrize("k", range(len(GREEDY_TREES)))
-def test_compressed_stats_match_reference(k):
+def test_compressed_stats_match_reference(k, monkeypatch):
     tree, ref = _trees(k)
     assert list(tree.traverse("surface_order")) == list(
         ref.traverse("surface_order")
@@ -184,8 +195,33 @@ def test_compressed_stats_match_reference(k):
     assert tree.describe("full") == ref.describe("full")
     assert tree.contract_stats() == ref.contract_stats()
     assert tree.peak_size_exact() == ref.peak_size_exact()
-    with pytest.raises(NotImplementedError):
-        tree.compressed_contract_stats(accel=True)
+    # the native replays (accel=True): the reference's stats, equal to
+    # the pure-Python replay's, and the reference's tracker fields
+    for mod, hook in NATIVE_REPLAY.items():
+        monkeypatch.setattr(mod, "_get_native_replay", hook)
+    stats = ("flops", "write", "max_size", "peak_size", "total_size",
+             "secondary_weight", "factor", "chi")
+    for chi in (4, 8, 16, 10**9):
+        for late in (False, True):
+            got = tree.compressed_contract_stats(
+                chi=chi, compress_late=late, accel=True
+            )
+            want = ref.compressed_contract_stats(
+                chi=chi, compress_late=late, accel=True
+            )
+            assert type(got).__name__ == type(want).__name__
+            for attr in stats:
+                assert getattr(got, attr) == getattr(want, attr), (
+                    chi, late, attr,
+                )
+            assert tuple(got.last) == tuple(want.last)
+            py = tree.compressed_contract_stats(
+                chi=chi, compress_late=late, accel=False
+            )
+            for attr in ("flops", "write", "max_size", "peak_size"):
+                assert getattr(got, attr) == getattr(py, attr), (
+                    chi, late, attr,
+                )
 
 
 def test_default_traversal_unchanged():

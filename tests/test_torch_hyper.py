@@ -4,8 +4,10 @@ per-trial stack (``run_trial``: annealing, slicing, slice+reconfigure,
 reconfigure), a whole seeded search, the disk-cached optimizer, the
 compressed hyper-optimizer, the presets through ``einsum`` and the host
 pools. Methods whose trees depend on a seed are given one, so that both
-packages build the same trees; the reference's path finders run in pure
-Python (its native ones are patched out), as the port's do."""
+packages build the same trees; both packages' path finders and cost
+replays run in pure Python (their native ones are patched out), so that
+these tests hold the port's pure-Python planner to the reference's; the
+native library's paths are compared in ``test_torch_native.py``."""
 
 import importlib.util
 import math
@@ -25,6 +27,8 @@ from cotengra_tpu.tree_compressed import (
 )
 
 import cotengra_tpu_torch as ctt
+import cotengra_tpu_torch.pathfinders.basic as port_basic
+import cotengra_tpu_torch.tree as port_tree_mod
 from cotengra_tpu_torch import interface
 from cotengra_tpu_torch.hyper import driver
 from cotengra_tpu_torch.hyper.space import get_optlib
@@ -55,11 +59,13 @@ def _ref_seeded_greedy(inputs, output, size_dict, **params):
 
 @pytest.fixture(autouse=True)
 def _pure_python_reference(monkeypatch):
-    """The reference's path finders and cost replay in pure Python, and
+    """Both packages' path finders and cost replays in pure Python, and
     the same seeded greedy method registered in both packages (removed
     again afterwards)."""
-    monkeypatch.setattr(ref_basic, "_get_native", lambda accel: None)
-    monkeypatch.setattr(ref_tree_mod, "_get_native_replay", lambda a: None)
+    for basic, tree_mod in ((ref_basic, ref_tree_mod),
+                            (port_basic, port_tree_mod)):
+        monkeypatch.setattr(basic, "_get_native", lambda accel: None)
+        monkeypatch.setattr(tree_mod, "_get_native_replay", lambda a: None)
     ctt.register_hyper_function(
         SEEDED, _port_seeded_greedy, GREEDY_SPACE, {"seed": 7}
     )
@@ -154,9 +160,11 @@ def test_optlib_registry():
         assert get_optlib("auto").__name__ == "CMAESOptLib"
     with pytest.raises(ValueError, match="Unknown optlib"):
         get_optlib("no-such-optlib")
-    assert driver._default_methods() == ["greedy", "labels"]
+    # the native partitioner builds here (g++), as the reference's does
+    assert driver._default_methods() == ref_driver._default_methods()
+    assert driver._default_methods() == ["greedy", "ctgpart"]
     with pytest.raises(ValueError, match="Unknown hyper method"):
-        ctt.HyperOptimizer(methods=["ctgpart"])
+        ctt.HyperOptimizer(methods=["no-such-method"])
 
 
 # -- the per-trial stack ----------------------------------------------------------

@@ -2,8 +2,10 @@
 expressions, presets) and basic path finders against the JAX package's,
 on the CPU: the same numpy inputs through both, float64, rtol 1e-10
 (stripped values: |delta log10| <= 1e-10); the same paths from the same
-seeds (the reference with ``accel=False``, its pure-Python finders).
-Also the default device and the contractor cache."""
+seeds, each package's pure-Python finders (``accel=False``) against the
+other's, and their native ones (the default ``accel="auto"``, where
+``g++`` builds them, and ``accel=True``) against each other. Also the
+default device and the contractor cache."""
 
 from concurrent.futures import ThreadPoolExecutor
 
@@ -103,7 +105,8 @@ def test_path_cache(monkeypatch):
     )
     assert p1 == p2
     assert calls["n"] == 1
-    assert p1 == ctg.optimize_greedy(inputs, output, size_dict, accel=False)
+    # the greedy preset runs the native greedy, as the reference's does
+    assert p1 == ctg.optimize_greedy(inputs, output, size_dict)
 
 
 @pytest.mark.parametrize(
@@ -300,33 +303,34 @@ def test_plane_dtype_follows_the_inputs():
 
 
 def _finder_paths(finder, seed, inputs, output, size_dict):
+    # pure Python in both packages (test_torch_native.py compares the
+    # native finders)
     if finder == "greedy":
-        return (
-            ctt.optimize_greedy(inputs, output, size_dict, use_ssa=True),
-            ctg.optimize_greedy(inputs, output, size_dict, use_ssa=True,
-                                accel=False),
-        )
-    if finder == "greedy-noisy":
-        kw = dict(temperature=0.3, costmod=1.5, seed=seed, use_ssa=True)
+        kw = dict(use_ssa=True, accel=False)
         return (
             ctt.optimize_greedy(inputs, output, size_dict, **kw),
-            ctg.optimize_greedy(inputs, output, size_dict, accel=False,
-                                **kw),
+            ctg.optimize_greedy(inputs, output, size_dict, **kw),
+        )
+    if finder == "greedy-noisy":
+        kw = dict(temperature=0.3, costmod=1.5, seed=seed, use_ssa=True,
+                  accel=False)
+        return (
+            ctt.optimize_greedy(inputs, output, size_dict, **kw),
+            ctg.optimize_greedy(inputs, output, size_dict, **kw),
         )
     if finder == "optimal":
-        kw = dict(minimize="combo", use_ssa=True)
+        kw = dict(minimize="combo", use_ssa=True, accel=False)
         return (
             ctt.optimize_optimal(inputs, output, size_dict, **kw),
-            ctg.optimize_optimal(inputs, output, size_dict, accel=False,
-                                 **kw),
+            ctg.optimize_optimal(inputs, output, size_dict, **kw),
         )
     if finder == "random-greedy":
-        kw = dict(ntrials=6, seed=seed, use_ssa=True)
+        kw = dict(ntrials=6, seed=seed, use_ssa=True, accel=False)
         return (
             ctt.optimize_random_greedy_track_flops(
                 inputs, output, size_dict, **kw),
             ctg.optimize_random_greedy_track_flops(
-                inputs, output, size_dict, accel=False, **kw),
+                inputs, output, size_dict, **kw),
         )
     if finder == "simplify":
         return (
@@ -373,22 +377,23 @@ def test_optimizers_match_reference():
         )
         assert got.best_flops == ref.best_flops
     small = ctt.rand_equation(6, 3, seed=5)
-    assert ctt.OptimalOptimizer(search_outer=True).ssa_path(
-        *small[:2], small[3]
-    ) == ctg.OptimalOptimizer(search_outer=True, accel=False).ssa_path(
-        *small[:2], small[3]
-    )
-    # the auto preset's small branch is the reference's optimal DP
+    for accel in (False, "auto", True):
+        assert ctt.OptimalOptimizer(
+            search_outer=True, accel=accel
+        ).ssa_path(*small[:2], small[3]) == ctg.OptimalOptimizer(
+            search_outer=True, accel=accel
+        ).ssa_path(*small[:2], small[3])
+    # the auto preset's small branch is the reference's (native) optimal DP
     tree = ctt.auto_optimize.search(*small[:2], small[3])
     assert tree.get_ssa_path() == ctg.ContractionTree.from_path(
         *small[:2], small[3], ssa_path=ctg.optimize_optimal(
             *small[:2], small[3], minimize="combo", use_ssa=True,
-            accel=False,
         ),
     ).get_ssa_path()
-    # no native path finders in the port yet
-    with pytest.raises(NotImplementedError, match="A7"):
-        ctt.optimize_greedy(inputs, output, size_dict, accel=True)
+    # accel=True: the native greedy, the reference's path
+    assert ctt.optimize_greedy(
+        inputs, output, size_dict, accel=True
+    ) == ctg.optimize_greedy(inputs, output, size_dict, accel=True)
     # named pools (parallel/pools.py): one batch per worker, as the
     # reference's
     got = ctt.RandomGreedyOptimizer(parallel="threads:2", **rg)

@@ -126,6 +126,22 @@ _NO_JAX = textwrap.dedent(
     href = np.einsum(eq(hi, ho), *harr, optimize="greedy")
     np.testing.assert_allclose(hgot.numpy(), href, rtol=1e-10)
 
+    # the native planning library, built from the port's own source:
+    # the reference's seeded native greedy and ctgpart paths
+    from pathlib import Path
+    from cotengra_tpu_torch.ops import native
+    from cotengra_tpu_torch.ops._build import build_dir
+    from cotengra_tpu_torch.pathfinders.partition import optimize_ctgpart
+
+    assert native.is_available(), native.build_error()
+    assert Path(native.library()._name).parent == build_dir()
+    assert native._SRC.parent == Path(ctt.__file__).parent / "ops" / "native"
+    ni, no, _, nsizes = ctt.rand_equation(30, 3, n_out=2, seed=5)
+    assert ctt.optimize_greedy(
+        ni, no, nsizes, temperature=0.3, seed=9, accel=True
+    ) == {gpath!r}
+    assert optimize_ctgpart(ni, no, nsizes, parts=3, seed=4) == {cpath!r}
+
     import chip_smoke  # imported, not run
 
     bad = sorted(
@@ -139,11 +155,12 @@ _NO_JAX = textwrap.dedent(
 
 
 def _reference_paths():
-    """Paths planned by the JAX package's greedy optimizer, handed to the
-    blocked subprocess as literals: the trees the JAX package would
-    run."""
-    from cotengra_tpu import lattice_equation, optimize_greedy
+    """Paths planned by the JAX package's greedy optimizer (and its
+    seeded native greedy and ctgpart), handed to the blocked subprocess as
+    literals: the trees the JAX package would run."""
+    from cotengra_tpu import lattice_equation, optimize_greedy, rand_equation
     from cotengra_tpu.models.circuits import rand_circuit_tn
+    from cotengra_tpu.pathfinders.partition import optimize_ctgpart
 
     inputs, output, _, _, arrays = rand_circuit_tn(12, 4, seed=3)
     inputs, arrays = ctt.absorb_simple_tensors(inputs, arrays, output)
@@ -152,21 +169,26 @@ def _reference_paths():
     }
     path = optimize_greedy(inputs, output, size_dict)
     li, lo, _, lsizes = lattice_equation([3, 3], d_min=16)
+    ni, no, _, nsizes = rand_equation(30, 3, n_out=2, seed=5)
     return (
         tuple(map(tuple, path)),
         tuple(map(tuple, optimize_greedy(li, lo, lsizes))),
+        optimize_greedy(ni, no, nsizes, temperature=0.3, seed=9, accel=True),
+        optimize_ctgpart(ni, no, nsizes, parts=3, seed=4),
     )
 
 
 def test_port_runs_without_jax():
     """The port runs with jax, jaxlib and the JAX package all blocked:
     sliced and stripped contractions, ``einsum`` planning its own path,
-    a compressed plan contracted with truncation, and a sliced plan that
-    the port's hyper-optimizer makes."""
-    path, lpath = _reference_paths()
+    a compressed plan contracted with truncation, a sliced plan that
+    the port's hyper-optimizer makes, and a native greedy path and a
+    ``ctgpart`` path from the port's own native library."""
+    path, lpath, gpath, cpath = _reference_paths()
     proc = subprocess.run(
         [sys.executable, "-c",
-         _NO_JAX.format(root=ROOT, path=path, lpath=lpath)],
+         _NO_JAX.format(root=ROOT, path=path, lpath=lpath, gpath=gpath,
+                        cpath=cpath)],
         capture_output=True, text=True, cwd=ROOT, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr

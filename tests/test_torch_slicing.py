@@ -6,9 +6,11 @@ from the same SSA path and take the same seeded steps; they must then
 hold the same ``children`` in the same order, every node's legs (in
 order), size and flops, the same totals and slicing, and lower to the
 same steps. Each sliced, reconfigured tree then contracts in float64 on
-the CPU to the JAX package's value at rtol 1e-10. The reference's path
-finders and cost replay run in pure Python (its native ones are patched
-out), as the port's do."""
+the CPU to the JAX package's value at rtol 1e-10. Both packages' path
+finders and cost replays run in pure Python (their native ones are
+patched out), so that these tests hold the port's pure-Python planner to
+the reference's; the native library's paths, and sliced planning on
+them, are compared in ``test_torch_native.py``."""
 
 import numpy as np
 import pytest
@@ -22,6 +24,8 @@ from cotengra_tpu.models.circuits import rand_circuit_tn as ref_circuit
 from cotengra_tpu.slicing import SliceFinder as RefSliceFinder
 
 import cotengra_tpu_torch as ctt
+import cotengra_tpu_torch.pathfinders.basic as port_basic
+import cotengra_tpu_torch.tree as port_tree_mod
 from cotengra_tpu_torch.ops import lowering
 from cotengra_tpu_torch.slicing import SliceFinder
 
@@ -32,9 +36,11 @@ F64_RTOL = 1e-10
 
 @pytest.fixture(autouse=True)
 def _pure_python_reference(monkeypatch):
-    """The reference's path finders and cost replay in pure Python."""
-    monkeypatch.setattr(ref_basic, "_get_native", lambda accel: None)
-    monkeypatch.setattr(ref_tree_mod, "_get_native_replay", lambda a: None)
+    """Both packages' path finders and cost replays in pure Python."""
+    for basic, tree_mod in ((ref_basic, ref_tree_mod),
+                            (port_basic, port_tree_mod)):
+        monkeypatch.setattr(basic, "_get_native", lambda accel: None)
+        monkeypatch.setattr(tree_mod, "_get_native_replay", lambda a: None)
 
 
 def _networks():

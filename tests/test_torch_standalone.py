@@ -62,8 +62,13 @@ def test_the_scan_sees_every_module():
                 "pathfinders/random.py", "hypergraph.py", "scoring.py",
                 "tree_compressed.py", "ops/compressed.py",
                 "pathfinders/compressed.py", "pathfinders/windowed_opt.py",
-                "pathfinders/compressed_bb.py"):
+                "pathfinders/compressed_bb.py", "ops/native/__init__.py",
+                "pathfinders/partition.py", "ops/_build.py"):
         assert f"cotengra_tpu_torch/{mod}" in _SOURCES
+    # the native library builds from the port's own copy of its source
+    from cotengra_tpu_torch.ops import native
+
+    assert native._SRC == ROOT / "cotengra_tpu_torch/ops/native/kernels.cpp"
 
 
 # -- instance builders --------------------------------------------------
@@ -267,13 +272,12 @@ def test_from_path_without_a_planner():
     ref = ctg.ContractionTree.from_path(inputs, (), size_dict, path=two)
     assert list(got.children.items()) == list(ref.children.items())
     assert got.root in got.children
-    # more left over are joined by the port's own greedy, as the
-    # reference's pure-Python greedy joins them (its native one breaks
-    # ties otherwise)
+    # more left over are joined by the port's own (native) greedy, as the
+    # reference's native greedy joins them
     got = ctt.ContractionTree.from_path(inputs, (), size_dict, path=[])
     ref = ctg.ContractionTree.from_path(
         inputs, (), size_dict, ssa_path=ctg.optimize_greedy(
-            inputs, (), size_dict, use_ssa=True, accel=False
+            inputs, (), size_dict, use_ssa=True
         ),
     )
     assert list(got.children.items()) == list(ref.children.items())
