@@ -86,7 +86,8 @@ Run from the root of a checkout. Phases:
    amplitude;
 14. for both, the warm time of the front-end call next to that of
    ``make_full_contractor`` with the same options on the same device
-   tensors, measured in turns (best of 5, each pass ending in a host
+   tensors, measured in turns (best of 5 for the lattice, of 21 for
+   t27's 0.1 s pass, each after a ``gc.collect()`` and ending in a host
    pull checked finite and stable): the front end may cost at most
    1.1x, its host canonicalisation, since its expression reuses the
    contractor that the tree caches;
@@ -116,12 +117,16 @@ Run from the root of a checkout. Phases:
    operand, timed; no kernel of the port is launched;
 17. Sycamore-53 m=10 planned by the port: ``HyperOptimizer(methods=
    ["greedy", "labels"], max_repeats=16, seed=8, slicing_reconf_opts=
-   {"target_size": 2**27}, parallel=False)`` on the host, on the native
-   library (``accel="auto"``; planning seconds, seconds per trial, the
-   methods and accel, slices, log2 max and peak, log10 flops, beside
-   the committed t27 plan's), max size <= 2^27 and log10 flops
-   <= the t27 plan's + 1 (the search is not repeatable: unseeded
-   greedy noise and slice finder); all its slices contracted through
+   {"target_size": 2**27, "temperature": 0}, parallel=False)`` on the
+   host, on the native library (``accel="auto"``), made repeatable: the
+   methods are seeded counterparts that this script registers (the same
+   finders and spaces, each trial's finder given the next seed of one
+   stream per search; the package's own search is unseeded, as the
+   reference's) and the slice finder runs at temperature 0 (planning
+   seconds, seconds per trial, the methods and accel, the tree's hash,
+   slices, log2 max and peak, log10 flops, beside the committed t27
+   plan's), max size <= 2^27 and log10 flops <= the t27 plan's + 1;
+   all its slices contracted through
    ``contract_tree`` and held to the sidecar's full amplitude (key
    ``"4"``, the sum over all slices of any plan) at relerr <= 1e-5,
    with the chain kernel's launches (the plan's passes x slices, > 0),
@@ -133,29 +138,65 @@ Run from the root of a checkout. Phases:
    float64 ``"reference"`` at |delta log10| <= 1e-4, its plan stats,
    warm time-to-value and launches beside the committed plan's;
 19. phase 17 again with the hyper-optimizer's default methods
-   (``methods`` unset: ``["greedy", "ctgpart"]``, asserted), the same
-   checks and limits;
+   (``HyperOptimizer()``'s: ``["greedy", "ctgpart"]``, asserted, then
+   seeded as above), the same checks and limits;
 20. phase 18 again with the default methods;
 21. planning alone, pure Python (every finder as with ``accel=False``)
    against native, in turns (Python, native, native, Python): one
    seeded m10 greedy path and the committed unsliced t29 tree sliced
    and reconfigured to 2^25 at temperature 0; the seconds of each and
    their ratio;
-22. one JSON line of kernel results (launches on the main path, error,
+22. the slice sum sharded over ranks (``parallel/mesh.py``), each
+   multi-rank phase spawning its ranks from this script (``spawn``
+   start method, after phase 2 built the kernels; the ranks import only
+   ``cotengra_tpu_torch``), every rank killed at the first failure or
+   after ``RANK_LIMIT_S``: m10-t27 (full width, 4 slices) through
+   ``contract_sharded`` over two gloo ranks on the one card (NCCL
+   refuses two ranks on a card): each rank's chain launches (its 2
+   slices x 13 passes, 52 in all, phase 4's count), peak memory and
+   warm seconds (best of 3), the amplitude identical on both ranks and
+   within relerr 1e-5 of the sidecar's key ``"4"``; then, on the same
+   ranks, an output-sliced ``rand_equation(12, 3, n_out=3)`` (rank 0's
+   tree, ``broadcast_tree``) chunk-sharded, the whole output
+   (``reassemble=True``) and each rank's own rows (``reassemble=False``)
+   held to the unsharded result at 1e-5;
+23. the stripped 7x7 lattice through ``contract_sharded(...,
+   implementation="pallas")`` over three gloo ranks: 16 slices as 6, 5
+   and 5, ``bmm_absmax`` launches 174, 145 and 145 (464 in all),
+   |delta log10| <= 1e-4 on every rank, peak memory and warm seconds;
+24. one rank on NCCL with the default mesh: t27 (52 chain launches,
+   relerr <= 1e-5) and the lattice (464 ``bmm_absmax`` launches,
+   |delta log10| <= 1e-4); the number of cards, and with two or more,
+   both again with one NCCL rank per card;
+25. a stripped sum of ~10^-55.6 (``rand_equation(10, 3)``, entries near
+   1e-6, float32, 9 slices) over four gloo ranks: every rank's value
+   within |delta log10| <= 1e-5 of the unsharded one (the JAX
+   package's padded slots flush it to 0);
+26. folded constants: the 7x7 lattice as an ``einsum_expression`` whose
+   constants are every tensor but row ``FOLD_ROW``'s 7 (row 0: the
+   row whose fold is largest; the sliced bond touches row 1), stripped
+   through ``bmm_absmax``: the folded steps, the steps run and the
+   kernel launches of the first and of a later call (the first runs the
+   folded steps, later ones not), both values held to the plan's
+   reference at 1e-4, and the later call's warm time against the
+   unfolded expression's, in turns;
+27. one JSON line of kernel results (launches on the main path, error,
    ms, plain ms, bound, library ms; the gate chain's m=20 figures
    under ``m20_*`` keys, the launches of phases 17 and 18 under
-   ``hyper_*`` keys and of phases 19 and 20 under ``default_*`` keys),
-   one JSON line ``{"host_native": {...}}`` of the host library's build
-   seconds and the planning seconds of phases 15, 17-21, then the last
-   line ``{"ok": true, "device": {...}}``.
+   ``hyper_*`` keys, of phases 19 and 20 under ``default_*`` keys, of
+   phases 22-24 under ``sharded_*`` (per rank) and ``nccl_*`` keys and
+   of phase 26 under ``folded_*`` keys), one JSON line
+   ``{"host_native": {...}}`` of the host library's build seconds and
+   the planning seconds of phases 15, 17-21, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Every instance is built and every plan loaded through the port
 (``cotengra_tpu_torch.rand_circuit_tn``, ``lattice_equation``,
 ``load_tree``): the script imports neither JAX nor the JAX package.
 
-Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15-20) is driven with
-every kernel's launch count set to 0 just before it and read just
-after. Any failed
+Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15-20, 22-24, 26) is
+driven with every kernel's launch count set to 0 just before it and
+read just after (in each rank, by the rank). Any failed
 phase raises, and the script exits non-zero without the last line. It
 needs a CUDA device and never falls back to the CPU.
 
@@ -169,6 +210,7 @@ grouped by class (the breakdown in ``PERF.md`` section 5).
 
 import contextlib
 import cProfile
+import gc
 import hashlib
 import json
 import math
@@ -200,6 +242,10 @@ T27_BATCHED_LAUNCHES = 52   # 4 slices in one batched call (phase 9)
 FRONT_END_OVERHEAD = 1.1    # front-end warm time / make_full_contractor's
 # best of 5 in turns: best-of-3 t27 passes spread by 10% on the host side
 FRONT_END_PASSES = 5
+# t27's ~0.1 s pass carries ~10 ms of host jitter: best of 5 in turns put
+# the ratio over 1.1 in 1 of 16 repeats; best of 21 keeps its spread
+# well inside the limit (PERF.md section 6)
+T27_FRONT_END_PASSES = 21
 # log10 of the 6x6 bond-16 lattice's value in float64, from
 # ``python scratch/make_lattice6_ref.py`` (the JAX package on the CPU:
 # random-greedy path, strip_exponent=True, uniform [0, 1) float64 draws
@@ -236,8 +282,12 @@ DEFAULT_METHODS = ["greedy", "ctgpart"]   # where the native library builds
 TIMING_TARGET = 2**25
 TIMING_GREEDY = {"costmod": 2.0, "temperature": 0.03, "seed": HYPER_SEED}
 # log10 flops above the committed t27 plan's that a port-planned m10
-# tree may reach: the search is not repeatable, so the bound is loose
+# tree may reach
 HYPER_FLOPS_SLACK = 1.0
+# phases 17-20 plan with seeded counterparts of the hyper methods,
+# registered under this prefix (the package's own searches are unseeded,
+# as the reference's), so that each search gives the same tree each run
+SEEDED_PREFIX = "smoke-seeded-"
 # published H100 SXM peaks at a 700 W power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12        # float32 FMA outside the tensor cores
@@ -1137,6 +1187,7 @@ def _in_turns(label, calls, pull, passes=3):
     times = {k: [] for k in names}
     first = None
     for k in order:
+        gc.collect()  # earlier passes' garbage is not this pass's cost
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         val = pull(calls[k]())
@@ -1281,7 +1332,7 @@ def phase_front_t27(dev):
             ),
             "make_full_contractor": lambda: direct(*tensors),
         },
-        lambda r: complex(r.item()), FRONT_END_PASSES,
+        lambda r: complex(r.item()), T27_FRONT_END_PASSES,
     )
     _check_front_end_time(T27, times)
     print(f"# front end {T27} phase_s {time.perf_counter() - t_phase:.1f}",
@@ -1556,21 +1607,56 @@ def _time_compressed_linalg(dtype, dev, max_size):
     del core, tall
 
 
+def _seeded_methods(methods, rng):
+    """Register a seeded counterpart of each hyper method in ``methods``
+    (``SEEDED_PREFIX`` + its name): the same path finder and search
+    space, each trial's finder given the next seed drawn from ``rng``.
+    Returns their names."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.pathfinders.labels import optimize_labels
+    from cotengra_tpu_torch.pathfinders.partition import optimize_ctgpart
+
+    finders = {"greedy": ctt.optimize_greedy, "labels": optimize_labels,
+               "ctgpart": optimize_ctgpart}
+    spaces = ctt.get_hyper_space()
+    names = []
+    for method in methods:
+        def trial(inputs, output, size_dict, _finder=finders[method],
+                  **params):
+            return _finder(inputs, output, size_dict, use_ssa=True,
+                           seed=rng.randrange(2**31), **params)
+
+        names.append(SEEDED_PREFIX + method)
+        ctt.register_hyper_function(names[-1], trial, space=spaces[method])
+    return names
+
+
 def _hyper_plan(tree, target, methods):
     """The port's hyper-optimizer on the instance of a committed ``tree``,
     sliced to ``target`` (planned on the host, serially: the process has
     initialised CUDA), with ``methods`` (``None``: its defaults, which
-    must be ``DEFAULT_METHODS``). Returns the planned tree, the planning
-    seconds, the trials and a note of the methods and accel."""
+    must be ``DEFAULT_METHODS``). The search is made repeatable: the
+    methods' seeded counterparts (``_seeded_methods``, one seed stream
+    per search) and the refinement's slice finder at temperature 0.
+    Returns the planned tree, the planning seconds, the trials and a
+    note of the methods and accel."""
+    import random
+
     import cotengra_tpu_torch as ctt
 
+    if methods is None:
+        methods = ctt.HyperOptimizer(parallel=False)._methods
+        if methods != DEFAULT_METHODS:
+            raise AssertionError(f"hyper plan: default methods {methods}")
+        defaults = True
+    else:
+        defaults = False
     opt = ctt.HyperOptimizer(
-        methods=methods, max_repeats=HYPER_TRIALS,
-        seed=HYPER_SEED, slicing_reconf_opts={"target_size": target},
+        methods=_seeded_methods(methods, random.Random(HYPER_SEED)),
+        max_repeats=HYPER_TRIALS, seed=HYPER_SEED,
+        slicing_reconf_opts={"target_size": target, "temperature": 0},
         parallel=False,
     )
-    if opt._methods != (methods or DEFAULT_METHODS):
-        raise AssertionError(f"hyper plan: methods {opt._methods}")
     t0 = time.perf_counter()
     planned = opt.search(tree.inputs, tree.output, tree.size_dict)
     plan_s = time.perf_counter() - t0
@@ -1580,10 +1666,17 @@ def _hyper_plan(tree, target, methods):
             f"2^{math.log2(target):.0f}"
         )
     note = (
-        f"methods {opt._methods}{' (defaults)' if methods is None else ''}"
-        f", {_accel_note()}"
+        f"methods {methods}{' (defaults)' if defaults else ''}, seeded, "
+        f"{_accel_note()}; tree {_tree_hash(planned)}"
     )
     return planned, plan_s, len(opt.trials), note
+
+
+def _tree_hash(tree):
+    """A short hash of a tree's contractions and sliced indices: equal
+    hashes, equal trees (the seeded search gives one tree every run)."""
+    text = repr((sorted(tree.children.items()), list(tree.sliced_inds)))
+    return hashlib.sha256(text.encode()).hexdigest()[:12]
 
 
 def _plan_stats(tree):
@@ -1822,6 +1915,529 @@ def phase_plan_timing():
     return best
 
 
+# phases 22-26: the slice sum sharded over ranks
+# (``cotengra_tpu_torch/parallel/mesh.py``). The card machine has one
+# card: several ranks share it on gloo (NCCL refuses two ranks on one
+# card) and NCCL runs one rank per card
+RANK_LIMIT_S = 300        # wall-clock limit of one multi-rank phase
+RANK_COLLECTIVE_S = 240   # timeout of every collective in a rank
+T27_RANKS = 2
+LATTICE_RANKS = 3
+TINY_RANKS = 4
+TINY = 1e-6               # entries of the stripped case of phase 25
+TINY_LOG10_ATOL = 1e-5
+CHUNK_RTOL = 1e-5         # float32 sums of the same slices in one order
+FOLD_ROW = 0              # phase 26: the lattice row that stays variable
+
+
+def _rank_main(rank, world, store, backend, device, results, job):
+    """One spawned rank: join the process group, run ``job()`` and put
+    ``(rank, "ok", its result)`` on ``results``, or ``(rank, "error",
+    the traceback)``."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(ROOT))
+        from cotengra_tpu_torch.parallel import mesh as pmesh
+
+        pmesh.maybe_init_distributed(
+            init_method=store, world_size=world, rank=rank, backend=backend,
+            device=device, timeout=RANK_COLLECTIVE_S,
+        )
+        results.put((rank, "ok", job()))
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def _run_ranks(label, world, backend, device, job):
+    """Spawn ``world`` ranks on ``backend`` (``device``: each rank's,
+    None for ``cuda:{rank % device_count}``) that each run ``job``;
+    return their results in rank order and the phase's wall seconds.
+    Every rank is killed at the first failure or after
+    ``RANK_LIMIT_S``."""
+    import multiprocessing as mp
+    import queue
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    got = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = f"file://{tmp}/store"
+        procs = [
+            ctx.Process(target=_rank_main, daemon=True, args=(
+                rank, world, store, backend, device, results, job,
+            ))
+            for rank in range(world)
+        ]
+        for proc in procs:
+            proc.start()
+        try:
+            while len(got) < world:
+                left = RANK_LIMIT_S - (time.perf_counter() - t0)
+                if left <= 0:
+                    raise AssertionError(
+                        f"{label}: no result from ranks "
+                        f"{sorted(set(range(world)) - set(got))} in "
+                        f"{RANK_LIMIT_S} s"
+                    )
+                try:
+                    rank, status, payload = results.get(
+                        timeout=min(left, 5.0)
+                    )
+                except queue.Empty:
+                    dead = [r for r, proc in enumerate(procs)
+                            if proc.exitcode is not None and r not in got]
+                    if dead:
+                        raise AssertionError(
+                            f"{label}: ranks {dead} exited without a result"
+                        ) from None
+                    continue
+                if status != "ok":
+                    raise AssertionError(
+                        f"{label}: rank {rank} failed:\n{payload}"
+                    )
+                got[rank] = payload
+            for proc in procs:
+                proc.join(timeout=60)
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+    return [got[r] for r in range(world)], time.perf_counter() - t0
+
+
+def _rank_warm(mesh, label, passes_of):
+    """A rank's warm seconds of the sharded contractor (best of 3); on a
+    mesh of one rank, 5 passes in turns with ``make_full_contractor``'s
+    on the same tensors, which isolates the mesh layer's cost.
+    ``passes_of`` maps both names to one-pass functions."""
+    if mesh.size == 1:
+        return _warm_in_turns(label, passes_of, passes=5)
+    return _warm_in_turns(label, {"sharded": passes_of["sharded"]})
+
+
+def _rank_t27():
+    """A rank's share of the t27 amplitude through ``contract_sharded``
+    on the default mesh: its launches, the amplitude, its peak memory
+    and warm seconds."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch import parallel
+
+    mesh = parallel.get_default_mesh()
+    tree, arrays, refs = _load_instance(T27)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    amp = parallel.contract_sharded(tree, arrays, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    amp = complex(amp.cpu().item())
+    tensors = ctt.to_tensors(arrays, mesh.device, torch.float32)
+    sharded = parallel.make_sharded_contractor(tree, mesh)
+    full = ctt.make_full_contractor(tree, mesh.device)
+    times = _rank_warm(mesh, "sharded t27", {
+        "sharded": lambda: abs(complex(sharded(*tensors).item())),
+        "make_full_contractor": lambda: abs(complex(full(*tensors).item())),
+    })
+    ref = refs[tree.multiplicity]
+    return {
+        "rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
+        "slices": len(range(mesh.rank, tree.multiplicity, mesh.size)),
+        "passes": _chain_passes(tree), "counts": counts,
+        "amp": (amp.real, amp.imag), "relerr": abs(amp - ref) / abs(ref),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "warm_s": times,
+    }
+
+
+def _rank_chunks():
+    """A rank's output-sliced contraction (as ``__graft_entry__.py``'s
+    chunk-sharded check): rank 0's tree (``broadcast_tree``), held to
+    the unsharded result, with the whole output (``reassemble=True``)
+    and with the rank's own rows (``reassemble=False``)."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch import parallel
+    from cotengra_tpu_torch.parallel.mesh import broadcast_tree
+
+    mesh = parallel.get_default_mesh()
+    inputs, output, shapes, size_dict = ctt.rand_equation(
+        12, 3, n_out=3, seed=11, d_min=2, d_max=3
+    )
+    rng = np.random.default_rng(11)
+    arrays = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    tree = ctt.array_contract_tree(inputs, output, size_dict=size_dict,
+                                   optimize="greedy")
+    tree.slice_(target_slices=mesh.size, allow_outer="only")
+    tree.slice_(target_slices=2 * tree.multiplicity)
+    tree = broadcast_tree(tree)
+    whole = ctt.contract_tree(tree, arrays, device=mesh.device)
+    chunks = [c for _, c in ctt.gen_output_chunks(tree, arrays,
+                                                  device=mesh.device)]
+    scale = whole.abs().max().item()
+    got = parallel.contract_sharded(tree, arrays, mesh=mesh, shard_chunks=True)
+    mine = parallel.make_sharded_contractor(
+        tree, mesh, shard_chunks=True, reassemble=False
+    )(*ctt.to_tensors(arrays, mesh.device))
+    n_per = mine.shape[0]
+    rows = [
+        (mine[k] - chunks[mesh.rank * n_per + k]).abs().max().item()
+        if mesh.rank * n_per + k < len(chunks) else mine[k].abs().max().item()
+        for k in range(n_per)
+    ]
+    return {
+        "rank": mesh.rank, "chunks": len(chunks), "n_per": n_per,
+        "inner": tree.multiplicity // len(chunks),
+        "err_whole": (got - whole).abs().max().item() / scale,
+        "err_rows": max(rows) / scale,
+    }
+
+
+def _rank_t27_and_chunks():
+    return {"t27": _rank_t27(), "chunks": _rank_chunks()}
+
+
+def _rank_lattice():
+    """A rank's share of the stripped 7x7 lattice through
+    ``contract_sharded`` and ``bmm_absmax``: launches, value, peak
+    memory, warm seconds."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch import parallel
+
+    mesh = parallel.get_default_mesh()
+    tree, arrays, ref = _load_lattice()
+    opts = dict(strip_exponent=True, implementation="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    res = parallel.contract_sharded(tree, arrays, mesh=mesh, **opts)
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    log10 = _stripped_log10(res)
+    tensors = ctt.to_tensors(arrays, mesh.device, torch.float32)
+    sharded = parallel.make_sharded_contractor(tree, mesh, **opts)
+    full = ctt.make_full_contractor(tree, mesh.device, **opts)
+    times = _rank_warm(mesh, "sharded lattice", {
+        "sharded": lambda: _stripped_log10(sharded(*tensors)),
+        "make_full_contractor": lambda: _stripped_log10(full(*tensors)),
+    })
+    return {
+        "rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
+        "slices": len(range(mesh.rank, tree.multiplicity, mesh.size)),
+        "steps": sum(_lattice_kernel_shapes(tree).values()),
+        "counts": counts, "log10": log10,
+        "d_log10": abs(log10 - ref["log10"]),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "warm_s": times,
+    }
+
+
+def _rank_both():
+    return {"t27": _rank_t27(), "lattice": _rank_lattice()}
+
+
+def _tiny_case(ctt, mesh):
+    """10 tensors of entries near ``TINY``, 9 slices (two inner indices
+    of size 3), rank 0's greedy tree: ~10^-55.6, below float32's range
+    unless stripped."""
+    from cotengra_tpu_torch.parallel.mesh import broadcast_tree
+
+    inputs, output, shapes, size_dict = ctt.rand_equation(10, 3, seed=0)
+    tree = broadcast_tree(ctt.array_contract_tree(
+        inputs, output, size_dict=size_dict, optimize="greedy"
+    ))
+    threes = sorted(ix for ix, d in tree.size_dict.items() if d == 3)
+    for ix in threes[:2]:
+        tree.remove_ind_(ix)
+    rng = np.random.default_rng(0)
+    arrays = [(TINY * rng.uniform(0.5, 1.5, size=s)).astype(np.float32)
+              for s in shapes]
+    return tree, arrays
+
+
+def _rank_tiny():
+    """A rank's stripped sum of the tiny case against the unsharded one
+    on the same card."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch import parallel
+
+    mesh = parallel.get_default_mesh()
+    tree, arrays = _tiny_case(ctt, mesh)
+    want = _stripped_log10(ctt.contract_tree(
+        tree, arrays, device=mesh.device, strip_exponent=True
+    ))
+    got = _stripped_log10(parallel.contract_sharded(
+        tree, arrays, mesh=mesh, strip_exponent=True
+    ))
+    return {"rank": mesh.rank, "slices": tree.multiplicity,
+            "log10": got, "unsharded_log10": want}
+
+
+def _rank_line(label, r, extra):
+    return (
+        f"# {label} rank {r['rank']}/{r['size']} on {r['device']}: slices "
+        f"{r['slices']} launches {r['counts']} {extra} peak_mem_gib "
+        f"{r['peak_gib']:.2f} warm_s "
+        + "; ".join(
+            f"{k} {' '.join(f'{t:.4f}' for t in ts)} (best {min(ts):.4f})"
+            for k, ts in r["warm_s"].items()
+        )
+    )
+
+
+def _check_t27_ranks(label, ranks):
+    """Each rank launched the chain kernel for its own slices only, all
+    of them together phase 4's count, and holds one amplitude within
+    ``AMP_RTOL`` of the sidecar. Returns the launches per rank."""
+    launches = []
+    for r in ranks:
+        expect = r["passes"] * r["slices"]
+        if r["counts"] != {"gate_chain": expect, "bmm_absmax": 0}:
+            raise AssertionError(
+                f"{label} rank {r['rank']}: launches {r['counts']}, its "
+                f"{r['slices']} slices give {expect}"
+            )
+        if not r["relerr"] <= AMP_RTOL:
+            raise AssertionError(
+                f"{label} rank {r['rank']}: relerr {r['relerr']:.3e} > "
+                f"{AMP_RTOL}"
+            )
+        launches.append(r["counts"]["gate_chain"])
+        print(_rank_line(label, r, f"relerr {r['relerr']:.3e}"), flush=True)
+    if sum(r["slices"] for r in ranks) != 4 or sum(launches) != (
+        ranks[0]["passes"] * 4
+    ):
+        raise AssertionError(f"{label}: launches {launches} in all")
+    if len({r["amp"] for r in ranks}) != 1:
+        raise AssertionError(
+            f"{label}: ranks disagree: {[r['amp'] for r in ranks]}"
+        )
+    amp = complex(*ranks[0]["amp"])
+    print(
+        f"# {label}: amplitude {amp.real:.12e}{amp.imag:+.12e}j on every "
+        f"rank, relerr {ranks[0]['relerr']:.3e}, chain launches {launches} "
+        f"({sum(launches)} in all)",
+        flush=True,
+    )
+    return launches
+
+
+def _check_lattice_ranks(label, ranks):
+    """The lattice's kernel steps per rank (its slices x 29) and the
+    value on every rank within ``LOG10_ATOL``. Returns the launches."""
+    launches = []
+    for r in ranks:
+        expect = r["steps"] * r["slices"]
+        if r["counts"] != {"gate_chain": 0, "bmm_absmax": expect}:
+            raise AssertionError(
+                f"{label} rank {r['rank']}: launches {r['counts']}, its "
+                f"{r['slices']} slices give {expect}"
+            )
+        if not (np.isfinite(r["log10"]) and r["d_log10"] <= LOG10_ATOL):
+            raise AssertionError(
+                f"{label} rank {r['rank']}: |delta log10| "
+                f"{r['d_log10']:.3e} > {LOG10_ATOL}"
+            )
+        launches.append(r["counts"]["bmm_absmax"])
+        print(_rank_line(label, r, f"|delta log10| {r['d_log10']:.3e}"),
+              flush=True)
+    if sum(r["slices"] for r in ranks) != 16:
+        raise AssertionError(f"{label}: slices {[r['slices'] for r in ranks]}")
+    print(f"# {label}: bmm_absmax launches {launches} ({sum(launches)} in "
+          "all)", flush=True)
+    return launches
+
+
+def phase_sharded_gloo():
+    """Phases 22-23: t27 over two gloo ranks on one card (and an
+    output-sliced contraction, chunk-sharded), then the stripped 7x7
+    lattice over three. Returns the launches per rank."""
+    # the blocks this process's allocator keeps are not the ranks' to use
+    torch.cuda.empty_cache()
+    ranks, wall = _run_ranks("sharded t27", T27_RANKS, "gloo", "cuda:0",
+                             _rank_t27_and_chunks)
+    t27 = _check_t27_ranks(f"sharded {T27} gloo",
+                           [r["t27"] for r in ranks])
+    for r in (r["chunks"] for r in ranks):
+        if not (r["err_whole"] <= CHUNK_RTOL and r["err_rows"] <= CHUNK_RTOL):
+            raise AssertionError(f"chunk-sharded rank {r['rank']}: {r}")
+        print(
+            f"# chunk-sharded rand_equation(12, 3, n_out=3) rank "
+            f"{r['rank']}: {r['chunks']} chunks of {r['inner']} inner "
+            f"slices, {r['n_per']} per rank; max|whole - unsharded| / max "
+            f"{r['err_whole']:.3e}; own rows {r['err_rows']:.3e}",
+            flush=True,
+        )
+    print(f"# sharded {T27} gloo phase_s {wall:.1f}", flush=True)
+    ranks, wall = _run_ranks("sharded lattice", LATTICE_RANKS, "gloo",
+                             "cuda:0", _rank_lattice)
+    lattice = _check_lattice_ranks(f"sharded {LATTICE} gloo", ranks)
+    print(f"# sharded {LATTICE} gloo phase_s {wall:.1f}", flush=True)
+    return t27, lattice
+
+
+def phase_sharded_nccl():
+    """Phase 24: one rank on NCCL, both paths on the default mesh; with
+    two or more cards, one rank per card as well. Returns the launches
+    of the one-rank run."""
+    count = torch.cuda.device_count()
+    print(f"# nccl: {count} card(s) visible", flush=True)
+    ranks, wall = _run_ranks("nccl", 1, "nccl", None, _rank_both)
+    t27 = _check_t27_ranks(f"sharded {T27} nccl",
+                           [r["t27"] for r in ranks])
+    lattice = _check_lattice_ranks(f"sharded {LATTICE} nccl",
+                                   [r["lattice"] for r in ranks])
+    print(f"# nccl world size 1 phase_s {wall:.1f}", flush=True)
+    if count >= 2:
+        ranks, wall = _run_ranks("nccl multi-card", count, "nccl", None,
+                                 _rank_both)
+        _check_t27_ranks(f"sharded {T27} nccl x{count}",
+                         [r["t27"] for r in ranks])
+        _check_lattice_ranks(f"sharded {LATTICE} nccl x{count}",
+                             [r["lattice"] for r in ranks])
+        print(f"# nccl world size {count} phase_s {wall:.1f}", flush=True)
+    return t27[0], lattice[0]
+
+
+def phase_sharded_tiny():
+    """Phase 25: the stripped sum of ~10^-55.6 over 4 gloo ranks and 9
+    slices (the JAX package's padded slot flushes it to 0): every rank
+    equals the unsharded value."""
+    ranks, wall = _run_ranks("tiny", TINY_RANKS, "gloo", "cuda:0",
+                             _rank_tiny)
+    for r in ranks:
+        d = abs(r["log10"] - r["unsharded_log10"])
+        if not (np.isfinite(r["log10"]) and r["unsharded_log10"] < -38
+                and d <= TINY_LOG10_ATOL):
+            raise AssertionError(f"tiny stripped sum rank {r['rank']}: {r}")
+        print(
+            f"# tiny stripped sum rank {r['rank']}/{TINY_RANKS}: "
+            f"{r['slices']} slices, log10 {r['log10']:.7f} unsharded "
+            f"{r['unsharded_log10']:.7f} |delta| {d:.3e}",
+            flush=True,
+        )
+    print(f"# tiny stripped sum phase_s {wall:.1f}", flush=True)
+
+
+def _kernel_step_ids(tree):
+    """The IR steps of ``tree`` that go through ``bmm_absmax`` (float32,
+    stripped), by the executor's rule."""
+    from cotengra_tpu_torch.ops.executor import _pallas_step_ok
+    from cotengra_tpu_torch.ops.lowering import (
+        PairStep,
+        extract_contractions,
+    )
+
+    sizes = tree.size_dict
+    ids = set()
+    for si, step in enumerate(extract_contractions(tree).steps):
+        if isinstance(step, PairStep):
+            x = torch.empty([sizes[ix] for ix in step.l_legs], device="meta")
+            y = torch.empty([sizes[ix] for ix in step.r_legs], device="meta")
+            if _pallas_step_ok(x, y, step):
+                ids.add(si)
+    return ids
+
+
+@contextlib.contextmanager
+def _counted_steps():
+    """Count the direct executor's steps as they run."""
+    from cotengra_tpu_torch.ops import executor
+
+    real = executor._run_ir_steps
+    count = [0]
+
+    def counting(ir, steps, *args, **kwargs):
+        steps = list(steps)
+        count[0] += len(steps)
+        return real(ir, steps, *args, **kwargs)
+
+    executor._run_ir_steps = counting
+    try:
+        yield count
+    finally:
+        executor._run_ir_steps = real
+
+
+def phase_folded(dev):
+    """Phase 26: the 7x7 lattice as an ``einsum_expression`` whose
+    constants are every tensor but row ``FOLD_ROW``'s 7: the folded
+    steps run in the first call only; the value of both calls held to
+    the plan's reference; the later call's warm time against the
+    unfolded expression's, in turns. Returns the ``bmm_absmax`` launches
+    of the first and a later call."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.utils.eqs import inputs_output_to_eq
+
+    tree, arrays, ref = _load_lattice()
+    eq = inputs_output_to_eq(tree.inputs, tree.output)
+    side = ref["instance"]["dims"][1]
+    row = range(FOLD_ROW * side, (FOLD_ROW + 1) * side)
+    opts = dict(device=dev, strip_exponent=True, implementation="pallas")
+    expr = ctt.einsum_expression(
+        eq, *(a.shape for a in arrays), optimize=tree,
+        constants={i: a for i, a in enumerate(arrays) if i not in row},
+        **opts,
+    )
+    variables = ctt.to_tensors([arrays[i] for i in row], dev)
+    calls = []
+    for call in ("first", "later"):
+        with _counted_steps() as steps:
+            _reset_launches()
+            res = expr(*variables)
+            torch.cuda.synchronize()
+            counts = _read_launches()
+        log10 = _stripped_log10(res)
+        calls.append((steps[0], counts, log10))
+        if not abs(log10 - ref["log10"]) <= LOG10_ATOL:
+            raise AssertionError(
+                f"folded lattice, {call} call: log10 {log10!r} vs "
+                f"{ref['log10']!r}"
+            )
+    batch = next(iter(expr._folded.values())).batch
+    kernel = _kernel_step_ids(tree)
+    n = tree.multiplicity
+    k_fold = len(kernel & set(batch.steps_fold))
+    k_rest = n * len(kernel - set(batch.steps_fold))
+    (s1, c1, v1), (s2, c2, v2) = calls
+    if not (batch.steps_fold and s1 - s2 == len(batch.steps_fold)
+            and c1 == {"gate_chain": 0, "bmm_absmax": k_fold + k_rest}
+            and c2 == {"gate_chain": 0, "bmm_absmax": k_rest}):
+        raise AssertionError(
+            f"folded lattice: {len(batch.steps_fold)} folded steps, steps "
+            f"run {s1} then {s2}, launches {c1} then {c2}, expected "
+            f"{k_fold + k_rest} then {k_rest}"
+        )
+    tensors = ctt.to_tensors(arrays, dev)
+    unfolded = ctt.einsum_expression(
+        eq, *(a.shape for a in arrays), optimize=tree, **opts
+    )
+    times = _in_turns("folded lattice", {
+        "folded": lambda: expr(*variables),
+        "unfolded": lambda: unfolded(*tensors),
+    }, _stripped_log10)
+    best = {k: min(ts) for k, ts in times.items()}
+    print(
+        f"# folded {LATTICE}, row {FOLD_ROW} ({len(row)} tensors) "
+        f"variable, {tree.N - len(row)} constant: folded steps "
+        f"{len(batch.steps_fold)} of {len(batch.steps_fold) + len(batch.steps_once) + len(batch.steps_each)} "
+        f"({k_fold} through bmm_absmax), per slice {len(batch.steps_once)} + "
+        f"{len(batch.steps_each)}; steps run first call {s1}, later {s2}; "
+        f"bmm_absmax launches first {c1['bmm_absmax']}, later "
+        f"{c2['bmm_absmax']}; log10 {v1:.7f} then {v2:.7f} (reference "
+        f"{ref['log10']:.7f}, |delta| {abs(v2 - ref['log10']):.3e}); warm_s "
+        + "; ".join(
+            f"{k} {' '.join(f'{t:.4f}' for t in ts)} (best {best[k]:.4f})"
+            for k, ts in times.items()
+        )
+        + f"; folded / unfolded {best['folded'] / best['unfolded']:.3f}",
+        flush=True,
+    )
+    return c1["bmm_absmax"], c2["bmm_absmax"]
+
+
 def _kernel_class(name):
     if "gate_chain_kernel" in name:
         return "gate-chain kernel"
@@ -2024,6 +2640,10 @@ def main():
         dev, None, "default lattice7x7_d16"
     )
     timing = phase_plan_timing()
+    sharded_t27, sharded_lattice = phase_sharded_gloo()
+    nccl_t27, nccl_lattice = phase_sharded_nccl()
+    phase_sharded_tiny()
+    folded_first, folded_later = phase_folded(dev)
     kernels = [
         {
             # per slice: the 13 chains of one m10-t27 slice
@@ -2052,6 +2672,10 @@ def main():
             # with greedy + labels, and with its default methods
             "hyper_m10_launches": hyper_m10_launches,
             "default_m10_launches": default_m10_launches,
+            # t27 sharded: per rank of two gloo ranks on the card, and
+            # one NCCL rank
+            "sharded_t27_launches": sharded_t27,
+            "nccl_t27_launches": nccl_t27,
         },
         {
             # per slice: one slice's kernel steps, summed over the plan's
@@ -2072,6 +2696,12 @@ def main():
             # with greedy + labels, and with its default methods
             "hyper_lattice_launches": hyper_lattice_launches,
             "default_lattice_launches": default_lattice_launches,
+            # the lattice sharded: per rank of three gloo ranks, and one
+            # NCCL rank; its folded expression's first and later call
+            "sharded_lattice_launches": sharded_lattice,
+            "nccl_lattice_launches": nccl_lattice,
+            "folded_first_launches": folded_first,
+            "folded_later_launches": folded_later,
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

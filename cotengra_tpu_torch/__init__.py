@@ -21,7 +21,9 @@ planning library (``ops.native``: host C++ greedy, random-greedy,
 optimal DP, compressed replay and the ``ctgpart`` partitioner,
 ``pathfinders.partition``, built with ``g++`` at first use) - and runs trees
 on torch tensors, with hand-written CUDA kernels for in-place gate
-chains and for matmuls with a fused max|out| (exponent stripping).
+chains and for matmuls with a fused max|out| (exponent stripping), and
+sums slices over the ranks of a ``torch.distributed`` group, one process
+per card (``parallel.mesh``).
 Compressed trees run through ``contract_compressed`` (``ops.compressed``:
 QR and SVD bond truncation with ``torch.linalg``).
 
@@ -47,7 +49,26 @@ from .interface import (
     ncon,
     register_preset,
 )
-from .models import lattice_equation, rand_circuit_tn, rand_equation
+from .config import (
+    default_implementation,
+    default_options,
+    get_default_implementation,
+    set_default_implementation,
+)
+from .models import (
+    lattice_equation,
+    make_arrays_from_eq,
+    make_arrays_from_inputs,
+    make_rand_size_dict_from_inputs,
+    make_shapes_from_inputs,
+    networkx_graph_to_equation,
+    perverse_equation,
+    rand_circuit_tn,
+    rand_equation,
+    rand_tree,
+    randreg_equation,
+    tree_equation,
+)
 from .ops import (
     benchmark_tree,
     contract_core,
@@ -101,8 +122,14 @@ from .tree import (
 )
 from .tree_compressed import ContractionTreeCompressed
 from .utils.eqs import hash_contraction
-from .utils.io import load_tree
-from .utils.symbols import get_symbol
+from .utils.io import (
+    hash_contraction_b,
+    load_instance,
+    load_tree,
+    save_instance,
+    save_tree,
+)
+from .utils.symbols import get_symbol, get_symbol_map
 
 register_builtin_presets()
 
@@ -142,9 +169,20 @@ def hyper_optimize(inputs, output, size_dict, memory_limit=None, **opts):
     return opt.search(inputs, output, size_dict).get_path()
 
 # the reference's module aliases (``cotengra.__init__``)
+from .pathfinders import basic as path_basic  # noqa: E402
+from .pathfinders import basic as path_greedy  # noqa: E402
 from .pathfinders import compressed as path_compressed_greedy  # noqa: E402
 from .pathfinders import windowed_opt as path_compressed  # noqa: E402
 from .pathfinders import compressed_bb as path_compressed_branchbound  # noqa: E402,E501
+from .pathfinders import labels as path_labels  # noqa: E402
+from .hyper import optlibs as hyper_cmaes  # noqa: E402
+from .hyper import optlibs as hyper_nevergrad  # noqa: E402
+from .hyper import optlibs as hyper_optuna  # noqa: E402
+from .hyper import optlibs as hyper_skopt  # noqa: E402
+from .hyper import simplex as hyper_neldermead  # noqa: E402
+from .hyper import simplex as hyper_sbplx  # noqa: E402
+from .hyper import space as hyper_es  # noqa: E402
+from .hyper import space as hyper_random  # noqa: E402
 
 __all__ = [
     "AutoHQOptimizer",
@@ -187,6 +225,8 @@ __all__ = [
     "contract_slice",
     "contract_slices",
     "contract_tree",
+    "default_implementation",
+    "default_options",
     "edge_path_to_linear",
     "edge_path_to_ssa",
     "einsum",
@@ -195,23 +235,40 @@ __all__ = [
     "estimate_optimal_hardness",
     "gather_slices",
     "gen_output_chunks",
+    "get_default_implementation",
     "get_hyper_space",
     "get_hypergraph",
     "get_score_fn",
     "get_symbol",
+    "get_symbol_map",
     "greedy_optimize",
     "hash_contraction",
+    "hash_contraction_b",
+    "hyper_cmaes",
     "hyper_compressed_optimize",
+    "hyper_es",
+    "hyper_neldermead",
+    "hyper_nevergrad",
     "hyper_optimize",
+    "hyper_optuna",
+    "hyper_random",
+    "hyper_sbplx",
+    "hyper_skopt",
     "lattice_equation",
     "linear_to_ssa",
     "list_hyper_functions",
     "list_presets",
+    "load_instance",
     "load_tree",
+    "make_arrays_from_eq",
+    "make_arrays_from_inputs",
     "make_contractor",
     "make_full_contractor",
     "make_grouped_contractor",
+    "make_rand_size_dict_from_inputs",
+    "make_shapes_from_inputs",
     "ncon",
+    "networkx_graph_to_equation",
     "optimal_optimize",
     "optimal_outer_optimize",
     "optimize_edgesort",
@@ -220,19 +277,29 @@ __all__ = [
     "optimize_random",
     "optimize_random_greedy_track_flops",
     "optimize_simplify",
+    "path_basic",
     "path_compressed",
     "path_compressed_branchbound",
     "path_compressed_greedy",
+    "path_greedy",
+    "path_labels",
+    "perverse_equation",
     "rand_circuit_tn",
     "rand_equation",
+    "rand_tree",
+    "randreg_equation",
     "register_builtin_presets",
     "register_hyper_function",
     "register_hyper_optlib",
     "register_preset",
     "resolve_device",
+    "save_instance",
+    "save_tree",
+    "set_default_implementation",
     "slice_arrays",
     "ssa_to_linear",
     "to_plane_array",
     "to_plane_tensors",
     "to_tensors",
+    "tree_equation",
 ]

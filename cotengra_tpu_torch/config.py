@@ -38,6 +38,17 @@ def set_default(key, value):
     _state()[key] = value
 
 
+def get_default_implementation():
+    return get_default("implementation")
+
+
+def set_default_implementation(impl):
+    """Set the default executor implementation: None (torch einsum /
+    matmul steps) or ``"pallas"`` (the fused kernels where a step
+    qualifies)."""
+    set_default("implementation", impl)
+
+
 @contextlib.contextmanager
 def default_implementation(impl):
     """Context manager temporarily switching the executor implementation."""

@@ -12,7 +12,9 @@ with cached expressions (counterpart of ``cotengra_tpu/interface.py``).
   canonically relabelled contraction, so that repeated contractions
   reuse their plan; each expression's tree in turn caches its planned
   contractor (``ops/executor.py::_cached_full``), so that a repeated
-  call costs only its host canonicalisation.
+  call costs only its host canonicalisation; an expression with
+  constants keeps its own contractors, with the constant-only steps
+  folded.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 Where ``plane_dtype`` is not given it follows the inputs: float64 or
@@ -26,6 +28,7 @@ import torch
 
 from ._device import resolve_device
 from .convert import to_tensors
+from .ops.executor import _defaults, make_full_contractor
 from .tree import ContractionTree
 from .utils.eqs import (
     canonicalize_inputs,
@@ -227,14 +230,16 @@ class Expression:
     it plans, so every call after the first reuses it. Stripped results
     come back as ``(mantissa, exponent)`` pairs.
 
-    ``constants`` (a dict position -> array) are closed over: converted
-    once per device and plane dtype and spliced in at call time, and the
+    ``constants`` (a dict position -> array) are closed over, and the
     expression then takes only the other (variable) arrays, in order.
-    The steps that read only constants run on every call (the reference
-    folds them at compile time).
+    Per device, plane dtype and options, the constants go to the device
+    once and the steps that only they reach, and no sliced index, run
+    once, at the first call; later calls run only the other steps
+    (``ops.executor.make_full_contractor(constants=...)``), as the
+    reference's jit folds them.
     """
 
-    __slots__ = ("tree", "_kwargs", "_constants", "_placed", "__weakref__")
+    __slots__ = ("tree", "_kwargs", "_constants", "_folded", "__weakref__")
 
     def __init__(self, tree, constants=None, **kwargs):
         self.tree = tree
@@ -245,23 +250,28 @@ class Expression:
             }
         else:
             self._constants = None
-        self._placed = {}
+        self._folded = {}
 
-    def _splice(self, variables, device, plane_dtype):
-        """The full input list: the constants, as tensors on ``device``
-        (made once per device and dtype), between the variables."""
-        key = (device, plane_dtype)
-        if key not in self._placed:
+    def _folded_contractor(self, device=None, plane_dtype=None,
+                           strip_exponent=False, implementation=None,
+                           slice_batch=None):
+        """The contractor closing over the constants, made once per
+        device, plane dtype and options; returns it and its device."""
+        dev = resolve_device(device)
+        implementation, slice_batch = _defaults(implementation, slice_batch)
+        key = (dev, plane_dtype, strip_exponent, implementation, slice_batch)
+        fn = self._folded.get(key)
+        if fn is None:
             tensors = to_tensors(
-                list(self._constants.values()), device, plane_dtype
+                list(self._constants.values()), dev, plane_dtype
             )
-            self._placed[key] = dict(zip(self._constants, tensors))
-        consts = self._placed[key]
-        vit = iter(variables)
-        return [
-            consts[i] if i in consts else next(vit)
-            for i in range(self.tree.N)
-        ]
+            fn = self._folded[key] = make_full_contractor(
+                self.tree, dev, strip_exponent=strip_exponent,
+                slice_batch=slice_batch, implementation=implementation,
+                plane_dtype=plane_dtype,
+                constants=dict(zip(self._constants, tensors)),
+            )
+        return fn, dev
 
     def __call__(self, *arrays, **kwargs):
         opts = {**self._kwargs, **kwargs}
@@ -281,12 +291,10 @@ class Expression:
             opts["plane_dtype"] = _plane_dtype_of(
                 [*arrays, *consts.values()]
             )
-        if consts:
-            arrays = self._splice(
-                arrays, resolve_device(opts.get("device")),
-                opts["plane_dtype"],
-            )
-        return self.tree.contract(arrays, **opts)
+        if not consts:
+            return self.tree.contract(arrays, **opts)
+        fn, dev = self._folded_contractor(**opts)
+        return fn(*to_tensors(arrays, dev, opts["plane_dtype"]))
 
     def __repr__(self):
         return f"<Expression(N={self.tree.N})>"

@@ -20,6 +20,10 @@ The counterpart of ``cotengra_tpu/ops/executor.py``:
    B slices, each contracted from the raw inputs by a batched core
    (``build_batched_core_fn``, or the grouped one) that runs the steps
    no sliced index reaches once per batch (``slices.SliceBatch``).
+   With ``constants`` it closes over those inputs and folds the steps
+   that only they reach, and no sliced index: they run at its first
+   call only (the front end's expressions with constants,
+   ``interface.Expression``).
 
 4. ``contract_tree`` and ``contract_core`` reuse the contractor planned
    for the tree (``_cached_full``, ``_cached_core``): it is kept in
@@ -170,23 +174,29 @@ def _ir_step_io(ir):
 
 
 def build_batched_core_fn(tree, ir, strip_exponent=False,
-                          implementation=None):
+                          implementation=None, constants=None):
     """The direct core over a batch of slices: ``fn(arrays, slice_ids)``
     on the RAW (unsliced) tensors, returning the per-slice results
     stacked on a leading axis (and a ``(len(slice_ids),)`` exponent
     vector with ``strip_exponent``). The steps that no sliced index
     reaches run once per call, the others once per slice on views
-    selected from the raw tensors (``slices.SliceBatch``)."""
-    batch = SliceBatch(tree, list(_ir_step_io(ir)), ir.last_use)
+    selected from the raw tensors (``slices.SliceBatch``).
+
+    With ``constants`` (input positions), ``fn.fold(arrays)`` runs the
+    steps that only constants reach once, and ``fn(arrays, slice_ids,
+    folded)`` reuses its result."""
+    batch = SliceBatch(tree, list(_ir_step_io(ir)), ir.last_use, constants)
 
     def run_steps(steps, temps, last_use):
         return _run_ir_steps(
             ir, steps, temps, last_use, strip_exponent, implementation
         )
 
-    def fn(arrays, slice_ids):
+    def fn(arrays, slice_ids, folded=None):
         outs, exps = [], []
-        for temps, e in batch.run(arrays, slice_ids, run_steps, lambda v: v):
+        for temps, e in batch.run(
+            arrays, slice_ids, run_steps, _identity, folded=folded
+        ):
             result = temps[ir.final_id]
             outs.append(result)
             exps.append(_zero_exponent(result) if e is None else e)
@@ -194,7 +204,12 @@ def build_batched_core_fn(tree, ir, strip_exponent=False,
         return (res, torch.stack(exps)) if strip_exponent else res
 
     fn.batch = batch
+    fn.fold = lambda arrays: batch.fold(arrays, run_steps, _identity)
     return fn
+
+
+def _identity(v):
+    return v
 
 
 # IRs whose tensors exceed this rank run on the grouped split-complex
@@ -220,7 +235,7 @@ def _ir_max_rank(ir):
 
 def _build_best_core(
     tree, ir, device, strip_exponent=False, implementation=None,
-    plane_dtype=torch.float32, slice_batch=None,
+    plane_dtype=torch.float32, slice_batch=None, constants=None,
 ):
     """Pick the core: grouped split-complex for high-rank IRs (bond-2
     circuit networks) or ``implementation="grouped"``, direct per-step
@@ -228,7 +243,8 @@ def _build_best_core(
     takes and returns ``(2, *shape)`` planes of ``plane_dtype``
     (the port's grouped executor is split-complex only). With
     ``slice_batch`` the core is batched: ``core(raw inputs, slice_ids)``
-    returns the per-slice results stacked."""
+    returns the per-slice results stacked; ``constants`` (input
+    positions, batched cores only) adds ``core.fold``."""
     if implementation not in IMPLEMENTATIONS:
         raise ValueError(
             f"implementation must be one of {IMPLEMENTATIONS}, got "
@@ -240,12 +256,12 @@ def _build_best_core(
     ) or implementation == "grouped":
         core = make_grouped_contractor(
             tree, device, plane_dtype, strip_exponent=strip_exponent,
-            slice_batch=slice_batch,
+            slice_batch=slice_batch, constants=constants,
         )
         return core, True
     if slice_batch:
         core = build_batched_core_fn(
-            tree, ir, strip_exponent, implementation
+            tree, ir, strip_exponent, implementation, constants
         )
         return core, False
     return build_core_fn(ir, strip_exponent, implementation), False
@@ -363,7 +379,7 @@ def _sum_batch(res):
 
 def make_full_contractor(
     tree, device="cuda", strip_exponent=False, slice_batch=None,
-    implementation=None, plane_dtype=torch.float32,
+    implementation=None, plane_dtype=torch.float32, constants=None,
 ):
     """The FULL contraction of ``tree`` on ``device``: ``fn(*tensors)``
     on the raw (unsliced) inputs, summing inner slices in a host loop and
@@ -377,40 +393,60 @@ def make_full_contractor(
     steps no sliced index reaches once per batch; batches add as slices
     do (stripped: each batch brought to its largest exponent, batches
     added with ``_add_stripped``).
+
+    ``constants`` ({position: tensor on ``device``}) are closed over:
+    ``fn`` then takes only the other (variable) inputs, in order. The
+    steps that only constants reach and that no non-projected sliced
+    index reaches are folded: they run at the first call, and their
+    results stay on the device for every later call (stripped: their
+    exponent is added to every slice's). It runs on the batched core,
+    one slice per batch unless ``slice_batch`` says otherwise. A batched
+    ``fn`` has the core's step split as ``fn.batch``
+    (``slices.SliceBatch``).
     """
     dev = resolve_device(device)
     pdt = resolve_plane_dtype(plane_dtype)
     ir = extract_contractions(tree)
     n_inner, n_chunks, _ = _chunk_structure(tree)
-    if not tree.sliced_inds:
+    if constants is not None:
+        slice_batch = min(slice_batch or 1, n_inner)
+    elif not tree.sliced_inds:
         slice_batch = None
     elif slice_batch:
         slice_batch = min(slice_batch, n_inner)
     core, plane_io = _build_best_core(
-        tree, ir, dev, strip_exponent, implementation, pdt, slice_batch
+        tree, ir, dev, strip_exponent, implementation, pdt, slice_batch,
+        None if constants is None else set(constants),
     )
+    if constants is not None:
+        const_complex = any(a.is_complex() for a in constants.values())
+        if plane_io:
+            constants = {
+                i: _to_planes(a, pdt) for i, a in constants.items()
+            }
+    folded = None  # the folded steps' results, made at the first call
 
     def fn(*arrays):
-        if plane_io:
-            inputs = [_to_planes(a, pdt) for a in arrays]
-            any_complex = any(a.is_complex() for a in arrays)
+        nonlocal folded
+        any_complex = any(a.is_complex() for a in arrays)
+        inputs = [_to_planes(a, pdt) for a in arrays] if plane_io else arrays
+        if constants is not None:
+            any_complex = any_complex or const_complex
+            inputs = _splice(constants, inputs, tree.N)
+            if folded is None:
+                folded = core.fold(inputs)
 
-            def finish(res):
-                return _user_result(res, any_complex)
-        else:
-            inputs = arrays
+        def finish(res):
+            return _user_result(res, any_complex) if plane_io else res
 
-            def finish(res):
-                return res
-
-        if not tree.sliced_inds:
+        if slice_batch is None and not tree.sliced_inds:
             return finish(core(*inputs))
         if slice_batch:
             def chunk(c):
                 ids = range(c * n_inner, (c + 1) * n_inner)
                 return _sum_slices(
                     lambda k: _sum_batch(
-                        core(inputs, ids[k:k + slice_batch])
+                        core(inputs, ids[k:k + slice_batch], folded)
                     ),
                     range(0, n_inner, slice_batch),
                 )
@@ -430,7 +466,21 @@ def make_full_contractor(
             return results[0]
         return _stack_chunks(tree, results, ir.output_legs)
 
+    if slice_batch:
+        fn.batch = core.batch
     return fn
+
+
+def _splice(constants, variables, n):
+    """The full input list: ``constants`` ({position: tensor}) between
+    the ``variables``, in order."""
+    if len(variables) != n - len(constants):
+        raise ValueError(
+            f"{len(constants)} constants close over {n} inputs: expected "
+            f"{n - len(constants)} variable inputs, got {len(variables)}"
+        )
+    vit = iter(variables)
+    return [constants[i] if i in constants else next(vit) for i in range(n)]
 
 
 # -- public tree-execution entry points ---------------------------------------

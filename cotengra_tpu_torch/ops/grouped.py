@@ -316,6 +316,7 @@ SLICE_BATCH_MODES = ("auto", "scan", "vmap")
 def make_grouped_contractor(
     tree, device="cuda", plane_dtype=torch.float32, gate_mode="auto",
     strip_exponent=False, slice_batch=None, slice_batch_mode="auto",
+    constants=None,
 ):
     """Plan ``tree`` once and return ``fn(*planes) -> planes``.
 
@@ -338,6 +339,10 @@ def make_grouped_contractor(
     selected from the raw planes (``slice_batch_mode="scan"``, which
     ``"auto"`` resolves to: one slice's memory at a time). ``"vmap"``,
     all slices of the batch at once, is not ported (ROADMAP A8).
+    With ``constants`` (input positions whose planes never change),
+    ``fn.fold(planes)`` runs the steps that only constants reach once,
+    and ``fn(planes, slice_ids, folded)`` reuses its result
+    (``slices.SliceBatch``).
 
     ``gate_mode="auto"`` resolves to ``"inplace"`` (gate chains), as the
     reference's split-complex default does; ``None`` plans pairs only.
@@ -391,32 +396,41 @@ def make_grouped_contractor(
         return torch.zeros((), dtype=pdt, device=dev)
 
     if slice_batch:
-        batch = SliceBatch(tree, list(_step_io(plans)), last_use)
+        batch = SliceBatch(tree, list(_step_io(plans)), last_use, constants)
+        # every call stores the same shape under an id, so one map
+        # serves them all, the folded steps' ids included
+        shapes = dict(enumerate(in_shapes))
 
-        def fn(planes, slice_ids):
-            check(planes, tree.get_shapes())
-            shapes = dict(enumerate(in_shapes))
+        def run_steps(steps, temps, lu):
+            return _exec_steps_split(
+                plans, steps, temps, shapes, lu, strip_exponent
+            )
 
-            def run_steps(steps, temps, lu):
-                return _exec_steps_split(
-                    plans, steps, temps, shapes, lu, strip_exponent
-                )
-
+        def prepare(view):
             # a selected view is strided: one explicit copy makes it the
             # contiguous flat planes that the steps and the chain kernel
             # take
+            return view.contiguous().view(-1)
+
+        def fn(planes, slice_ids, folded=None):
+            check(planes, tree.get_shapes())
             outs, exps = [], []
             for temps, e in batch.run(
-                planes, slice_ids, run_steps,
-                lambda v: v.contiguous().view(-1), axis_offset=1,
+                planes, slice_ids, run_steps, prepare, axis_offset=1,
+                folded=folded,
             ):
                 outs.append(finish(temps))
                 exps.append(zero() if e is None else e)
             res = torch.stack(outs)
             return (res, torch.stack(exps)) if strip_exponent else res
 
+        def fold(planes):
+            check(planes, tree.get_shapes())
+            return batch.fold(planes, run_steps, prepare, axis_offset=1)
+
         fn.plans = plans
         fn.batch = batch
+        fn.fold = fold
         return fn
 
     def fn(*planes):

@@ -5,7 +5,9 @@ step plan into the steps that depend on the slice and those that do not.
 The counterparts of the reference's ``_sliced_axes_per_input`` and
 ``_slice_meta`` (``cotengra_tpu/ops/executor.py``), ``_digit_columns``,
 ``_ids_to_digits`` and ``_select_input`` (``cotengra_tpu/ops/grouped.py``)
-and of the varying-id propagation of its batched call. Selection is
+and of the varying-id propagation of its batched call, which also
+splits off the steps that only an expression's constants reach (the
+folding that the reference's jit does). Selection is
 eager: ``Tensor.select`` views on the inputs' device, one slice at a
 time, where the reference gathered a whole batch inside jit.
 """
@@ -113,21 +115,36 @@ def _select_input(a, axes, meta, digits, axis_offset=0):
     return a
 
 
+def _reached(ids, step_io):
+    """``ids`` and every step output ``out`` of ``step_io`` ((sources,
+    out) per step, in execution order) that one of them reaches."""
+    reached = set(ids)
+    for srcs, out in step_io:
+        if any(s in reached for s in srcs):
+            reached.add(out)
+    return reached
+
+
 def varying_ids(tree, step_io):
     """The ids whose value depends on the slice: every input that a
     non-projected sliced index touches, then every step output
     ``out`` of ``step_io`` ((sources, out) per step, in execution
     order) with a varying source."""
     meta = _slice_meta(tree)
-    varying = {
-        i
-        for i, axes in enumerate(_sliced_axes_per_input(tree))
-        if any(meta[ix][2] is None for _, ix in axes)
-    }
-    for srcs, out in step_io:
-        if any(s in varying for s in srcs):
-            varying.add(out)
-    return varying
+    return _reached(
+        (
+            i
+            for i, axes in enumerate(_sliced_axes_per_input(tree))
+            if any(meta[ix][2] is None for _, ix in axes)
+        ),
+        step_io,
+    )
+
+
+def _add_exponents(a, b):
+    if a is None:
+        return b
+    return a if b is None else a + b
 
 
 class SliceBatch:
@@ -138,42 +155,88 @@ class SliceBatch:
     ``step_io`` lists (sources, out) per step in execution order;
     ``last_use`` maps an id to the index of the last step reading it
     (the executors free it there).
+
+    ``constants`` (input positions whose values never change) splits the
+    slice-invariant steps once more: those that only constants reach
+    are *folded* (``steps_fold``, run once by ``fold`` and kept), the
+    others (``steps_once``) run once per batch. Without ``constants``
+    nothing is folded.
     """
 
-    def __init__(self, tree, step_io, last_use):
+    def __init__(self, tree, step_io, last_use, constants=None):
         self.meta = _slice_meta(tree)
         self.axes = _sliced_axes_per_input(tree)
         self.nslices = tree.multiplicity
         self.varying = varying_ids(tree, step_io)
-        self.steps_once = [
-            si for si, (_, out) in enumerate(step_io)
-            if out not in self.varying
-        ]
-        self.steps_each = [
-            si for si, (_, out) in enumerate(step_io)
-            if out in self.varying
-        ]
-        # a slice-invariant id that a per-slice step reads must outlive
-        # the invariant steps: it is shared by every slice of the batch
-        shared = {s for si in self.steps_each for s in step_io[si][0]}
+        if constants is None:
+            dynamic = None
+        else:
+            dynamic = _reached(
+                (i for i in range(tree.N) if i not in constants), step_io
+            )
+
+        def invariant_kind(vid):
+            if vid in self.varying:
+                return "each"
+            if dynamic is None or vid in dynamic:
+                return "once"
+            return "fold"
+
+        kinds = [invariant_kind(out) for _, out in step_io]
+        self.steps_fold, self.steps_once, self.steps_each = (
+            [si for si, kind in enumerate(kinds) if kind == k]
+            for k in ("fold", "once", "each")
+        )
+        self.inputs_fold, self.inputs_once, self.inputs_each = (
+            [i for i in range(tree.N) if invariant_kind(i) == k]
+            for k in ("fold", "once", "each")
+        )
+        # an id that a later class of steps reads must outlive its own
+        # class: it is shared by every batch (folded) or every slice
+        shared_each = {s for si in self.steps_each for s in step_io[si][0]}
+        shared_once = shared_each | {
+            s for si in self.steps_once for s in step_io[si][0]
+        }
+        self.last_use_fold = {
+            vid: si for vid, si in last_use.items() if vid not in shared_once
+        }
         self.last_use_once = {
-            vid: si for vid, si in last_use.items() if vid not in shared
+            vid: si for vid, si in last_use.items() if vid not in shared_each
         }
         self.last_use = last_use
 
-    def run(self, arrays, slice_ids, run_steps, prepare, axis_offset=0):
+    def _select(self, arrays, i, prepare, axis_offset, digits=None):
+        return prepare(_select_input(
+            arrays[i], self.axes[i], self.meta, digits, axis_offset
+        ))
+
+    def fold(self, arrays, run_steps, prepare, axis_offset=0):
+        """Run the folded steps once over the constant inputs of
+        ``arrays`` (the others are not read). Returns ``(temps,
+        exponent)``: what the later steps read of them, and their summed
+        log10 exponent (or None); ``run`` takes the pair as
+        ``folded``."""
+        temps = {
+            i: self._select(arrays, i, prepare, axis_offset)
+            for i in self.inputs_fold
+        }
+        return temps, run_steps(self.steps_fold, temps, self.last_use_fold)
+
+    def run(self, arrays, slice_ids, run_steps, prepare, axis_offset=0,
+            folded=None):
         """Generate ``(temps, exponent)`` for each slice of
         ``slice_ids`` in turn.
 
         ``arrays`` are the raw inputs; ``prepare`` turns a selected view
         into the executor's stored form; ``run_steps(steps, temps,
         last_use)`` runs the given step indices over ``temps`` and
-        returns their summed log10 exponent (or None). The invariant
+        returns their summed log10 exponent (or None). ``folded`` is
+        ``fold``'s result, made here when not given. The invariant
         steps run once, into a dict that each slice's steps see through
         a shallow copy of their own, so freeing at last use never drops
         what a later slice still needs; a slice's temps die when the
-        next slice starts. ``exponent`` adds the invariant steps'
-        exponent to the slice's own.
+        next slice starts. ``exponent`` adds the folded and invariant
+        steps' exponents to the slice's own.
         """
         ids = _flat_ids(slice_ids)
         if not ids:
@@ -184,22 +247,18 @@ class SliceBatch:
                 f"slice ids {bad[:4]} out of range [0, {self.nslices})"
             )
         digits = _ids_to_digits(ids, self.meta)
-        base = {
-            i: prepare(_select_input(a, self.axes[i], self.meta, None,
-                                     axis_offset))
-            for i, a in enumerate(arrays)
-            if i not in self.varying
-        }
-        e_once = run_steps(self.steps_once, base, self.last_use_once)
-        each_inputs = [i for i in range(len(arrays)) if i in self.varying]
+        if folded is None:
+            folded = self.fold(arrays, run_steps, prepare, axis_offset)
+        base = dict(folded[0])
+        for i in self.inputs_once:
+            base[i] = self._select(arrays, i, prepare, axis_offset)
+        e_once = _add_exponents(
+            folded[1], run_steps(self.steps_once, base, self.last_use_once)
+        )
         for row in digits:
             temps = dict(base)
-            for i in each_inputs:
-                temps[i] = prepare(_select_input(
-                    arrays[i], self.axes[i], self.meta, row, axis_offset
-                ))
+            for i in self.inputs_each:
+                temps[i] = self._select(arrays, i, prepare, axis_offset, row)
             e = run_steps(self.steps_each, temps, self.last_use)
-            if e_once is not None:
-                e = e_once if e is None else e_once + e
-            yield temps, e
+            yield temps, _add_exponents(e_once, e)
             del temps

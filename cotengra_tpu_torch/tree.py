@@ -1349,6 +1349,16 @@ class ContractionTree:
 
         return contract_slice(self, arrays, i, device, **kwargs)
 
+    def contract_sharded(self, arrays, mesh=None, **kwargs):
+        """Contract with the slice sum sharded over the ranks of a
+        process group (``parallel.mesh.contract_sharded``), the
+        counterpart of the reference's ``contract_mpi``."""
+        from .parallel.mesh import contract_sharded
+
+        return contract_sharded(self, arrays, mesh=mesh, **kwargs)
+
+    contract_mpi = contract_sharded
+
     def __repr__(self):
         if self.is_complete():
             return f"<{self.__class__.__name__}(N={self.N})>"

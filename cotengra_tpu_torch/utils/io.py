@@ -1,11 +1,73 @@
-"""Load saved contraction trees (counterpart of
-``cotengra_tpu/utils/io.py``: ``load_tree`` and the permutation-invariant
-content hash ``hash_contraction_b``, byte for byte, so that the plans
-saved by the JAX package load here with their check on)."""
+"""JSON save/load of contraction instances and trees, and the
+permutation-invariant content hash (counterpart of
+``cotengra_tpu/utils/io.py``, byte for byte: a file saved by either
+package loads in the other with its hash check on)."""
 
 import hashlib
 import json
 import pickle
+
+
+def _dump(data, filename):
+    if hasattr(filename, "write"):
+        json.dump(data, filename)
+    else:
+        with open(filename, "w") as f:
+            json.dump(data, f)
+
+
+def _load(filename):
+    if hasattr(filename, "read"):
+        return json.load(filename)
+    with open(filename) as f:
+        return json.load(f)
+
+
+def save_instance(filename, inputs, output, size_dict, **meta):
+    """Save a contraction instance as JSON."""
+    _dump(
+        {
+            "inputs": [list(map(str, term)) for term in inputs],
+            "output": list(map(str, output)),
+            "size_dict": {str(k): int(v) for k, v in size_dict.items()},
+            **meta,
+        },
+        filename,
+    )
+
+
+def load_instance(filename):
+    """Load a contraction instance from JSON, returning
+    ``(inputs, output, size_dict)`` (plus any extra metadata dict).
+    """
+    data = _load(filename)
+    inputs = [tuple(term) for term in data.pop("inputs")]
+    output = tuple(data.pop("output"))
+    size_dict = data.pop("size_dict")
+    if data:
+        return inputs, output, size_dict, data
+    return inputs, output, size_dict
+
+
+def save_tree(filename, tree, **meta):
+    """Save a (possibly sliced) contraction tree as JSON: the children
+    map (int-bitmask nodes as decimal strings), the sliced indices, and
+    a content hash of the instance for load-time validation.
+    """
+    _dump(
+        {
+            "hash_b": hash_contraction_b(
+                tree.inputs, tree.output, tree.size_dict
+            ),
+            "children": {
+                str(p): [str(l), str(r)]
+                for p, (l, r) in tree.children.items()
+            },
+            "sliced_inds": [str(ix) for ix in tree.sliced_inds],
+            **meta,
+        },
+        filename,
+    )
 
 
 def load_tree(filename, inputs, output, size_dict, check_hash=True):
@@ -16,11 +78,7 @@ def load_tree(filename, inputs, output, size_dict, check_hash=True):
     """
     from ..tree import ContractionTree
 
-    if hasattr(filename, "read"):
-        data = json.load(filename)
-    else:
-        with open(filename) as f:
-            data = json.load(f)
+    data = _load(filename)
     if check_hash:
         h = hash_contraction_b(inputs, output, size_dict)
         if h != data["hash_b"]:

@@ -25,3 +25,26 @@ def get_symbol(i):
         # skip surrogates
         i += 2048
     return chr(i)
+
+
+def get_symbol_map(inputs):
+    """Map the unique (hashable) indices appearing in ``inputs`` to
+    single-character symbols, in order of first appearance.
+
+    Parameters
+    ----------
+    inputs : sequence[sequence[hashable]]
+        The index labels of each tensor.
+
+    Returns
+    -------
+    dict[hashable, str]
+    """
+    symmap = {}
+    c = 0
+    for term in inputs:
+        for ix in term:
+            if ix not in symmap:
+                symmap[ix] = get_symbol(c)
+                c += 1
+    return symmap

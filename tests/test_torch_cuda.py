@@ -408,3 +408,77 @@ def test_permute_copy_beyond_the_copy_dims_limit(cuda):
     got = permute_copy(xc, perm)
     assert got.is_contiguous()
     assert torch.equal(got.cpu(), x.permute(perm).contiguous())
+
+
+_GLOO_RANK = """
+import sys
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+import cotengra_tpu_torch as ctt
+from cotengra_tpu_torch.ops.gate_chains import run_chain_cuda
+from cotengra_tpu_torch.parallel import mesh as pmesh
+
+rank = {rank}
+assert pmesh.maybe_init_distributed(
+    init_method={store!r}, world_size=2, rank=rank, device="cuda:0",
+    backend="gloo", timeout=120,
+)
+mesh = pmesh.get_default_mesh(2)
+assert mesh.device == torch.device("cuda", 0), mesh
+inputs, output, _, _, arrays = ctt.rand_circuit_tn(20, 8, seed=0)
+inputs, arrays = ctt.absorb_simple_tensors(
+    inputs, arrays, output, max_rank=2, max_absorb_size=2**12
+)
+size_dict = {{
+    ix: int(d) for t, a in zip(inputs, arrays) for ix, d in zip(t, a.shape)
+}}
+tree = ctt.array_contract_tree(inputs, output, size_dict=size_dict,
+                               optimize="greedy")
+if rank == 0:
+    tree.slice_(target_slices=5)
+tree = pmesh.broadcast_tree(tree)
+assert tree.multiplicity >= 5
+before = run_chain_cuda.launches
+got = complex(pmesh.contract_sharded(tree, arrays, mesh=mesh).item())
+torch.cuda.synchronize()
+want = complex(ctt.contract_tree(tree, arrays, device="cpu").item())
+assert abs(got - want) <= 1e-5 * abs(want), (got, want)
+m, e = pmesh.contract_sharded(tree, arrays, mesh=mesh, strip_exponent=True)
+stripped = complex(m.item()) * 10.0 ** e.item()
+assert abs(stripped - want) <= 1e-5 * abs(want), (stripped, want)
+print("RANK_OK", rank, tree.multiplicity,
+      run_chain_cuda.launches - before, flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    """Two ranks on one card join a gloo group (NCCL refuses two ranks
+    on one GPU), share rank 0's tree (``broadcast_tree``) and sum the
+    slices of a circuit amplitude, plain and stripped, through the
+    grouped executor on the card: every rank holds the CPU's value."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    store = f"file://{tmp_path / 'store'}"
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c",
+             _GLOO_RANK.format(root=root, rank=r, store=store)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True,
+        )
+        for r in range(2)
+    ]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out
+        assert f"RANK_OK {r}" in out, out

@@ -431,8 +431,11 @@ def test_expression_constants_match_reference(form):
         got = expr(xx)
         assert got.dtype == torch.float64
         assert_allclose(got.numpy(), np.asarray(ref(xx)), rtol=F64_RTOL)
-    # the constants were placed once for this device and dtype
-    assert list(expr._placed) == [(torch.device("cpu"), torch.float64)]
+    # the constants were placed (and folded) once for this device and
+    # dtype
+    assert [key[:2] for key in expr._folded] == [
+        (torch.device("cpu"), torch.float64)
+    ]
     with pytest.raises(ValueError, match="variable arrays"):
         expr(x, y)
 

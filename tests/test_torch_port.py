@@ -142,6 +142,30 @@ _NO_JAX = textwrap.dedent(
     ) == {gpath!r}
     assert optimize_ctgpart(ni, no, nsizes, parts=3, seed=4) == {cpath!r}
 
+    # a lone process is a mesh of size 1; a folded expression; instance
+    # and tree files
+    import io
+    from cotengra_tpu_torch.parallel import mesh as pmesh
+
+    assert not pmesh.maybe_init_distributed()
+    mesh1 = pmesh.get_default_mesh(devices="cpu")
+    sgot = pmesh.contract_sharded(
+        tree, arrays, mesh=mesh1, plane_dtype=torch.float64
+    ).item()
+    assert abs(sgot - ref) <= 1e-10 * abs(ref), (sgot, ref)
+    fexpr = ctt.einsum_expression(
+        eq(li, lo), *lshapes, optimize=ltree, device="cpu",
+        strip_exponent=True, implementation="pallas",
+        constants={{i: larr[i] for i in range(1, len(larr))}},
+    )
+    for _ in range(2):
+        fm, fe = fexpr(larr[0])
+        assert abs(float(fm) * 10.0 ** float(fe) - lref) <= 1e-10 * lref
+    buf = io.StringIO()
+    ctt.save_tree(buf, ltree)
+    buf.seek(0)
+    assert ctt.load_tree(buf, li, lo, lsizes).children == ltree.children
+
     import chip_smoke  # imported, not run
 
     bad = sorted(

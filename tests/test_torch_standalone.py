@@ -63,7 +63,8 @@ def test_the_scan_sees_every_module():
                 "tree_compressed.py", "ops/compressed.py",
                 "pathfinders/compressed.py", "pathfinders/windowed_opt.py",
                 "pathfinders/compressed_bb.py", "ops/native/__init__.py",
-                "pathfinders/partition.py", "ops/_build.py"):
+                "pathfinders/partition.py", "ops/_build.py",
+                "parallel/mesh.py", "models/instances.py", "ops/slices.py"):
         assert f"cotengra_tpu_torch/{mod}" in _SOURCES
     # the native library builds from the port's own copy of its source
     from cotengra_tpu_torch.ops import native
