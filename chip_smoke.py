@@ -180,21 +180,55 @@ Run from the root of a checkout. Phases:
    folded steps, later ones not), both values held to the plan's
    reference at 1e-4, and the later call's warm time against the
    unfolded expression's, in turns;
-27. one JSON line of kernel results (launches on the main path, error,
+27. mixed real and complex inputs on the kernel route: the 7x7 lattice
+   with input 0 times exp(i pi/3) as complex64 and every other input
+   real float32, stripped with ``implementation="pallas"``: each pair
+   step promotes its operands, and only the steps whose operands both
+   stay real launch ``bmm_absmax`` (their number reckoned from the plan,
+   ``_kernel_step_ids``: 23 per slice, 368 in all, against 464 with
+   every input real); |delta log10| of the modulus and the phase error
+   in radians against the plan's reference times the phase, both
+   <= 1e-4;
+28. the compressed 16x16 lattice of phase 16 in float64 with input 0
+   times the same phase (complex128): the truncations depend on
+   singular values only, so the value is ``COMPRESSED_LOG10`` times the
+   phase; |delta log10| and the phase error <= 1e-4;
+29. the JAX package's example (``examples/ex_plan_slice_contract.py``)
+   through the port at full width, on phase 4's m10 instance:
+   ``optimize_random_greedy_track_flops(ntrials=128, seed=0)``,
+   ``subtree_reconfigure_(subtree_size=10)``,
+   ``slice_and_reconfigure_(2**27, temperature=0)``; its
+   ``describe("full")`` equal to the CPU's (``EXAMPLE_DESCRIBE``,
+   ``scratch/example_multi_plans.py``); ``tree.contract`` on the card
+   (the grouped route) over its 16 slices: chain launches = the plan's
+   passes x slices (> 0), relerr <= 1e-5 against the sidecar's full
+   amplitude (key ``"4"``), and ``tree.benchmark``'s best of 3;
+30. ``HyperMultiOptimizer`` on the same m10 network over 4
+   configurations of t27's two sliced indices (``varmults``), with the
+   seeded greedy and labels methods of phases 17-20, 16 trials and
+   subtree reconfiguration, on the host: planning seconds, the tree's
+   ``total_flops`` and ``exact_multi_stats`` over the 4 configurations;
+   the phase fails if its largest intermediate exceeds 2^30; its path
+   contracted with those two indices sliced (one slice per
+   configuration) through the grouped route, the sum held to the
+   sidecar's full amplitude at relerr <= 1e-5, with its chain launches;
+31. one JSON line of kernel results (launches on the main path, error,
    ms, plain ms, bound, library ms; the gate chain's m=20 figures
    under ``m20_*`` keys, the launches of phases 17 and 18 under
    ``hyper_*`` keys, of phases 19 and 20 under ``default_*`` keys, of
-   phases 22-24 under ``sharded_*`` (per rank) and ``nccl_*`` keys and
-   of phase 26 under ``folded_*`` keys), one JSON line
+   phases 22-24 under ``sharded_*`` (per rank) and ``nccl_*`` keys, of
+   phase 26 under ``folded_*`` keys, of phase 27 under
+   ``mixed_lattice_launches`` and of phases 29 and 30 under
+   ``example_m10_launches`` and ``multi_m10_launches``), one JSON line
    ``{"host_native": {...}}`` of the host library's build seconds and
-   the planning seconds of phases 15, 17-21, then the last line
+   the planning seconds of phases 15, 17-21 and 30, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every instance is built and every plan loaded through the port
 (``cotengra_tpu_torch.rand_circuit_tn``, ``lattice_equation``,
 ``load_tree``): the script imports neither JAX nor the JAX package.
 
-Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15-20, 22-24, 26) is
+Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15-20, 22-24, 26-30) is
 driven with every kernel's launch count set to 0 just before it and
 read just after (in each rank, by the rank). Any failed
 phase raises, and the script exits non-zero without the last line. It
@@ -212,6 +246,7 @@ import contextlib
 import cProfile
 import gc
 import hashlib
+import itertools
 import json
 import math
 import pstats
@@ -288,6 +323,23 @@ HYPER_FLOPS_SLACK = 1.0
 # registered under this prefix (the package's own searches are unseeded,
 # as the reference's), so that each search gives the same tree each run
 SEEDED_PREFIX = "smoke-seeded-"
+# phases 27-28: one input multiplied by this phase, the rest real; the
+# exact value is the real network's times it
+MIXED_PHASE = np.pi / 3
+MIXED_INPUT = 0
+# phase 29: the JAX package's example (``examples/ex_plan_slice_contract.py``)
+# through the port on m10, its slicing target raised to the main path's;
+# its describe("full") on the CPU (``python scratch/example_multi_plans.py``)
+EXAMPLE_TARGET = 2**27
+EXAMPLE_DESCRIBE = (
+    "log10[FLOPS]=11.31 log10[COMBO]=12.43 log2[SIZE]=27.00 "
+    "log2[PEAK]=28.00 NSLICES=16.00"
+)
+# phase 30: HyperMultiOptimizer on m10 over t27's two sliced indices
+MULTI_VARMULTS = ("ƌ", "Ɨ")
+MULTI_CONFIGS = 4
+MULTI_TRIALS = 16
+MULTI_MAX_SIZE = 2**30
 # published H100 SXM peaks at a 700 W power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12        # float32 FMA outside the tensor cores
@@ -2321,9 +2373,11 @@ def phase_sharded_tiny():
     print(f"# tiny stripped sum phase_s {wall:.1f}", flush=True)
 
 
-def _kernel_step_ids(tree):
+def _kernel_step_ids(tree, complex_inputs=()):
     """The IR steps of ``tree`` that go through ``bmm_absmax`` (float32,
-    stripped), by the executor's rule."""
+    stripped), by the executor's rule; with ``complex_inputs`` (input
+    positions) complex64, a step's output complex where an operand is,
+    so that only the steps whose operands both stay real count."""
     from cotengra_tpu_torch.ops.executor import _pallas_step_ok
     from cotengra_tpu_torch.ops.lowering import (
         PairStep,
@@ -2331,13 +2385,23 @@ def _kernel_step_ids(tree):
     )
 
     sizes = tree.size_dict
+    ir = extract_contractions(tree)
+    cplx = set(complex_inputs)
     ids = set()
-    for si, step in enumerate(extract_contractions(tree).steps):
+    for si, step in enumerate(ir.steps):
         if isinstance(step, PairStep):
-            x = torch.empty([sizes[ix] for ix in step.l_legs], device="meta")
-            y = torch.empty([sizes[ix] for ix in step.r_legs], device="meta")
+            dts = [torch.complex64 if i in cplx else torch.float32
+                   for i in (step.l, step.r)]
+            x = torch.empty([sizes[ix] for ix in step.l_legs],
+                            dtype=dts[0], device="meta")
+            y = torch.empty([sizes[ix] for ix in step.r_legs],
+                            dtype=dts[1], device="meta")
             if _pallas_step_ok(x, y, step):
                 ids.add(si)
+            if step.l in cplx or step.r in cplx:
+                cplx.add(step.out)
+        elif step.inp in cplx:
+            cplx.add(step.out)
     return ids
 
 
@@ -2436,6 +2500,297 @@ def phase_folded(dev):
         flush=True,
     )
     return c1["bmm_absmax"], c2["bmm_absmax"]
+
+
+def _phase_error(value):
+    """|angle(value) - MIXED_PHASE| in radians, wrapped to [0, pi]."""
+    d = (np.angle(value) - MIXED_PHASE + np.pi) % (2 * np.pi) - np.pi
+    return abs(float(d))
+
+
+def phase_mixed_lattice(dev):
+    """The 7x7 lattice with input ``MIXED_INPUT`` times exp(i pi/3) as
+    complex64 and the rest real float32, stripped through
+    ``bmm_absmax``: the real x real steps launch the kernel, the others
+    promote and take ``torch.einsum``. Held to the plan's reference
+    times the phase. Returns the kernel launches."""
+    import cotengra_tpu_torch as ctt
+
+    t_phase = time.perf_counter()
+    tree, arrays, ref = _load_lattice()
+    arrays = list(arrays)
+    arrays[MIXED_INPUT] = (
+        arrays[MIXED_INPUT] * np.exp(1j * MIXED_PHASE)
+    ).astype(np.complex64)
+    per_slice = len(_kernel_step_ids(tree, {MIXED_INPUT}))
+    expect = per_slice * tree.multiplicity
+    real_expect = len(_kernel_step_ids(tree)) * tree.multiplicity
+    if not 0 < expect < real_expect:
+        raise AssertionError(
+            f"mixed {LATTICE}: {expect} kernel steps, not in (0, "
+            f"{real_expect})"
+        )
+    _reset_launches()
+    m, e = ctt.contract_tree(
+        tree, arrays, device=dev, strip_exponent=True,
+        implementation="pallas",
+    )
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    val = complex(m.item())
+    log10 = float(np.log10(abs(val)) + e.item())
+    d_log10 = abs(log10 - ref["log10"])
+    d_phase = _phase_error(val)
+    if m.dtype != torch.complex64 or e.dtype != torch.float32:
+        raise AssertionError(f"mixed {LATTICE}: {m.dtype}, {e.dtype}")
+    if counts != {"gate_chain": 0, "bmm_absmax": expect}:
+        raise AssertionError(
+            f"mixed {LATTICE}: launches {counts}, {expect} real kernel "
+            "steps expected"
+        )
+    if not (np.isfinite(log10) and d_log10 <= LOG10_ATOL
+            and d_phase <= LOG10_ATOL):
+        raise AssertionError(
+            f"mixed {LATTICE}: log10 {log10!r} vs {ref['log10']!r} "
+            f"(|delta| {d_log10:.3e}), phase error {d_phase:.3e} rad; "
+            f"limits {LOG10_ATOL}"
+        )
+    print(
+        f"# main path mixed {LATTICE}: input {MIXED_INPUT} x exp(i pi/3) "
+        f"complex64, the rest float32: value {val:.9e} x "
+        f"10^{e.item():.6f} |delta log10| {d_log10:.3e} phase error "
+        f"{d_phase:.3e} rad bmm_absmax launches {counts['bmm_absmax']} "
+        f"({per_slice} real kernel steps per slice; {real_expect} with "
+        f"every input real) phase_s {time.perf_counter() - t_phase:.1f}",
+        flush=True,
+    )
+    return counts["bmm_absmax"]
+
+
+def phase_mixed_compressed(dev):
+    """The compressed 16x16 lattice at chi=32 in float64 with input
+    ``MIXED_INPUT`` times exp(i pi/3) (complex128): the truncations
+    depend only on singular values, so the value is the real one's
+    times the phase."""
+    from cotengra_tpu_torch.pathfinders.compressed import (
+        greedy_compressed_ssa,
+    )
+    from cotengra_tpu_torch.tree_compressed import ContractionTreeCompressed
+
+    t_phase = time.perf_counter()
+    inputs, output, size_dict, arrays = _compressed_inputs()
+    tree = ContractionTreeCompressed.from_path(
+        inputs, output, size_dict, ssa_path=greedy_compressed_ssa(
+            inputs, output, size_dict, chi=COMPRESSED_CHI
+        ),
+    )
+    arrays[MIXED_INPUT] = arrays[MIXED_INPUT] * np.exp(1j * MIXED_PHASE)
+    tensors = [torch.as_tensor(a, device=dev) for a in arrays]
+    _reset_launches()
+    m, e = tree.contract_compressed(
+        tensors, chi=COMPRESSED_CHI, strip_exponent=True, device=dev
+    )
+    val = complex(m.item())
+    launches = _read_launches()
+    log10 = float(np.log10(abs(val)) + e.item())
+    d_log10 = abs(log10 - COMPRESSED_LOG10)
+    d_phase = _phase_error(val)
+    if m.dtype != torch.complex128 or launches != {"gate_chain": 0,
+                                                   "bmm_absmax": 0}:
+        raise AssertionError(
+            f"mixed {COMPRESSED}: {m.dtype}, launches {launches}"
+        )
+    if not (np.isfinite(log10) and d_log10 <= COMPRESSED_ATOL[torch.float64]
+            and d_phase <= COMPRESSED_ATOL[torch.float64]):
+        raise AssertionError(
+            f"mixed {COMPRESSED}: log10 {log10!r} vs {COMPRESSED_LOG10!r} "
+            f"(|delta| {d_log10:.3e}), phase error {d_phase:.3e} rad"
+        )
+    print(
+        f"# main path mixed {COMPRESSED}: input {MIXED_INPUT} x "
+        f"exp(i pi/3) complex128, the rest float64: value {val!r} x "
+        f"10^{e.item()!r} |delta log10| {d_log10:.3e} phase error "
+        f"{d_phase:.3e} rad phase_s {time.perf_counter() - t_phase:.1f}",
+        flush=True,
+    )
+
+
+def _example_plan(inputs, output, size_dict):
+    """``examples/ex_plan_slice_contract.py``'s planning steps through the
+    port (seed 0, the slice finder at temperature 0), sliced to
+    ``EXAMPLE_TARGET``: the same tree every run. Returns it and the
+    planning seconds."""
+    import cotengra_tpu_torch as ctt
+
+    t0 = time.perf_counter()
+    ssa, _ = ctt.optimize_random_greedy_track_flops(
+        inputs, output, size_dict, ntrials=128, seed=0, use_ssa=True
+    )
+    tree = ctt.ContractionTree.from_path(
+        inputs, output, size_dict, ssa_path=ssa
+    )
+    tree.subtree_reconfigure_(subtree_size=10)
+    tree.slice_and_reconfigure_(EXAMPLE_TARGET, temperature=0)
+    return tree, time.perf_counter() - t0
+
+
+def phase_example(dev):
+    """The JAX package's example on m10 at full width, through the port:
+    its plan's ``describe("full")`` equal to the CPU's, then
+    ``tree.contract`` on its default route (the grouped one, with the
+    chain kernel) held to the sidecar's full amplitude, and
+    ``tree.benchmark``'s seconds. Returns the chain launches."""
+    t_phase = time.perf_counter()
+    committed, arrays, refs = _load_instance(T27)
+    ref = refs[committed.multiplicity]
+    tree, plan_s = _example_plan(
+        committed.inputs, committed.output, committed.size_dict
+    )
+    described = tree.describe("full")
+    print(
+        f"# example m10: planned in {plan_s:.1f}s ({_accel_note()}; tree "
+        f"{_tree_hash(tree)}): {described}",
+        flush=True,
+    )
+    if described != EXAMPLE_DESCRIBE:
+        raise AssertionError(
+            f"example m10: describe {described!r} != the CPU's "
+            f"{EXAMPLE_DESCRIBE!r}"
+        )
+    expect = _chain_passes(tree) * tree.multiplicity
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    amp = tree.contract(arrays, device=dev)
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    amp0 = complex(amp.cpu().item())
+    relerr = abs(amp0 - ref) / abs(ref)
+    if counts != {"gate_chain": expect, "bmm_absmax": 0} or expect <= 0:
+        raise AssertionError(
+            f"example m10: launches {counts}, the plan has {expect} passes"
+        )
+    if not relerr <= AMP_RTOL:
+        raise AssertionError(
+            f"example m10: amplitude {amp0} vs reference {ref}: relerr "
+            f"{relerr:.3e} > {AMP_RTOL}"
+        )
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bench = tree.benchmark(arrays=arrays, device=dev, repeats=3)
+    print(
+        f"# main path example m10: slices {tree.multiplicity} amplitude "
+        f"{amp0.real:.12e}{amp0.imag:+.12e}j relerr {relerr:.3e} chain "
+        f"launches {counts['gate_chain']} ({_chain_passes(tree)} per "
+        f"slice) peak_mem_gib {peak:.2f} benchmark_s {bench['time']:.4f} "
+        f"(best of 3, {bench['tflops_per_sec']:.2f} TFLOP/s of the tree's "
+        f"float32 count) phase_s {time.perf_counter() - t_phase:.1f}",
+        flush=True,
+    )
+    return counts["gate_chain"]
+
+
+def _multi_plan(tree):
+    """``HyperMultiOptimizer`` on the instance of ``tree`` over
+    ``MULTI_CONFIGS`` configurations of ``MULTI_VARMULTS``, with the
+    seeded greedy and labels methods of phases 17-20 (one seed stream)
+    and subtree reconfiguration; the same tree every run. Returns it
+    and the planning seconds."""
+    import random
+
+    import cotengra_tpu_torch as ctt
+
+    opt = ctt.HyperMultiOptimizer(
+        varmults=MULTI_VARMULTS, numconfigs=MULTI_CONFIGS,
+        methods=_seeded_methods(HYPER_LABELS, random.Random(HYPER_SEED)),
+        max_repeats=MULTI_TRIALS, seed=HYPER_SEED, reconf_opts={},
+        parallel=False,
+    )
+    t0 = time.perf_counter()
+    multi = opt.search(tree.inputs, tree.output, tree.size_dict)
+    return multi, time.perf_counter() - t0
+
+
+def _multi_configs(tree):
+    return [
+        dict(zip(MULTI_VARMULTS, values))
+        for values in itertools.product(
+            *(range(tree.size_dict[ix]) for ix in MULTI_VARMULTS)
+        )
+    ]
+
+
+def _multi_sliced(multi):
+    """The multi tree's contractions as a plain tree with its variable
+    indices sliced: one slice per configuration."""
+    import cotengra_tpu_torch as ctt
+
+    tree = ctt.ContractionTree.from_path(
+        multi.inputs, multi.output, multi.size_dict,
+        ssa_path=multi.get_ssa_path(),
+    )
+    for ix in MULTI_VARMULTS:
+        tree.remove_ind_(ix)
+    return tree
+
+
+def phase_multi(dev):
+    """A multi-contraction plan of m10 over t27's two sliced indices,
+    its stats over the 4 configurations, and its path contracted with
+    those indices sliced through the grouped route on the card, summed
+    over the 4 slices and held to the sidecar's full amplitude.
+    Returns the chain launches."""
+    t_phase = time.perf_counter()
+    committed, arrays, refs = _load_instance(T27)
+    ref = refs[committed.multiplicity]
+    if set(committed.sliced_inds) != set(MULTI_VARMULTS):
+        raise AssertionError(f"multi m10: t27 slices {committed.sliced_inds}")
+    multi, plan_s = _multi_plan(committed)
+    configs = _multi_configs(committed)
+    stats = multi.exact_multi_stats(configs)
+    print(
+        f"# multi m10: planned in {plan_s:.1f}s ({MULTI_TRIALS} trials, "
+        f"methods {HYPER_LABELS} seeded, {_accel_note()}; tree "
+        f"{_tree_hash(multi)}): {type(multi).__name__} total_flops "
+        f"{multi.total_flops():.6e} (log10 {multi.total_flops(log=10):.3f}) "
+        f"log2 max {multi.max_size(log=2):.2f}; exact_multi_stats over "
+        f"{len(configs)} configurations {stats}",
+        flush=True,
+    )
+    if multi.max_size() > MULTI_MAX_SIZE:
+        raise AssertionError(
+            f"multi m10: largest intermediate 2^"
+            f"{multi.max_size(log=2):.2f} > 2^"
+            f"{math.log2(MULTI_MAX_SIZE):.0f}"
+        )
+    tree = _multi_sliced(multi)
+    if tree.multiplicity != len(configs):
+        raise AssertionError(f"multi m10: {tree.multiplicity} slices")
+    expect = _chain_passes(tree) * tree.multiplicity
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    amp = tree.contract(arrays, device=dev, implementation="grouped")
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    amp0 = complex(amp.cpu().item())
+    relerr = abs(amp0 - ref) / abs(ref)
+    if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+        raise AssertionError(
+            f"multi m10: launches {counts}, the plan has {expect} passes"
+        )
+    if not relerr <= AMP_RTOL:
+        raise AssertionError(
+            f"multi m10: amplitude {amp0} vs reference {ref}: relerr "
+            f"{relerr:.3e} > {AMP_RTOL}"
+        )
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(
+        f"# main path multi m10: slices {tree.multiplicity} (one per "
+        f"configuration) amplitude {amp0.real:.12e}{amp0.imag:+.12e}j "
+        f"relerr {relerr:.3e} chain launches {counts['gate_chain']} "
+        f"({_chain_passes(tree)} per slice) peak_mem_gib {peak:.2f} "
+        f"phase_s {time.perf_counter() - t_phase:.1f}",
+        flush=True,
+    )
+    return counts["gate_chain"], plan_s
 
 
 def _kernel_class(name):
@@ -2644,6 +2999,10 @@ def main():
     nccl_t27, nccl_lattice = phase_sharded_nccl()
     phase_sharded_tiny()
     folded_first, folded_later = phase_folded(dev)
+    mixed_lattice = phase_mixed_lattice(dev)
+    phase_mixed_compressed(dev)
+    example_launches = phase_example(dev)
+    multi_launches, multi_plan_s = phase_multi(dev)
     kernels = [
         {
             # per slice: the 13 chains of one m10-t27 slice
@@ -2676,6 +3035,10 @@ def main():
             # one NCCL rank
             "sharded_t27_launches": sharded_t27,
             "nccl_t27_launches": nccl_t27,
+            # all slices of the example's m10 plan and of the multi plan
+            # sliced over its configurations
+            "example_m10_launches": example_launches,
+            "multi_m10_launches": multi_launches,
         },
         {
             # per slice: one slice's kernel steps, summed over the plan's
@@ -2702,6 +3065,8 @@ def main():
             "nccl_lattice_launches": nccl_lattice,
             "folded_first_launches": folded_first,
             "folded_later_launches": folded_later,
+            # the 7x7 with one complex input: its real x real steps
+            "mixed_lattice_launches": mixed_lattice,
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2714,6 +3079,7 @@ def main():
         "auto6x6_plan_s": auto_plan_s,
         "m10_trial_s": timing["native"],
         "m10_trial_s_py": timing["pure Python"],
+        "multi_m10_plan_s": multi_plan_s,
     }}), flush=True)
     print(json.dumps({
         "ok": True,

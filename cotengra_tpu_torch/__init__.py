@@ -16,7 +16,9 @@ bookkeeping with slicing and subtree reconfiguration (``tree``),
 ``SliceFinder`` (``slicing``), the labels partitioner and simulated
 annealing (``pathfinders.labels``, ``annealing``), host pools
 (``parallel``) and the hyper-optimizer with its samplers and presets
-(``hyper``), which ``"auto"`` runs on hard contractions, with the native
+(``hyper``), which ``"auto"`` runs on hard contractions, its
+multi-contraction variant (``tree_multi``), the optional path finders
+(external binaries, kahypar, igraph, opt_einsum, MCTS), with the native
 planning library (``ops.native``: host C++ greedy, random-greedy,
 optimal DP, compressed replay and the ``ctgpart`` partitioner,
 ``pathfinders.partition``, built with ``g++`` at first use) - and runs trees
@@ -121,6 +123,7 @@ from .tree import (
     ssa_to_linear,
 )
 from .tree_compressed import ContractionTreeCompressed
+from .tree_multi import ContractionTreeMulti
 from .utils.eqs import hash_contraction
 from .utils.io import (
     hash_contraction_b,
@@ -135,6 +138,7 @@ register_builtin_presets()
 
 from .hyper import (  # noqa: E402
     HyperCompressedOptimizer,
+    HyperMultiOptimizer,
     HyperOptimizer,
     ReusableHyperCompressedOptimizer,
     ReusableHyperOptimizer,
@@ -149,6 +153,27 @@ from .hyper import (  # noqa: E402
 from .hyper import register_hyper_presets as _register_hyper_presets  # noqa: E402,E501
 
 _register_hyper_presets()
+
+# the optional path finders: external tree-decomposition binaries (found
+# on PATH when used), kahypar and igraph (imported where installed) and
+# opt_einsum's preset registry; each registers whether or not its
+# dependency is there, and fails at search time without it
+from .pathfinders.external import (  # noqa: E402
+    FlowCutterOptimizer,
+    QuickBBOptimizer,
+    optimize_flowcutter,
+    optimize_quickbb,
+    register_external_presets,
+)
+from .pathfinders.kahypar import (  # noqa: E402
+    register_kahypar_hyper_methods,
+)
+from .pathfinders.igraph import register_igraph_hyper_methods  # noqa: E402
+from .oe import OEPathOptimizer, register_opt_einsum_presets  # noqa: E402
+
+register_external_presets()
+register_kahypar_hyper_methods()
+register_igraph_hyper_methods()
 
 # the reference's aliases (``cotengra.__init__``)
 contract = einsum
@@ -174,6 +199,8 @@ from .pathfinders import basic as path_greedy  # noqa: E402
 from .pathfinders import compressed as path_compressed_greedy  # noqa: E402
 from .pathfinders import windowed_opt as path_compressed  # noqa: E402
 from .pathfinders import compressed_bb as path_compressed_branchbound  # noqa: E402,E501
+from .pathfinders import igraph as path_igraph  # noqa: E402
+from .pathfinders import kahypar as path_kahypar  # noqa: E402
 from .pathfinders import labels as path_labels  # noqa: E402
 from .hyper import optlibs as hyper_cmaes  # noqa: E402
 from .hyper import optlibs as hyper_nevergrad  # noqa: E402
@@ -191,15 +218,20 @@ __all__ = [
     "ContractionCosts",
     "ContractionTree",
     "ContractionTreeCompressed",
+    "ContractionTreeMulti",
     "EdgeSortOptimizer",
     "FlopsObjective",
+    "FlowCutterOptimizer",
     "GreedyOptimizer",
     "HyperCompressedOptimizer",
     "HyperGraph",
+    "HyperMultiOptimizer",
     "HyperOptimizer",
     "LimitObjective",
+    "OEPathOptimizer",
     "OptimalOptimizer",
     "PathOptimizer",
+    "QuickBBOptimizer",
     "RandomGreedyOptimizer",
     "RandomOptimizer",
     "ReusableHyperCompressedOptimizer",
@@ -272,8 +304,10 @@ __all__ = [
     "optimal_optimize",
     "optimal_outer_optimize",
     "optimize_edgesort",
+    "optimize_flowcutter",
     "optimize_greedy",
     "optimize_optimal",
+    "optimize_quickbb",
     "optimize_random",
     "optimize_random_greedy_track_flops",
     "optimize_simplify",
@@ -282,6 +316,8 @@ __all__ = [
     "path_compressed_branchbound",
     "path_compressed_greedy",
     "path_greedy",
+    "path_igraph",
+    "path_kahypar",
     "path_labels",
     "perverse_equation",
     "rand_circuit_tn",
@@ -289,8 +325,12 @@ __all__ = [
     "rand_tree",
     "randreg_equation",
     "register_builtin_presets",
+    "register_external_presets",
     "register_hyper_function",
     "register_hyper_optlib",
+    "register_igraph_hyper_methods",
+    "register_kahypar_hyper_methods",
+    "register_opt_einsum_presets",
     "register_preset",
     "resolve_device",
     "save_instance",

@@ -3,9 +3,8 @@ registry with the built-in methods (``greedy``, ``random-greedy``,
 ``edgesort``, ``labels``, ``labels-agglom``, the native partitioner's
 ``ctgpart``, ``ctgpart-balanced`` and ``ctgpart-agglom``,
 ``greedy-compressed``, ``greedy-span``), the samplers, the driver, and
-the ``hyper`` presets.
-
-Not ported yet: ``HyperMultiOptimizer`` (with ``tree_multi.py``).
+the ``hyper`` presets, and ``HyperMultiOptimizer`` for batches of index
+configurations (``tree_multi.py``).
 """
 
 import functools
@@ -216,6 +215,29 @@ class HyperCompressedOptimizer(HyperOptimizer):
         self.tree_class = ContractionTreeCompressed
 
 
+class HyperMultiOptimizer(HyperOptimizer):
+    """Hyper-optimizer for one network contracted over a batch of
+    ``numconfigs`` configurations of the indices ``varmults``: trials
+    build ``ContractionTreeMulti`` trees scored by the multi objective
+    of ``strategy`` (``"uniform"``, ``"dense"`` or ``"linear"``)."""
+
+    multicontraction = True
+
+    def __init__(
+        self,
+        varmults=None,
+        numconfigs=1,
+        strategy="uniform",
+        **kwargs,
+    ):
+        super().__init__(**kwargs)
+        self.multi_opts = {
+            "varmults": tuple(varmults or ()),
+            "numconfigs": numconfigs,
+            "strategy": strategy,
+        }
+
+
 class ReusableHyperCompressedOptimizer(ReusableHyperOptimizer):
     """Disk-cached wrapper around HyperCompressedOptimizer."""
 
@@ -315,8 +337,7 @@ def register_hyper_presets():
         ),
     )
     # method-pinned variants are registered unconditionally: using one
-    # whose method is not registered (kahypar, igraph: not ported) fails
-    # at search time with the hyper-registry error naming the method
+    # whose dependency is absent (kahypar, igraph) fails at search time
     for name, method, kw in (
         ("hyper-labels", "labels", {}),
         ("hyper-kahypar", "kahypar", {}),
@@ -338,6 +359,7 @@ def register_hyper_presets():
 __all__ = [
     "EvolutionOptLib",
     "HyperCompressedOptimizer",
+    "HyperMultiOptimizer",
     "get_hyper_space",
     "get_optlib",
     "hyper_optimize",

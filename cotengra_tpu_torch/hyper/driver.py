@@ -13,8 +13,8 @@ by ``max_repeats`` / ``max_time`` seconds / ``"rate:F"`` /
 host: with seeded methods, the same seed gives the reference's trials
 and best tree. The default methods are the reference's: ``greedy`` and
 the native partitioner ``ctgpart`` where the native library builds,
-else ``greedy`` and ``labels``. Not ported yet: the multi-contraction
-trials (``multi_opts``, ``tree_multi.py``).
+else ``greedy`` and ``labels``. With ``multi_opts`` a trial builds a
+multi-contraction tree (``tree_multi.py``) for ``HyperMultiOptimizer``.
 """
 
 import math
@@ -94,17 +94,29 @@ def run_trial(
         tree_class = ContractionTree
 
     if multi_opts is not None:
-        raise NotImplementedError(
-            "multi_opts: the multi-contraction tree (tree_multi.py) is not "
-            "ported to cotengra_tpu_torch yet (ROADMAP A7)"
+        from ..scoring import get_multi_objective
+        from ..tree_multi import ContractionTreeMulti
+
+        tree = ContractionTreeMulti.from_path(
+            inputs, output, size_dict, ssa_path=ssa_path
         )
-    tree = tree_class.from_path(
-        inputs,
-        output,
-        size_dict,
-        ssa_path=ssa_path,
-        objective=minimize,
-    )
+        tree.sliced_inds = {
+            ix: None for ix in multi_opts.get("varmults", ())
+        }
+        tree.set_default_objective(
+            get_multi_objective(
+                multi_opts.get("strategy", "uniform"),
+                multi_opts.get("numconfigs", 1),
+            )
+        )
+    else:
+        tree = tree_class.from_path(
+            inputs,
+            output,
+            size_dict,
+            ssa_path=ssa_path,
+            objective=minimize,
+        )
 
     compressed = getattr(tree, "total_flops_exact", None) is not None
 
@@ -453,6 +465,52 @@ class HyperOptimizer(PathOptimizer):
     def __call__(self, *args, **kwargs):
         inputs, output, size_dict = self._detect_opt_einsum_call(args)
         return self.search(inputs, output, size_dict).get_path()
+
+    # -- introspection --
+
+    def get_trials(self, sort=None):
+        """The trials, in the order they finished or sorted by the key
+        ``sort`` (``"score"``, ``"flops"``, ...; a trial without it goes
+        last)."""
+        trials = list(self.trials)
+        if sort is not None:
+            trials.sort(key=lambda t: t.get(sort, float("inf")))
+        return trials
+
+    def print_trials(self, sort="score"):
+        """Print one line per trial: method, log10 flops, log2 size and
+        score."""
+        for t in self.get_trials(sort):
+            flops = t.get("flops", float("inf"))
+            size = t.get("size", float("inf"))
+            print(
+                f"{t['method']:>12} "
+                f"F={math.log10(max(flops, 1)):.2f} "
+                f"S={math.log2(max(size, 1)):.2f} "
+                f"score={t.get('score', float('inf')):.3f}"
+            )
+
+    def to_df(self):
+        """The trials as a ``pandas.DataFrame`` (pandas is needed here
+        only), one column per parameter as ``param_<name>``."""
+        import pandas as pd
+
+        rows = []
+        for t in self.trials:
+            rows.append(
+                {
+                    "method": t["method"],
+                    "flops": t.get("flops"),
+                    "size": t.get("size"),
+                    "write": t.get("write"),
+                    "score": t.get("score"),
+                    **{
+                        f"param_{k}": v
+                        for k, v in t.get("params", {}).items()
+                    },
+                }
+            )
+        return pd.DataFrame(rows)
 
 
 class ReusableHyperOptimizer(PathOptimizer):

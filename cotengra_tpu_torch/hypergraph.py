@@ -5,12 +5,17 @@ Nodes are tensors (keyed by int), edges are indices (keyed by label) and
 may connect any number of nodes (hyper edges). The compressed cost model
 (``scoring.py``) and the compressed path finders replay contractions on
 it with ``contract`` and chi-capped ``compress`` steps. Pure Python on
-the host: ``networkx`` is imported only inside ``to_networkx``. The
-reference's Laplacian, resistance centrality, loop and partition-weight
-helpers, which no ported code calls, are left out.
+the host, with the graph Laplacian, resistance distances and
+centrality in numpy (``get_laplacian``, ``resistance_*``), simple
+cycles (``compute_loops``) and the integer weights of a graph
+partitioner (``compute_weights``); ``networkx`` is imported only inside
+``to_networkx``.
 """
 
 import itertools
+import math
+
+import numpy as np
 
 from .utils.misc import prod
 
@@ -324,6 +329,104 @@ class HyperGraph:
         compressed-greedy pathfinders.
         """
         return self.simple_closeness(**kwargs)
+
+    def get_laplacian(self):
+        """Dense graph Laplacian of the clique expansion: each hyperedge
+        adds weight ``1/(|e|-1)`` between every pair of its nodes (so a
+        2-node edge adds exactly 1)."""
+        nodes = list(self.nodes)
+        pos = {i: p for p, i in enumerate(nodes)}
+        n = len(nodes)
+        lp = np.zeros((n, n))
+        for members in self.edges.values():
+            ms = [m for m in dict.fromkeys(members) if m in pos]
+            k = len(ms)
+            if k < 2:
+                continue
+            w = 1.0 / (k - 1)
+            for a in range(k):
+                ia = pos[ms[a]]
+                for b in range(a + 1, k):
+                    ib = pos[ms[b]]
+                    lp[ia, ib] -= w
+                    lp[ib, ia] -= w
+                    lp[ia, ia] += w
+                    lp[ib, ib] += w
+        return lp
+
+    def resistance_distances(self):
+        """All-pairs effective resistance distances, from the inverse of
+        the shifted Laplacian."""
+        lp = self.get_laplacian()
+        n = lp.shape[0]
+        if n == 0:
+            return lp
+        lp = lp + 1.0 / n
+        try:
+            inv = np.linalg.inv(lp)
+        except np.linalg.LinAlgError:
+            inv = np.linalg.pinv(lp)
+        d = np.diag(inv).copy()
+        return d[:, None] + d[None, :] - 2 * inv
+
+    def resistance_centrality(self, rescale=True):
+        """Centrality as the negated total resistance distance to all
+        other nodes, optionally rescaled into [0, 1]."""
+        rd = self.resistance_distances()
+        raw = -rd.sum(axis=1)
+        cents = {i: float(v) for i, v in zip(self.nodes, raw)}
+        if rescale and cents:
+            lo = min(cents.values())
+            hi = max(cents.values())
+            rng = (hi - lo) or 1.0
+            cents = {i: (v - lo) / rng for i, v in cents.items()}
+        return cents
+
+    def compute_loops(self, start=None, max_loop_length=None):
+        """The simple cycles of at most ``max_loop_length`` (default 6)
+        nodes, as sorted node tuples (small graphs)."""
+        if max_loop_length is None:
+            max_loop_length = 6
+        loops = set()
+        nodes = [start] if start is not None else list(self.nodes)
+        for s in nodes:
+            stack = [(s, (s,))]
+            while stack:
+                cur, path = stack.pop()
+                for j in self.neighbors(cur):
+                    if j == s and len(path) >= 3:
+                        loops.add(tuple(sorted(path)))
+                    elif j not in path and len(path) < max_loop_length:
+                        if j > s:  # start at the least node: no duplicates
+                            stack.append((j, path + (j,)))
+        return sorted(loops)
+
+    # -- partitioner support ---------------------------------------------
+
+    def compute_weights(self, weight_nodes="const", weight_edges="log"):
+        """Integer node and edge weights for graph partitioners:
+        ``"const"`` (1 each) or ``"log"`` (1 + log2 of the size)."""
+        if weight_nodes == "const":
+            node_weights = [1 for _ in self.nodes]
+        elif weight_nodes == "log":
+            node_weights = [
+                max(1, int(math.log2(max(self.node_size(i), 1)) + 1))
+                for i in self.nodes
+            ]
+        else:
+            raise ValueError(weight_nodes)
+
+        if weight_edges == "const":
+            edge_weights = {ix: 1 for ix in self.edges}
+        elif weight_edges == "log":
+            edge_weights = {
+                ix: max(1, int(math.log2(max(self.edge_size(ix), 1)) + 1))
+                for ix in self.edges
+            }
+        else:
+            raise ValueError(weight_edges)
+
+        return node_weights, edge_weights
 
     # -- export -----------------------------------------------------------
 

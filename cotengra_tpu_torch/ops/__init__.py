@@ -13,17 +13,30 @@ from .executor import (
     slice_arrays,
 )
 from .grouped import make_grouped_contractor
+from .lowering import ContractionIR, extract_contractions
+from .pairwise import (
+    apply_pairwise,
+    apply_single,
+    einsum as pairwise_einsum,
+    tensordot,
+)
 
 __all__ = [
+    "ContractionIR",
+    "apply_pairwise",
+    "apply_single",
     "benchmark_tree",
     "contract_core",
     "contract_slice",
     "contract_slices",
     "contract_tree",
+    "extract_contractions",
     "gather_slices",
     "gen_output_chunks",
     "make_contractor",
     "make_full_contractor",
     "make_grouped_contractor",
+    "pairwise_einsum",
     "slice_arrays",
+    "tensordot",
 ]

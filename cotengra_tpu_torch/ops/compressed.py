@@ -22,21 +22,27 @@ even for float64 inputs, as the reference sums it.
 import torch
 
 from .._device import resolve_device
-from .pairwise import apply_pairwise, apply_single
+from .pairwise import apply_pairwise, apply_single, promote_pair
+
+
+def _mm(a, b):
+    """``a @ b`` in the promoted dtype (a real factor meets a complex
+    one), as ``jnp.matmul`` promotes."""
+    return torch.matmul(*promote_pair(a, b))
 
 
 def _compress_pair_core(A, B, chi):
     """A: (la, D), B: (lb, D) sharing bond D>chi -> (la, chi), (lb, chi)."""
     Qa, Ra = torch.linalg.qr(A)        # (la, k) (k, D)
     Qb, Rb = torch.linalg.qr(B)        # (lb, k') (k', D)
-    M = Ra @ Rb.T                      # (k, k')
+    M = _mm(Ra, Rb.T)                  # (k, k')
     U, s, Vh = torch.linalg.svd(M, full_matrices=False)
     U = U[:, :chi]
     s = s[:chi]
     Vh = Vh[:chi, :]
     sq = torch.sqrt(s)
-    newA = Qa @ (U * sq[None, :])      # (la, chi)
-    newB = Qb @ (Vh.T * sq[None, :])   # (lb, chi)
+    newA = _mm(Qa, U * sq[None, :])    # (la, chi)
+    newB = _mm(Qb, Vh.T * sq[None, :])  # (lb, chi)
     return newA, newB
 
 
@@ -87,7 +93,8 @@ def contract_compressed(
     ----------
     tree : ContractionTree or ContractionTreeCompressed
     arrays : sequence of numpy arrays or torch tensors
-        Moved to ``device`` in their own dtype (float64 stays float64).
+        Moved to ``device`` in their own dtype (float64 stays float64);
+        real and complex inputs mix, each step promoting its operands.
     chi : int, optional
         Maximum bond dimension (default: the tree's default chi).
     order : "surface_order" or callable

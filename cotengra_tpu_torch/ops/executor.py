@@ -10,6 +10,9 @@ The counterpart of ``cotengra_tpu/ops/executor.py``:
    (reference ``_strip``); with ``implementation="pallas"`` the steps
    that qualify (``_pallas_step_ok``) go through the fused matmul+|max|
    kernel (``bmm_absmax.py``), the others through ``torch.einsum``.
+   Each pair step promotes its operands to their common dtype
+   (``apply_pairwise``), as JAX does, so real and complex inputs mix,
+   folded constants included; only real x real steps take the kernel.
 2. ``_build_best_core`` picks that direct core, or the grouped
    split-complex executor (``grouped.py``) for IRs above
    ``MAX_RANK_DIRECT``, by the reference's rule.
@@ -84,7 +87,9 @@ def _pallas_step_ok(x, y, step):
     """The reference's rule for the fused kernel
     (``executor.py::_try_pallas_step``): a real step whose operands both
     hold at least 2^14 elements and that is a clean batched matmul."""
-    if x.dtype.is_complex:
+    # both sides, where the reference looks at x only: the kernel takes
+    # real float32 operands, and a complex y would reach it otherwise
+    if x.dtype.is_complex or y.dtype.is_complex:
         return False
     if x.numel() < 2**14 or y.numel() < 2**14:
         return False  # too small to benefit
@@ -655,6 +660,8 @@ def benchmark_tree(
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         _pull(fn(*tensors))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
     run()  # warm-up

@@ -338,7 +338,7 @@ def make_grouped_contractor(
     index reaches run once per call, the others once per slice, on views
     selected from the raw planes (``slice_batch_mode="scan"``, which
     ``"auto"`` resolves to: one slice's memory at a time). ``"vmap"``,
-    all slices of the batch at once, is not ported (ROADMAP A8).
+    all slices of the batch at once, is not ported (ROADMAP A5).
     With ``constants`` (input positions whose planes never change),
     ``fn.fold(planes)`` runs the steps that only constants reach once,
     and ``fn(planes, slice_ids, folded)`` reuses its result
@@ -360,7 +360,7 @@ def make_grouped_contractor(
     if slice_batch and slice_batch_mode == "vmap":
         raise NotImplementedError(
             "slice_batch_mode='vmap' (all slices of a batch at once) is "
-            "not ported (ROADMAP A8: a batch leg through the chain "
+            "not ported (ROADMAP A5: a batch leg through the chain "
             "kernel); use 'scan'"
         )
     ir = extract_contractions(tree)

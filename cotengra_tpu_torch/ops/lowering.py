@@ -28,6 +28,16 @@ ContractionIR = namedtuple(
 )
 
 
+def effective_input_legs(tree, i):
+    """The legs of input ``i`` after slicing but before single-term
+    preprocessing: unique indices in first-appearance order, excluding
+    sliced ones."""
+    sliced = tree.sliced_inds
+    return tuple(dict.fromkeys(
+        ix for ix in tree.inputs[i] if ix not in sliced
+    ))
+
+
 def sliced_input_legs(tree, i):
     """Index labels of input ``i`` with sliced indices removed but repeats
     kept (the layout of the array handed to the executor after slicing).

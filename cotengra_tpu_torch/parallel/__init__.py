@@ -14,6 +14,8 @@ from .pools import (
     get_num_workers,
     get_pool_size,
     parse_parallel_arg,
+    set_parallel_backend,
+    should_nest,
     submit,
 )
 
@@ -28,5 +30,7 @@ __all__ = [
     "make_sharded_contractor",
     "maybe_init_distributed",
     "parse_parallel_arg",
+    "set_parallel_backend",
+    "should_nest",
     "submit",
 ]

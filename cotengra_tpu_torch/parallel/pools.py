@@ -6,8 +6,8 @@ reconfiguration) is combinatorial CPU work and stays on the host. This
 module is its pool plumbing: one ``parse_parallel_arg`` accepting
 ``False | True | int | "auto" | "threads[:N]" | "processes[:N]" |
 "loky[:N]" | "dask[:N]" | "ray[:N]" | an executor``, cached pool
-creation, ``submit``, and a worker-process guard that keeps workers
-from starting pools of their own. loky, dask and ray are
+creation, ``submit`` and ``scatter``, and a worker-process guard that
+keeps workers from starting pools of their own. loky, dask and ray are
 imported only when asked for, and raise ``ImportError`` when missing.
 
 A process forked after CUDA is initialised cannot use the card, and
@@ -129,6 +129,11 @@ def parse_parallel_arg(parallel):
     return pool
 
 
+def set_parallel_backend(parallel):
+    """Eagerly create and return the default pool."""
+    return parse_parallel_arg(parallel)
+
+
 def _get_loky_pool(n):
     """loky-backed reusable process pool: survives worker crashes and
     resizes in place. Imported from loky directly or via
@@ -206,6 +211,9 @@ def _get_ray_pool(n):
                 rf = self._remote_cache[fn] = ray.remote(fn)
             return _RayFuture(rf.remote(*args, **kwargs))
 
+        def scatter(self, data):
+            return ray.put(data)
+
     return _RayPool()
 
 
@@ -219,3 +227,31 @@ def get_pool_size(pool):
 def submit(pool, fn, *args, **kwargs):
     """Submit a job to any supported pool type."""
     return pool.submit(fn, *args, **kwargs)
+
+
+def can_scatter(pool):
+    """Whether the pool pre-scatters large objects (only distributed
+    pools such as dask's and ray's do; local pools need not)."""
+    return hasattr(pool, "scatter")
+
+
+def scatter(pool, data):
+    if can_scatter(pool):
+        return pool.scatter(data)
+    return data
+
+
+def should_nest(pool):
+    """Whether nested parallelism inside a trial is sensible (only for
+    pools whose workers can themselves reach a scheduler)."""
+    return False
+
+
+def maybe_leave_pool(pool):
+    """Hook for schedulers that let a worker secede (dask); a no-op for
+    local pools."""
+    return None
+
+
+def maybe_rejoin_pool(pool, token):
+    return None

@@ -2,9 +2,10 @@
 ``basic``, ``edgesort``, ``random``, the partitioners ``labels`` and
 ``partition`` (ctgpart, the native multilevel one), the tree refiner
 ``annealing``, and the compressed ``compressed``, ``windowed_opt``,
-``compressed_bb``). The hyper-optimizer that drives them is
-``cotengra_tpu_torch.hyper``. Not ported yet: ``kahypar``, ``igraph``,
-``mcts``, ``linegraph`` and the external adapters."""
+``compressed_bb``, the optional ``kahypar`` and ``igraph`` partitioners,
+the tree-decomposition adapters ``external`` over ``linegraph``, and the
+experimental ``mcts``). The hyper-optimizer that drives them is
+``cotengra_tpu_torch.hyper``."""
 
 from .base import PathOptimizer
 from .basic import (

@@ -10,8 +10,10 @@ chi-capped contraction by replaying it on a ``HyperGraph``
 
 String specs parse like ``"flops"``, ``"size"``, ``"write"``,
 ``"combo"``/``"combo-64"``, ``"limit:32"``, ``"peak-compressed-16"``
-(both ``-`` and ``:`` separators). Not ported yet: the TPU time model
-(``"tpu"``, which raises) and the multi-contraction objectives.
+(both ``-`` and ``:`` separators). The multi-contraction objectives
+(``MultiObjective*``, ``get_multi_objective``) price a batch of index
+configurations over one network (``tree_multi.py``). Not ported yet:
+the TPU time model (``"tpu"``, which raises).
 """
 
 import collections
@@ -641,3 +643,92 @@ def _parse_minimize_str(minimize):
 def get_score_fn(minimize):
     """Alias of :func:`parse_minimize`."""
     return parse_minimize(minimize)
+
+
+# -- multi-contraction scoring ------------------------------------------------
+#
+# For batches of index configurations sharing one network (for example
+# many amplitudes): each node's cost is multiplied by the expected number
+# of distinct configurations of its variable indices.
+
+
+class MultiObjective(Objective):
+    __slots__ = ("num_configs",)
+
+    def __init__(self, num_configs):
+        self.num_configs = num_configs
+
+    def compute_mult(self, dims):
+        raise NotImplementedError
+
+    def estimate_node_mult(self, tree, node):
+        return self.compute_mult(
+            [tree.size_dict[ix] for ix in tree.get_node_var_inds(node)]
+        )
+
+    def estimate_node_cache_mult(self, tree, node, sliced_ind_ordering):
+        node_var_inds = tree.get_node_var_inds(node)
+        non_heavy = [
+            ix
+            for ix in node_var_inds
+            if ix not in sliced_ind_ordering[: len(node_var_inds)]
+        ]
+        return self.compute_mult([tree.size_dict[ix] for ix in non_heavy])
+
+    def __call__(self, trial):
+        ensure_basic_quantities(trial)
+        return math.log2(trial["flops"]) + 1e-3 * math.log2(trial["size"])
+
+
+class MultiObjectiveDense(MultiObjective):
+    """Every configuration of the variable indices occurs."""
+
+    __slots__ = ()
+
+    def compute_mult(self, dims):
+        p = 1
+        for d in dims:
+            p *= d
+        return p
+
+
+def expected_coupons(num_sub, num_total):
+    """Expected number of distinct 'coupons' after ``num_total`` uniform
+    draws from ``num_sub`` possibilities."""
+    return num_sub * (1 - (1 - 1 / num_sub) ** num_total)
+
+
+class MultiObjectiveUniform(MultiObjective):
+    """Configurations drawn uniformly at random."""
+
+    __slots__ = ()
+
+    def compute_mult(self, dims):
+        p = 1
+        for d in dims:
+            p *= d
+        return expected_coupons(p, self.num_configs)
+
+
+class MultiObjectiveLinear(MultiObjective):
+    """The number of distinct configurations grows linearly with the
+    number of variable indices (locally connected ones)."""
+
+    __slots__ = ("coeff",)
+
+    def __init__(self, num_configs, coeff=1):
+        self.coeff = coeff
+        super().__init__(num_configs=num_configs)
+
+    def compute_mult(self, dims):
+        return min(self.coeff * len(dims), self.num_configs)
+
+
+def get_multi_objective(strategy, num_configs, **kwargs):
+    if isinstance(strategy, MultiObjective):
+        return strategy
+    return {
+        "dense": MultiObjectiveDense,
+        "uniform": MultiObjectiveUniform,
+        "linear": MultiObjectiveLinear,
+    }[strategy](num_configs, **kwargs)

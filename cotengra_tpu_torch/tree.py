@@ -52,6 +52,7 @@ from typing import Optional
 
 from .scoring import DEFAULT_COMBO_FACTOR, parse_minimize
 from .utils.misc import MaxCounter, compute_size_by_dict, get_rng, prod
+from .utils.symbols import get_symbol_map, inds_to_eq
 
 
 @dataclass(order=True, frozen=True)
@@ -83,6 +84,10 @@ def legs_union(legs_seq):
         for ix, c in legs.items():
             merged[ix] = merged.get(ix, 0) + c
     return merged
+
+
+def node_from_single(i):
+    return 1 << i
 
 
 def node_get_single_el(node):
@@ -189,6 +194,18 @@ class ContractionTree:
 
     def leaf(self, i):
         return 1 << i
+
+    def input_to_node(self, i):
+        return 1 << i
+
+    def is_leaf(self, node):
+        return node.bit_count() == 1
+
+    def node_extent(self, node):
+        return node.bit_count()
+
+    def get_leaves(self, node):
+        return tuple(node_members(node))
 
     def is_complete(self):
         # a complete binary tree over N leaves has N - 1 internal nodes,
@@ -306,6 +323,12 @@ class ContractionTree:
             )
         self._flops[node] = flops
         return flops
+
+    def get_centrality(self, node):
+        """The mean of the leaves' ``HyperGraph.simple_centrality``."""
+        cents = self.get_hypergraph().simple_centrality()
+        ls = self.get_leaves(node)
+        return sum(cents[i] for i in ls) / len(ls)
 
     # -- structural mutation -----------------------------------------------
 
@@ -533,6 +556,20 @@ class ContractionTree:
             pm[r] = parent
         return pm
 
+    def descend(self, mode="dfs"):
+        """Generate ``(parent, left, right)`` top-down, depth first
+        (``"dfs"``) or breadth first (any other mode)."""
+        queue = [self.root]
+        while queue:
+            node = queue.pop(-1 if mode == "dfs" else 0)
+            if node in self.children:
+                l, r = self.children[node]
+                yield node, l, r
+                if l.bit_count() > 1:
+                    queue.append(l)
+                if r.bit_count() > 1:
+                    queue.append(r)
+
     def surface_order(self, node):
         """Ordering key of the 'surface order': the order in which
         contractions were added to the tree (that of the generating
@@ -624,8 +661,86 @@ class ContractionTree:
             peak = math.log(max(peak, 1), log)
         return peak
 
+    def max_contraction_size(self, log=None):
+        """The largest sum of a step's output and operand sizes."""
+        Y = max(
+            self.get_size(p) + self.get_size(l) + self.get_size(r)
+            for p, (l, r) in self.children.items()
+        )
+        if log is not None:
+            Y = math.log(Y, log)
+        return Y
+
+    def peak_optimized_order(self):
+        """A traversal order (a rank callable for ``traverse``,
+        ``peak_size`` and lowering) that lowers the peak concurrent
+        memory: at each node the child whose depth-first peak exceeds
+        its held size by more is evaluated first. The children stay as
+        they are (the lowering's pair steps depend on left and right).
+
+        Returns ``None`` when this depth-first schedule does not beat
+        the default order's peak (which may interleave subtrees, as no
+        depth-first order can)."""
+        peak = {}
+        first_right = {}
+        for p, l, r in self.traverse():
+            sl, sr = self.get_size(l), self.get_size(r)
+            pl, pr = peak.get(l, sl), peak.get(r, sr)
+            hold = sl + sr + self.get_size(p)
+            plr = max(pl, sl + pr, hold)  # evaluate l before r
+            prl = max(pr, sr + pl, hold)  # evaluate r before l
+            first_right[p] = prl < plr
+            peak[p] = min(plr, prl)
+        # the chosen depth-first schedule as post-order ranks
+        rank = {}
+        stack = [(self.root, False)]
+        while stack:
+            node, emit = stack.pop()
+            if emit:
+                rank[node] = len(rank)
+                continue
+            if node not in self.children:
+                continue
+            l, r = self.children[node]
+            stack.append((node, True))
+            # the child evaluated first is pushed last, to pop first
+            if first_right[node]:
+                stack.extend(((l, False), (r, False)))
+            else:
+                stack.extend(((r, False), (l, False)))
+        order = rank.__getitem__
+        if self.peak_size(order=order) >= self.peak_size():
+            return None
+        return order
+
+    def contraction_cost(self, log=None):
+        return self.total_flops(dtype=None, log=log)
+
     def contraction_width(self, log=2):
         return self.max_size(log=log)
+
+    def contraction_scaling(self):
+        return max(
+            (len(self.get_involved(n)) for n in self.children), default=0
+        )
+
+    def arithmetic_intensity(self):
+        return self.total_flops() / self.total_write()
+
+    def naive_cost(self, log=None):
+        """The cost of one einsum over every index at once."""
+        if log is None:
+            return self.multiplicity * prod(
+                self.size_dict[ix] for ix in self.appearances
+            )
+        return sum(
+            math.log(self.size_dict[ix], log) for ix in self.appearances
+        ) + math.log(max(self.multiplicity, 1), log)
+
+    def speedup(self, log=None):
+        if log is None:
+            return self.naive_cost() / self.contraction_cost()
+        return self.naive_cost(log=log) - self.contraction_cost(log=log)
 
     @property
     def nslices(self):
@@ -639,6 +754,9 @@ class ContractionTree:
         )
 
     # -- paths -------------------------------------------------------------
+
+    def get_eq(self):
+        return inds_to_eq(self.inputs, self.output)
 
     def get_shapes(self):
         return tuple(
@@ -658,6 +776,9 @@ class ContractionTree:
     def get_path(self):
         """The tree as a linear (opt_einsum style) path."""
         return ssa_to_linear(self.get_ssa_path(), self.N)
+
+    path = get_path
+    ssa_path = get_ssa_path
 
     # -- compressed (chi-capped) cost model --------------------------------
 
@@ -1359,12 +1480,105 @@ class ContractionTree:
 
     contract_mpi = contract_sharded
 
+    def extract_contractions(self, order=None):
+        """The tree lowered to its flat step list
+        (``ops.lowering.extract_contractions``)."""
+        from .ops.lowering import extract_contractions
+
+        return extract_contractions(self, order=order)
+
+    def slice_arrays(self, arrays, i):
+        """The inputs of slice ``i`` (``ops.executor.slice_arrays``)."""
+        from .ops.executor import slice_arrays
+
+        return slice_arrays(self, arrays, i)
+
+    def gather_slices(self, slices, **kwargs):
+        """Sum and reassemble per-slice results
+        (``ops.executor.gather_slices``)."""
+        from .ops.executor import gather_slices
+
+        return gather_slices(self, slices, **kwargs)
+
+    def benchmark(self, arrays=None, dtype="float32", device="cuda",
+                  **kwargs):
+        """Seconds per full contraction on ``device`` and the rate it
+        implies (``ops.executor.benchmark_tree``: best of ``repeats``,
+        synchronizing a CUDA device before the clock is read)."""
+        from .ops.executor import benchmark_tree
+
+        return benchmark_tree(
+            self, device=device, arrays=arrays, dtype=dtype, **kwargs
+        )
+
+    # -- reports -----------------------------------------------------------
+
+    def print_contractions(self, sort=None, show_brackets=True):
+        """Print every contraction step: its indices, output size and
+        flops; ``sort="flops"`` lists the costliest first."""
+        symmap = get_symbol_map(list(self.inputs) + [tuple(self.output)])
+        steps = list(self.traverse())
+        if sort == "flops":
+            steps.sort(key=lambda plr: -self.get_flops(plr[0]))
+        for i, (p, l, r) in enumerate(steps):
+            l_str = "".join(symmap.get(ix, "?") for ix in self.get_legs(l))
+            r_str = "".join(symmap.get(ix, "?") for ix in self.get_legs(r))
+            p_str = "".join(symmap.get(ix, "?") for ix in self.get_legs(p))
+            print(
+                f"({i + 1:>3}) {l_str or '·'},{r_str or '·'}->"
+                f"{p_str or '·'}  "
+                f"size=2^{math.log2(max(self.get_size(p), 1)):.1f} "
+                f"flops=10^{math.log10(max(self.get_flops(p), 1)):.2f}"
+            )
+
+    def describe(self, info="normal", join=" "):
+        """The tree's costs in one line: ``"normal"`` (flops and largest
+        size), ``"full"`` (also combo cost, peak and slices) or
+        ``"concise"`` (the same, abbreviated)."""
+        self.contract_stats()
+        if info == "normal":
+            return join.join(
+                (
+                    f"log10[FLOPs]={self.total_flops(log=10):.2f}",
+                    f"log2[SIZE]={self.max_size(log=2):.2f}",
+                )
+            )
+        if info == "full":
+            s = [
+                f"log10[FLOPS]={self.total_flops(log=10):.2f}",
+                f"log10[COMBO]={self.combo_cost(log=10):.2f}",
+                f"log2[SIZE]={self.max_size(log=2):.2f}",
+                f"log2[PEAK]={self.peak_size(log=2):.2f}",
+            ]
+            if self.sliced_inds:
+                s.append(f"NSLICES={self.multiplicity:.2f}")
+            return join.join(s)
+        if info == "concise":
+            s = [
+                f"F={self.total_flops(log=10):.2f}",
+                f"C={self.combo_cost(log=10):.2f}",
+                f"S={self.max_size(log=2):.2f}",
+                f"P={self.peak_size(log=2):.2f}",
+            ]
+            if self.sliced_inds:
+                s.append(f"$={self.multiplicity:.2f}")
+            return join.join(s)
+        raise ValueError(info)
+
     def __repr__(self):
         if self.is_complete():
             return f"<{self.__class__.__name__}(N={self.N})>"
         return (
             f"<{self.__class__.__name__}(N={self.N}, "
             f"branches={len(self.children)}, complete=False)>"
+        )
+
+    def __str__(self):
+        if not self.is_complete():
+            return repr(self)
+        return (
+            f"<{self.__class__.__name__}(N={self.N}, "
+            f"{self.describe('concise', join=', ')})>"
         )
 
 

@@ -1,9 +1,10 @@
 """Small shared primitives (counterpart of ``cotengra_tpu/utils/misc.py``:
 ``prod``, ``compute_size_by_dict``, ``get_rng``,
-``GumbelBatchedGenerator``, and the planner's ``BadTrial``,
-``MaxCounter`` and ``DiskDict``)."""
+``GumbelBatchedGenerator``, the planner's ``BadTrial``, ``MaxCounter``
+and ``DiskDict``, and ``interleave`` and ``unique``)."""
 
 import collections
+import itertools
 import math
 import os
 import pickle
@@ -190,3 +191,17 @@ class DiskDict:
         for _, _, files in os.walk(self._directory):
             n += sum(1 for f in files if not f.endswith(".tmp"))
         return n
+
+
+def interleave(*its):
+    """Round-robin interleave iterables."""
+    sentinel = object()
+    for group in itertools.zip_longest(*its, fillvalue=sentinel):
+        for x in group:
+            if x is not sentinel:
+                yield x
+
+
+def unique(it):
+    """Deduplicate preserving order."""
+    return list(dict.fromkeys(it))

@@ -48,3 +48,17 @@ def get_symbol_map(inputs):
                 symmap[ix] = get_symbol(c)
                 c += 1
     return symmap
+
+
+def inds_to_eq(inputs, output=None):
+    """Lists of hashable index labels -> an einsum equation of
+    single-character symbols (``get_symbol_map``'s). Without ``output``,
+    the indices appearing exactly once, sorted."""
+    symmap = get_symbol_map(inputs)
+    if output is None:
+        from .eqs import find_output_from_inputs
+
+        output = find_output_from_inputs(inputs)
+    lhs = ",".join("".join(symmap[ix] for ix in term) for term in inputs)
+    rhs = "".join(symmap[ix] for ix in output)
+    return f"{lhs}->{rhs}"

@@ -327,6 +327,33 @@ def test_einsum_lattice_launches_the_kernel(cuda):
     assert np.isfinite(log10) and abs(log10 - log10_cpu) <= 1e-4
 
 
+def test_mixed_lattice_on_the_card(cuda):
+    """A complex input among real ones on the kernel route: the stripped
+    4x4 bond-16 lattice with input 0 times exp(i pi/3) keeps its real x
+    real steps on ``bmm_absmax`` (launches > 0), promotes the rest, and
+    equals the exact value (the real lattice's times the phase, both
+    on the card) in float32."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.utils.eqs import inputs_output_to_eq
+
+    inputs, output, shapes, _ = ctt.lattice_equation([4, 4], d_min=16)
+    rng = np.random.default_rng(7)
+    arrays = [rng.uniform(size=s).astype(np.float32) for s in shapes]
+    phase = np.exp(1j * np.pi / 3)
+    mixed = [(arrays[0] * phase).astype(np.complex64), *arrays[1:]]
+    eq = inputs_output_to_eq(inputs, output)
+    kw = dict(optimize="greedy", strip_exponent=True, implementation="pallas")
+    mr, er = ctt.einsum(eq, *arrays, **kw)
+    before = bmm_absmax_cuda.launches
+    m, e = ctt.einsum(eq, *mixed, **kw)
+    torch.cuda.synchronize()
+    assert m.device == cuda and m.dtype == torch.complex64
+    assert bmm_absmax_cuda.launches > before
+    got = complex(m.item()) * 10 ** (e.item() - er.item())
+    exp = mr.item() * phase
+    assert abs(got - exp) <= 1e-4 * abs(exp)
+
+
 def test_contract_compressed_on_the_card(cuda):
     """The compressed contraction of a 6x6 bond-4 lattice, planned by the
     ``"greedy-compressed"`` preset, on the card by default: float64 in,

@@ -215,10 +215,31 @@ def test_run_trial_matches_reference(method, params, stages):
 
 
 def test_run_trial_multi_not_ported():
+    """The ``multi_opts`` branch, once refused, now builds the
+    reference's multi-contraction tree: the same children, variable
+    indices, objective and trial numbers."""
+    from cotengra_tpu_torch.tree_multi import ContractionTreeMulti
+
     inputs, output, _, size_dict = _net(8)
-    with pytest.raises(NotImplementedError, match="tree_multi"):
-        driver.run_trial(inputs, output, size_dict, "greedy", {"seed": 1},
-                         multi_opts={})
+    multi = {"varmults": tuple(sorted(size_dict)[:2]), "numconfigs": 8,
+             "strategy": "dense"}
+    got = driver.run_trial(inputs, output, size_dict, SEEDED, {"seed": 1},
+                           multi_opts=multi, reconf_opts={})
+    exp = ref_driver.run_trial(inputs, output, size_dict, SEEDED,
+                               {"seed": 1}, multi_opts=multi,
+                               reconf_opts={})
+    assert isinstance(got["tree"], ContractionTreeMulti)
+    assert list(got["tree"].children.items()) == list(
+        exp["tree"].children.items()
+    )
+    assert got["tree"].sliced_inds == exp["tree"].sliced_inds == {
+        ix: None for ix in multi["varmults"]
+    }
+    assert repr(got["tree"].get_default_objective()) == repr(
+        exp["tree"].get_default_objective()
+    )
+    for key in ("flops", "write", "size", "score"):
+        assert got.get(key) == exp.get(key)
 
 
 def test_run_trial_compressed_matches_reference():
@@ -435,10 +456,15 @@ def test_hyper_presets_registered():
     tree = ctt.array_contract_tree(inputs, output, size_dict=size_dict,
                                    optimize="hyper-compressed")
     assert isinstance(tree, ContractionTreeCompressed)
-    # a method whose partitioner is not ported fails at search time
-    with pytest.raises(ValueError, match="kahypar"):
-        ctt.array_contract_tree(inputs, output, size_dict=size_dict,
-                                optimize="hyper-kahypar")
+    # without the kahypar package a trial that reaches the partitioner
+    # fails with ImportError, as the reference's does: on 49 tensors,
+    # above every cutoff of the method's space, every trial does
+    big = ctt.lattice_equation([7, 7], d_min=2)
+    for pkg in (ctt, ctg):
+        with pytest.warns(UserWarning, match="kahypar is not installed"):
+            with pytest.raises(RuntimeError, match="kahypar"):
+                pkg.array_contract_tree(big[0], big[1], size_dict=big[3],
+                                        optimize="hyper-kahypar")
     path = ctt.hyper_optimize(inputs, output, size_dict, max_repeats=2,
                               memory_limit=2**6)
     assert ctt.ContractionTree.from_path(

@@ -5,6 +5,7 @@ in the other with the hash check on, and every top-level name of the
 JAX package present in the port but those still queued."""
 
 import ast
+import importlib
 import io
 from pathlib import Path
 
@@ -186,26 +187,10 @@ def test_instance_files_load_in_either_package(meta, tmp_path):
 
 # -- top-level names ---------------------------------------------------------
 
-# Top-level names of ``cotengra_tpu`` the port does not have yet, each
-# with the ROADMAP item that queues it. The list shrinks as modules are
-# ported.
+# Top-level names of ``cotengra_tpu`` the port does not have, each with
+# the ROADMAP item that queues it or the reason it is left out. The list
+# shrinks as modules are ported.
 QUEUED = {
-    # A7: HyperMultiOptimizer with tree_multi.py
-    "ContractionTreeMulti": "A7",
-    "HyperMultiOptimizer": "A7",
-    # A7: the external, kahypar and igraph path finders
-    "FlowCutterOptimizer": "A7",
-    "QuickBBOptimizer": "A7",
-    "optimize_flowcutter": "A7",
-    "optimize_quickbb": "A7",
-    "register_external_presets": "A7",
-    "register_kahypar_hyper_methods": "A7",
-    "register_igraph_hyper_methods": "A7",
-    "path_kahypar": "A7",
-    "path_igraph": "A7",
-    # A7: oe.py (opt_einsum preset registration)
-    "OEPathOptimizer": "A7",
-    "register_opt_einsum_presets": "A7",
     # not queued (ROADMAP A, last paragraph): plot.py draws on the host
     "plot_contractions": "A, plot.py",
     "plot_contractions_alt": "A, plot.py",
@@ -265,3 +250,132 @@ def test_mesh_names_where_the_reference_exports_them():
                   "maybe_init_distributed"}
     assert mesh_names <= set(ref_parallel.__all__)
     assert mesh_names <= set(parallel.__all__)
+
+
+# -- public methods and module-level names ------------------------------------
+
+PLOT = "A, plot.py"
+# Public methods of the reference's classes that the port leaves out, with
+# the reason. The plot methods are attached to the classes by plot.py.
+METHODS_LEFT_OUT = {
+    "ContractionTree": {
+        **{name: PLOT for name in (
+            "plot_circuit", "plot_contractions", "plot_contractions_alt",
+            "plot_flat", "plot_ring", "plot_rubberband", "plot_span",
+            "plot_tent", "plot_tree",
+        )},
+        "to_df": PLOT,
+        "to_networkx": PLOT,
+    },
+    "HyperGraph": {"plot": PLOT},
+    "HyperOptimizer": {name: PLOT for name in (
+        "plot_parameters_parallel", "plot_scatter", "plot_scatter_alt",
+        "plot_trials", "plot_trials_alt",
+    )},
+}
+
+# Module-level public names of the reference that the port leaves out, by
+# module (relative to the package), with the reason.
+NAMES_LEFT_OUT = {
+    "ops/executor.py": {
+        "make_staged_contractor": "A9: the staged jit is dropped",
+        "make_traced_slicer": "A9: slice ids are host ints, not traced",
+    },
+    "ops/grouped.py": {
+        "make_grouped_staged_contractor": "A9: the staged jit is dropped",
+        "to_plane_array": "A9: the port has it in convert.py",
+    },
+    "ops/pairwise.py": {
+        "MAX_DIRECT_NDIM": "TPU: dot_general's rank limit; pair steps are "
+                           "torch.einsum",
+    },
+    "models/circuits.py": {
+        "estimate_sol_tflops": "A9: a TPU chip table",
+        "peaked_amplitude_value": "A9: raises NotImplementedError in the "
+                                  "reference",
+    },
+    "scoring.py": {"TpuTimeObjective": "A6"},
+}
+
+# Modules whose every public name the port carries (but those left out).
+PARITY_MODULES = [
+    "tree.py", "tree_multi.py", "hypergraph.py", "scoring.py", "oe.py",
+    "parallel/pools.py", "utils/misc.py", "ops/lowering.py",
+    "ops/pairwise.py", "ops/executor.py", "models/circuits.py",
+    "hyper/__init__.py", "hyper/driver.py", "pathfinders/linegraph.py",
+    "pathfinders/external.py", "pathfinders/kahypar.py",
+    "pathfinders/igraph.py", "pathfinders/mcts.py",
+]
+
+
+def _public_methods(cls):
+    return {n for n in dir(cls) if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("name", sorted(METHODS_LEFT_OUT))
+def test_every_reference_public_method_is_ported_or_left_out(name):
+    ref_cls, cls = getattr(ctg, name), getattr(ctt, name)
+    missing = _public_methods(ref_cls) - _public_methods(cls)
+    assert missing == set(METHODS_LEFT_OUT[name]), (
+        f"{name}: not in the port and not listed: "
+        f"{sorted(missing - set(METHODS_LEFT_OUT[name]))}; listed but "
+        f"ported: {sorted(set(METHODS_LEFT_OUT[name]) - missing)}"
+    )
+    assert {"describe", "get_eq", "print_contractions", "get_trials",
+            "resistance_centrality"} & _public_methods(cls)
+
+
+def _module_names(rel):
+    """The public names a reference module defines or assigns at its top
+    level, read from its source."""
+    tree = ast.parse((ROOT / "cotengra_tpu" / rel).read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif isinstance(node, ast.If):  # oe.py defines under a guard
+            names.update(
+                sub.name for sub in (*node.body, *node.orelse)
+                if isinstance(sub, (ast.FunctionDef, ast.ClassDef))
+            )
+    return {n for n in names if not n.startswith("_")}
+
+
+def _port_module(rel):
+    mod = rel.removesuffix(".py").removesuffix("/__init__").replace("/", ".")
+    return importlib.import_module(f"cotengra_tpu_torch.{mod}")
+
+
+@pytest.mark.parametrize("rel", PARITY_MODULES)
+def test_every_reference_module_name_is_ported_or_left_out(rel):
+    port = _port_module(rel)
+    missing = {n for n in _module_names(rel) if not hasattr(port, n)}
+    left_out = set(NAMES_LEFT_OUT.get(rel, ()))
+    assert missing == left_out, (
+        f"{rel}: not in the port and not listed: "
+        f"{sorted(missing - left_out)}; listed but ported: "
+        f"{sorted(left_out - missing)}"
+    )
+
+
+@pytest.mark.parametrize("rel", sorted(set(NAMES_LEFT_OUT) - set(
+    PARITY_MODULES)))
+def test_names_left_out_are_the_reference_s(rel):
+    port = _port_module(rel)
+    for name in NAMES_LEFT_OUT[rel]:
+        assert name in _module_names(rel)
+        assert not hasattr(port, name)
+
+
+def test_parallel_exports_what_the_reference_exports():
+    from cotengra_tpu import parallel as ref_parallel
+
+    from cotengra_tpu_torch import parallel
+
+    missing = set(ref_parallel.__all__) - set(parallel.__all__)
+    assert not missing, f"cotengra_tpu.parallel exports {sorted(missing)}"
+    for name in parallel.__all__:
+        assert hasattr(parallel, name)

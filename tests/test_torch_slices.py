@@ -319,7 +319,7 @@ def test_slice_ids_and_modes_are_checked():
             fn(planes, bad)
     with pytest.raises(ValueError, match="expected"):
         fn(planes[1:], [0])
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         ctt.make_grouped_contractor(tree, "cpu", torch.float64,
                                     slice_batch=2, slice_batch_mode="vmap")
     with pytest.raises(ValueError, match="slice_batch_mode"):
