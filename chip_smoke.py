@@ -56,9 +56,10 @@ Run from the root of a checkout. Phases:
 9. the m10-t27 amplitude through the slice-batched call
    (``contract_tree(..., slice_batch=4)``), plain and stripped, held to
    the same reference at relerr <= 1e-5 with the chain kernel's launch
-   count, and the warm times of the batched call
-   (``make_grouped_contractor(..., slice_batch=4)``) and of phase 4's
-   slice loop in turns;
+   count (reckoned for the mode that ``"auto"`` takes there), and the
+   warm times of the batched call (``make_grouped_contractor(...,
+   slice_batch=4, slice_batch_mode="scan")``) and of phase 4's slice
+   loop in turns;
 10. the gate-chain kernel against its plain version on every chain of
    the Sycamore-53 m=20 t28 plan (``plans/sycamore53_m20_t28.json``) at
    full size, float32 inputs made on the card from a seeded
@@ -67,7 +68,8 @@ Run from the root of a checkout. Phases:
    two); kernel, plain and library times and the bound per chain, as in
    phase 3;
 11. the m=20 main path: one batched call of slice ids 0..15
-   (``make_grouped_contractor(..., slice_batch=16)``, float32 planes),
+   (``make_grouped_contractor(..., slice_batch=16,
+   slice_batch_mode="scan")``, float32 planes),
    its partial sums over the first 4, 8 and 16 slices held to the
    complex128 sidecar at relerr <= 1e-5, the chain kernel's launches
    (the slice-invariant chains once, the others 16 times, derived from
@@ -81,9 +83,10 @@ Run from the root of a checkout. Phases:
    default): 464 ``bmm_absmax`` launches and |delta log10| <= 1e-4
    against the plan's float64 reference, as phase 7;
 13. the front end on m10-t27: ``cotengra_tpu_torch.array_contract(arrays,
-   inputs, (), optimize=<the loaded tree>, slice_batch=4)``: 52 chain
-   launches and relerr <= 1e-5 against the sidecar's 4-slice
-   amplitude;
+   inputs, (), optimize=<the loaded tree>, slice_batch=4)``: 13 chain
+   launches (its ``"auto"`` takes ``"vmap"`` on the card: one launch a
+   pass for the 4 slices; 52 under ``"scan"``) and relerr
+   <= 1e-5 against the sidecar's 4-slice amplitude;
 14. for both, the warm time of the front-end call next to that of
    ``make_full_contractor`` with the same options on the same device
    tensors, measured in turns (best of 5 for the lattice, of 21 for
@@ -212,14 +215,55 @@ Run from the root of a checkout. Phases:
    contracted with those two indices sliced (one slice per
    configuration) through the grouped route, the sum held to the
    sidecar's full amplitude at relerr <= 1e-5, with its chain launches;
-31. one JSON line of kernel results (launches on the main path, error,
+31. the gate-chain kernel's slice leg (the ``"vmap"`` mode's batch):
+   every chain of the t27 plan with x ``(4, 2 * numel)`` and its gates
+   batched as the plan batches them (a gate that reads a sliced index
+   is ``(4, 2, K, N)``), against the plain version on the same batch,
+   and the largest m20 chain at 16 slices (2^33 floats in x, over
+   2^31), against the plain version slice by slice; the limit of phase
+   3, one launch a pass for the whole batch; ms per batched pass
+   against the batch size x one slice's kernel ms, and the bound: the
+   batch size x one HBM read and write of the planes (``_chain_bound``);
+32. m10-t27 through ``make_grouped_contractor(..., slice_batch=4,
+   slice_batch_mode="vmap")``, plain and stripped, held to key ``"4"``
+   at relerr <= 1e-5, the chain launches against the plan's count (13:
+   one a pass for the batch) and the step calls against scan's; the
+   warm time in turns with ``"scan"``, and each mode's peak memory;
+33. m20-t28 slices 0..15 under ``"vmap"`` in calls of the largest
+   batch that fits the card (``ops/grouped.py::vmap_max_batch`` from
+   the plan's per-slice live peak, printed): the partial sums over 4, 8
+   and 16 slices held to the sidecar at relerr <= 1e-5, the launches
+   against the plan's count, the warm time in turns with ``"scan"`` (16
+   a call) and peak memory;
+34. many small slices: the example's m10 tree of phase 29 sliced to
+   2^22 at temperature 0 (512 slices), all of them in calls of 16 under
+   ``"scan"`` and ``"vmap"``, each held to key ``"4"`` at relerr <=
+   1e-5 with its launches against the plan's count; the slice count,
+   step calls and warm times in turns;
+35. the cost model's calibration: the warm time of each plan of
+   ``CALIBRATION`` (slice by slice, or in batched calls), each held to
+   its sidecar at relerr <= 1e-5, and the runs of phases 32-34, each
+   beside ``ops/simulate.py::simulate_grouped``'s seconds and its
+   error; one JSON line ``{"calibration": ...}`` of the runs, which
+   ``scratch/sim_calibrate_gpu.py`` fits ``H100_CONSTANTS`` to (the
+   calibration set: t27 under both modes, t29, combo, combo-256,
+   t27_tpu, r5b_m10_tpu and m20 under both modes; t27 slice by slice
+   and the small slices are held out, as checks of the model);
+36. m10 planned for the card: the port's hyper-optimizer with
+   ``minimize="gpu"`` (phase 17's seeded greedy and labels methods,
+   ``GPU_PLAN_TRIALS`` trials, 2^27), its slices contracted and held to
+   key ``"4"`` at relerr <= 1e-5 with its chain launches; its modelled
+   and measured warm seconds beside t27's, slice by slice, in turns;
+37. one JSON line of kernel results (launches on the main path, error,
    ms, plain ms, bound, library ms; the gate chain's m=20 figures
    under ``m20_*`` keys, the launches of phases 17 and 18 under
    ``hyper_*`` keys, of phases 19 and 20 under ``default_*`` keys, of
    phases 22-24 under ``sharded_*`` (per rank) and ``nccl_*`` keys, of
    phase 26 under ``folded_*`` keys, of phase 27 under
-   ``mixed_lattice_launches`` and of phases 29 and 30 under
-   ``example_m10_launches`` and ``multi_m10_launches``), one JSON line
+   ``mixed_lattice_launches``, of phases 29 and 30 under
+   ``example_m10_launches`` and ``multi_m10_launches``, and of phases
+   31-34 and 36 under ``vmap_*``, ``small_slices_vmap_launches`` and
+   ``gpu_m10_launches``), one JSON line
    ``{"host_native": {...}}`` of the host library's build seconds and
    the planning seconds of phases 15, 17-21 and 30, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -228,7 +272,8 @@ Every instance is built and every plan loaded through the port
 (``cotengra_tpu_torch.rand_circuit_tn``, ``lattice_equation``,
 ``load_tree``): the script imports neither JAX nor the JAX package.
 
-Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15-20, 22-24, 26-30) is
+Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15-20, 22-24, 26-30, 32-34,
+36) is
 driven with every kernel's launch count set to 0 just before it and
 read just after (in each rank, by the rank). Any failed
 phase raises, and the script exits non-zero without the last line. It
@@ -237,7 +282,8 @@ needs a CUDA device and never falls back to the CPU.
 ``--profile`` instead runs ``torch.profiler`` over one warm pass of each
 main path (m10-t27 slice by slice and through the batched call,
 m10-t29, the lattice, 16 slices of m20-t28, the compressed 16x16 lattice
-in float64) and prints the median wall time of 5 unprofiled passes, the
+in float64, then t27 and m20's 16 slices under ``"vmap"``) and prints
+the median wall time of 5 unprofiled passes, the
 device's busy time and idle share, and every device kernel's time
 grouped by class (the breakdown in ``PERF.md`` section 5).
 """
@@ -273,7 +319,10 @@ M20_SLICES = 16     # the sidecar's largest partial sum
 M20_PASSES = 40     # chain_tile_plan's passes over the 38 chains of M20
 SEED = 1234
 PROFILE_WALL_PASSES = 5
-T27_BATCHED_LAUNCHES = 52   # 4 slices in one batched call (phase 9)
+# 4 slices in one batched call through the front end (phase 13), whose
+# "auto" takes "vmap" on the card: one launch a pass for the batch (52
+# under "scan")
+T27_BATCHED_LAUNCHES = 13
 FRONT_END_OVERHEAD = 1.1    # front-end warm time / make_full_contractor's
 # best of 5 in turns: best-of-3 t27 passes spread by 10% on the host side
 FRONT_END_PASSES = 5
@@ -340,6 +389,25 @@ MULTI_VARMULTS = ("ƌ", "Ɨ")
 MULTI_CONFIGS = 4
 MULTI_TRIALS = 16
 MULTI_MAX_SIZE = 2**30
+# phases 31-36: the "vmap" slice-batch mode and the cost model
+VMAP_T27_BATCH = 4
+SMALL_SLICE_TARGET = 2**22   # phase 34: the example's tree sliced small
+SMALL_SLICE_BATCH = 16
+GPU_PLAN_TRIALS = 4          # phase 36: minimize="gpu" trials
+CALIBRATION_PASSES = 5       # phase 35: best of 5 warm passes a plan
+SMALL_SLICE_PLAN = "example_m10_2^22"
+# phase 35: plans timed for the cost model (plan, slices a call or None
+# for slice by slice, mode, in the calibration set); phases 32-33 add t27
+# and m20 under both modes to the set, phase 34 the small slices beside
+# it (held out of the fit, as t27 slice by slice: checks of the model)
+CALIBRATION = (
+    (T27, None, None, False),
+    ("sycamore53_m10_t29", None, None, True),
+    ("sycamore53_m10_t27_combo", 16, "scan", True),
+    ("sycamore53_m10_t27_combo-256", 4, "scan", True),
+    ("sycamore53_m10_t27_tpu", None, None, True),
+    ("r5b_m10_tpu", None, None, True),
+)
 # published H100 SXM peaks at a 700 W power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12        # float32 FMA outside the tensor cores
@@ -1065,9 +1133,12 @@ def phase_t27_stripped(dev):
     )
 
 
-def _batched_chain_passes(fn, n_slices):
-    """Chain-kernel launches of one batched call over ``n_slices``: the
-    passes of the slice-invariant chains once, the others per slice."""
+def _batched_chain_passes(fn, n_slices, batch=None):
+    """Chain-kernel launches of batched calls over ``n_slices`` slices,
+    ``batch`` a call (default: all in one): the passes of the
+    slice-invariant chains once per call, the others once per slice
+    (``"scan"``) or once per call (``"vmap"``: one launch a pass for the
+    batch)."""
     from cotengra_tpu_torch.ops.gate_chains import chain_tile_plan
 
     def passes(steps):
@@ -1076,7 +1147,9 @@ def _batched_chain_passes(fn, n_slices):
             for si in steps if fn.plans[si][0] == "inplace"
         )
 
-    return passes(fn.batch.steps_once) + n_slices * passes(
+    calls = 1 if batch is None else -(-n_slices // batch)
+    each = calls if fn.mode == "vmap" else n_slices
+    return calls * passes(fn.batch.steps_once) + each * passes(
         fn.batch.steps_each
     )
 
@@ -1095,8 +1168,13 @@ def phase_t27_batched(dev, passes=3):
 
     tree, arrays, refs = _load_instance(T27)
     n = tree.multiplicity
-    fn = ctt.make_grouped_contractor(tree, dev, torch.float32, slice_batch=n)
-    expect = _batched_chain_passes(fn, n)
+    fn = ctt.make_grouped_contractor(tree, dev, torch.float32, slice_batch=n,
+                                     slice_batch_mode="scan")
+    # contract_tree keeps "auto"
+    expect = _batched_chain_passes(
+        ctt.make_grouped_contractor(tree, dev, torch.float32, slice_batch=n),
+        n,
+    )
     ref = refs[n]
     for strip in (False, True):
         _reset_launches()
@@ -1137,6 +1215,7 @@ def phase_t27_batched(dev, passes=3):
         "batched call": lambda: fn(planes, range(n)).sum(0),
     }
     times = {k: [] for k in loops}
+    _fresh_cache()
     for k in [*loops, *reversed(loops)] * ((passes + 1) // 2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1162,7 +1241,8 @@ def phase_m20(dev, passes=3):
     t0 = time.perf_counter()
     tree, arrays, refs = _load_instance(M20)
     fn = ctt.make_grouped_contractor(
-        tree, dev, torch.float32, slice_batch=M20_SLICES
+        tree, dev, torch.float32, slice_batch=M20_SLICES,
+        slice_batch_mode="scan",
     )
     planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
     expect = _batched_chain_passes(fn, M20_SLICES)
@@ -1200,6 +1280,7 @@ def phase_m20(dev, passes=3):
         raise AssertionError(f"{M20}: sidecar keys {sorted(refs)}")
     amp16 = complex(partial[-1, 0].item(), partial[-1, 1].item())
 
+    _fresh_cache()
     times = []
     for _ in range(passes):
         torch.cuda.synchronize()
@@ -2793,6 +2874,575 @@ def phase_multi(dev):
     return counts["gate_chain"], plan_s
 
 
+# ---------------------------------------------------------------------------
+# phases 31-36: the "vmap" slice-batch mode, the batched chain kernel and
+# the GPU cost model
+
+
+def _batched_gates(fn, rec, n, gen, dev):
+    """Gate inputs of chain ``rec`` for a batch of ``n`` slices, as the
+    plan batches them: ``(n, 2, K, N)`` where the gate reads a sliced
+    index, else ``(2, K, N)``; drawn on the card."""
+    return [
+        torch.randn(((n,) if y_id in fn.batch.varying else ())
+                    + (2, K, N), generator=gen, device=dev)
+        for y_id, _, K, N in rec.ys
+    ]
+
+
+def _vmap_chain_row(label, ci, spec, x, ys, per_slice_plain):
+    """One chain on a batch: kernel (one launch a pass) vs plain, and
+    its batched ms against the batch size x one slice's kernel ms."""
+    from cotengra_tpu_torch.ops.gate_chains import (
+        chain_tile_plan,
+        run_chain_cuda,
+        run_chain_plain,
+    )
+
+    n = x.shape[0]
+    plan = chain_tile_plan(spec)
+    before = run_chain_cuda.launches
+    got = run_chain_cuda(spec, x, ys)
+    if run_chain_cuda.launches - before != len(plan):
+        raise AssertionError(
+            f"{label} chain {ci}: {run_chain_cuda.launches - before} "
+            f"launches for the batch, the plan has {len(plan)} passes"
+        )
+    err = scale = 0.0
+    if per_slice_plain:
+        # the batch holds too much for a batched plain version beside it
+        for s in range(n):
+            ref = run_chain_plain(
+                spec, x[s], [y[s] if y.dim() == 4 else y for y in ys]
+            )
+            scale = max(scale, ref.abs().max().item())
+            err = max(err, (got[s] - ref).abs().max().item())
+            del ref
+    else:
+        ref = run_chain_plain(spec, x, ys)
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        del ref
+    torch.cuda.synchronize()
+    if not err <= CHAIN_RTOL * scale:
+        raise AssertionError(
+            f"{label} chain {ci}: batched kernel off the plain version by "
+            f"{err:.3e} > {CHAIN_RTOL} x {scale:.3e}"
+        )
+    del got
+    one_ys = [y[0] if y.dim() == 4 else y for y in ys]
+    x0 = x[0].contiguous()
+    reps = 3 if x.numel() >= 2**30 else 10
+    batched_ms = _cuda_ms(lambda: run_chain_cuda(spec, x, ys), reps)
+    one_ms = _cuda_ms(lambda: run_chain_cuda(spec, x0, one_ys), reps)
+    batched_ms = (batched_ms + _cuda_ms(
+        lambda: run_chain_cuda(spec, x, ys), reps)) / 2
+    kn = [tuple(y.shape[-2:]) for y in ys]
+    bound = _chain_bound(spec, kn)
+    bound_b = (n * bound[0], bound[1])
+    print(
+        f"# {label} chain {ci:2d} x{n}: numel 2^"
+        f"{int(np.log2(x.shape[1] // 2))} batched gates "
+        f"{[y.dim() == 4 for y in ys]} max_abs_err {err:.3e} (max|plain| "
+        f"{scale:.3e}) batched {batched_ms:.3f} ms vs {n} x one slice "
+        f"{n * one_ms:.3f} ms ({batched_ms / (n * one_ms):.3f}) bound "
+        f"{bound_b[0]:.3f} ms ({100 * bound_b[0] / batched_ms:.0f}% of it)",
+        flush=True,
+    )
+    return err, batched_ms, n * one_ms, bound_b
+
+
+def phase_vmap_chains(dev):
+    """The batched chain kernel against its plain version: every t27
+    chain at 4 slices (plain batched on the same batch) and the largest
+    m20 chain at 16 slices, 2^33 floats in x (plain slice by slice)."""
+    import cotengra_tpu_torch as ctt
+
+    rows = []
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    for plan_name, n, pick in ((T27, VMAP_T27_BATCH, None),
+                               (M20, M20_SLICES, "largest")):
+        tree, _, _ = _load_instance(plan_name)
+        fn = ctt.make_grouped_contractor(tree, dev, torch.float32,
+                                         slice_batch=n,
+                                         slice_batch_mode="vmap")
+        chains = [(si, rec) for si, (kind, rec) in enumerate(fn.plans)
+                  if kind == "inplace"]
+        if pick:
+            chains = [max(chains, key=lambda c: (
+                c[1].spec.gate_strides[0].numel_in, len(c[1].ys)))]
+        label = plan_name.split("_", 1)[1]
+        for ci, (si, rec) in enumerate(chains):
+            n_in = rec.spec.gate_strides[0].numel_in
+            x = torch.randn((n, 2 * n_in), generator=gen, device=dev)
+            ys = _batched_gates(fn, rec, n, gen, dev)
+            rows.append(_vmap_chain_row(label, ci if not pick else si,
+                                        rec.spec, x, ys, bool(pick)))
+            if pick and x.numel() <= 2**31:
+                raise AssertionError(
+                    f"{label}: the largest chain's batch holds "
+                    f"{x.numel()} floats, not over 2^31"
+                )
+            del x, ys
+            torch.cuda.empty_cache()
+    t27 = rows[:-1]
+    print(
+        f"# vmap chains t27 x{VMAP_T27_BATCH}: batched "
+        f"{sum(r[1] for r in t27):.3f} ms vs {VMAP_T27_BATCH} x one slice "
+        f"{sum(r[2] for r in t27):.3f} ms, bound "
+        f"{sum(r[3][0] for r in t27):.3f} ms",
+        flush=True,
+    )
+    return rows
+
+
+def _fresh_cache():
+    """Collect garbage and hand the caching allocator's blocks back, so
+    that a timed pass does not pay for an earlier phase's layout (a
+    49 GiB m20 batch leaves segments that smaller passes split)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _warm_modes(label, calls, pull, peaks=None, passes=3):
+    """Warm seconds of each call of ``calls`` (mode -> fn), in turns,
+    and peak GiB (``peaks``: those measured already, by mode; one more
+    pass for each other); ``pull`` makes each result a host value that
+    must be finite and stable."""
+    peaks = dict(peaks or {})
+    for k, call in calls.items():
+        if k not in peaks:
+            _fresh_cache()
+            torch.cuda.reset_peak_memory_stats()
+            pull(call())
+            peaks[k] = torch.cuda.max_memory_allocated() / 2**30
+    _fresh_cache()
+    times = _in_turns(label, calls, pull, passes)
+    return times, peaks
+
+
+def _modes_line(times, peaks):
+    return "; ".join(
+        f"{k} {' '.join(f'{t:.4f}' for t in ts)} (best {min(ts):.4f}, "
+        f"peak_mem_gib {peaks[k]:.2f})"
+        for k, ts in times.items()
+    )
+
+
+def _calls_of(fn, planes, ids, batch):
+    """The sum over ``ids`` by calls of ``batch`` slices (a host value)."""
+    def run():
+        out = sum(fn(planes, ids[k:k + batch]).sum(0)
+                  for k in range(0, len(ids), batch))
+        return complex(out[0].item(), out[1].item())
+
+    return run
+
+
+def _step_calls(fn, n_slices, batch):
+    """Step calls of ``n_slices`` slices in calls of ``batch``."""
+    calls = -(-n_slices // batch)
+    each = calls if fn.mode == "vmap" else n_slices
+    return calls * len(fn.batch.steps_once) + each * len(fn.batch.steps_each)
+
+
+def phase_vmap_t27(dev):
+    """m10-t27 through "vmap" (4 slices a call), plain and stripped,
+    held to the sidecar; its launches against the plan's count; warm
+    time in turns with "scan", and peak memory."""
+    import cotengra_tpu_torch as ctt
+
+    _fresh_cache()
+    tree, arrays, refs = _load_instance(T27)
+    n = tree.multiplicity
+    ref = refs[n]
+    planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    fns = {mode: ctt.make_grouped_contractor(
+        tree, dev, torch.float32, slice_batch=n, slice_batch_mode=mode)
+        for mode in ("scan", "vmap")}
+    expect = _batched_chain_passes(fns["vmap"], n)
+    for strip in (False, True):
+        fn = ctt.make_grouped_contractor(
+            tree, dev, torch.float32, slice_batch=n, slice_batch_mode="vmap",
+            strip_exponent=strip,
+        )
+        _reset_launches()
+        res = fn(planes, range(n))
+        torch.cuda.synchronize()
+        counts = _read_launches()
+        if strip:
+            m, e = res
+            amp = complex(sum(
+                complex(m[s, 0].item(), m[s, 1].item()) * 10.0 ** e[s].item()
+                for s in range(n)))
+        else:
+            total = res.sum(0)
+            amp = complex(total[0].item(), total[1].item())
+        relerr = abs(amp - ref) / abs(ref)
+        if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+            raise AssertionError(
+                f"vmap t27 (strip {strip}): launches {counts}, the plan "
+                f"gives {expect}"
+            )
+        if not relerr <= AMP_RTOL:
+            raise AssertionError(
+                f"vmap t27 (strip {strip}): amplitude {amp} vs {ref}: "
+                f"relerr {relerr:.3e} > {AMP_RTOL}"
+            )
+        print(
+            f"# vmap {T27} (slice_batch {n}, strip {strip}): amplitude "
+            f"{amp.real:.12e}{amp.imag:+.12e}j relerr {relerr:.3e} chain "
+            f"launches {counts['gate_chain']} (scan: "
+            f"{_batched_chain_passes(fns['scan'], n)}); step calls "
+            f"{_step_calls(fns['vmap'], n, n)} (scan: "
+            f"{_step_calls(fns['scan'], n, n)})",
+            flush=True,
+        )
+    ids = list(range(n))
+    times, peaks = _warm_modes(
+        "vmap t27", {k: _calls_of(f, planes, ids, n) for k, f in fns.items()},
+        lambda v: abs(v),
+    )
+    print(f"# warm vmap {T27} x{n}: " + _modes_line(times, peaks),
+          flush=True)
+    return counts["gate_chain"], {k: min(t) for k, t in times.items()}
+
+
+def _m20_vmap_batch(dev):
+    """The most m20 slices a "vmap" call fits on this card (at most 16),
+    from the plan's per-slice live peak."""
+    from cotengra_tpu_torch.ops import grouped
+    from cotengra_tpu_torch.ops.simulate import step_records
+
+    recs = step_records(_load_instance(M20)[0])
+    total = torch.cuda.get_device_properties(dev).total_memory
+    return min(M20_SLICES, grouped.vmap_max_batch(
+        recs["slice_bytes"], recs["raw_bytes"], total))
+
+
+def phase_vmap_m20(dev):
+    """m20-t28 slices 0..15 through "vmap" at the largest batch that
+    fits the card (``vmap_max_batch`` from the plan's per-slice peak):
+    partial sums over 4, 8 and 16 slices held to the sidecar, launches,
+    warm time in turns with "scan" (16 a call) and peak memory."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.ops import grouped
+    from cotengra_tpu_torch.ops.simulate import step_records
+
+    tree, arrays, refs = _load_instance(M20)
+    recs = step_records(tree)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    fits = grouped.vmap_max_batch(recs["slice_bytes"], recs["raw_bytes"],
+                                  total)
+    batch = min(M20_SLICES, fits)
+    print(
+        f"# vmap {M20}: per-slice live peak "
+        f"{recs['slice_bytes'] / 2**30:.2f} GiB (reckoned from the plan), "
+        f"card {total / 2**30:.2f} GiB: the largest batch that fits is "
+        f"{fits}; this phase takes {batch}",
+        flush=True,
+    )
+    planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    fn = ctt.make_grouped_contractor(tree, dev, torch.float32,
+                                     slice_batch=batch,
+                                     slice_batch_mode="vmap")
+    scan = ctt.make_grouped_contractor(tree, dev, torch.float32,
+                                       slice_batch=M20_SLICES,
+                                       slice_batch_mode="scan")
+    ids = list(range(M20_SLICES))
+    expect = _batched_chain_passes(fn, M20_SLICES, batch)
+    _fresh_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    per_slice = torch.cat([fn(planes, ids[k:k + batch])
+                           for k in range(0, M20_SLICES, batch)])
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+        raise AssertionError(
+            f"vmap {M20}: launches {counts}, the plan gives {expect}"
+        )
+    partial = per_slice.cpu().double().cumsum(0)
+    errs = {}
+    for k, ref in sorted(refs.items()):
+        amp = complex(partial[k - 1, 0].item(), partial[k - 1, 1].item())
+        errs[k] = abs(amp - ref) / abs(ref)
+        if not errs[k] <= AMP_RTOL:
+            raise AssertionError(
+                f"vmap {M20}: first {k} slices {amp} vs {ref}: relerr "
+                f"{errs[k]:.3e} > {AMP_RTOL}"
+            )
+    del per_slice
+    times, peaks = _warm_modes(
+        f"vmap {M20}",
+        {"scan": _calls_of(scan, planes, ids, M20_SLICES),
+         "vmap": _calls_of(fn, planes, ids, batch)},
+        lambda v: abs(v), {"vmap": peak},
+    )
+    print(
+        f"# main path vmap {M20}: slices 0..{M20_SLICES - 1} in calls of "
+        f"{batch}; partial amplitudes "
+        + " ".join(f"[{k}] relerr {e:.3e}" for k, e in sorted(errs.items()))
+        + f"; chain launches {counts['gate_chain']} (scan: "
+        f"{_batched_chain_passes(scan, M20_SLICES)}); step calls "
+        f"{_step_calls(fn, M20_SLICES, batch)} (scan: "
+        f"{_step_calls(scan, M20_SLICES, M20_SLICES)}); warm "
+        + _modes_line(times, peaks),
+        flush=True,
+    )
+    return counts["gate_chain"], batch, {k: min(t) for k, t in times.items()}
+
+
+def _small_slices_tree(committed):
+    """Phase 29's example tree sliced to ``SMALL_SLICE_TARGET`` at
+    temperature 0 (the same tree every run), and its planning
+    seconds."""
+    import cotengra_tpu_torch as ctt
+
+    t0 = time.perf_counter()
+    ssa, _ = ctt.optimize_random_greedy_track_flops(
+        committed.inputs, committed.output, committed.size_dict,
+        ntrials=128, seed=0, use_ssa=True,
+    )
+    tree = ctt.ContractionTree.from_path(
+        committed.inputs, committed.output, committed.size_dict,
+        ssa_path=ssa,
+    )
+    tree.subtree_reconfigure_(subtree_size=10)
+    tree.slice_and_reconfigure_(SMALL_SLICE_TARGET, temperature=0)
+    return tree, time.perf_counter() - t0
+
+
+def phase_small_slices(dev):
+    """Many small slices: the example's m10 tree sliced to 2^22, all its
+    slices in calls of ``SMALL_SLICE_BATCH`` under "scan" and "vmap" in
+    turns, held to the sidecar's full amplitude."""
+    import cotengra_tpu_torch as ctt
+
+    committed, arrays, refs = _load_instance(T27)
+    ref = refs[committed.multiplicity]
+    tree, plan_s = _small_slices_tree(committed)
+    n, b = tree.multiplicity, SMALL_SLICE_BATCH
+    planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    fns = {mode: ctt.make_grouped_contractor(
+        tree, dev, torch.float32, slice_batch=b, slice_batch_mode=mode)
+        for mode in ("scan", "vmap")}
+    ids = list(range(n))
+    out, peaks, checked = {}, {}, {}
+    for mode, fn in fns.items():
+        _fresh_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        amp = _calls_of(fn, planes, ids, b)()
+        checked[mode] = time.perf_counter() - t0
+        counts = _read_launches()
+        peaks[mode] = torch.cuda.max_memory_allocated() / 2**30
+        expect = _batched_chain_passes(fn, n, b)
+        relerr = abs(amp - ref) / abs(ref)
+        if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+            raise AssertionError(
+                f"small slices {mode}: launches {counts}, the plan gives "
+                f"{expect}"
+            )
+        if not relerr <= AMP_RTOL:
+            raise AssertionError(
+                f"small slices {mode}: amplitude {amp} vs {ref}: relerr "
+                f"{relerr:.3e} > {AMP_RTOL}"
+            )
+        out[mode] = (relerr, counts["gate_chain"], _step_calls(fn, n, b))
+    # a scan pass takes seconds here: the checked pass counts as one (its
+    # one-time costs, the chains' index tables, are milliseconds) and one
+    # more each
+    times, peaks = _warm_modes(
+        "small slices", {k: _calls_of(f, planes, ids, b)
+                         for k, f in fns.items()},
+        lambda v: abs(v), peaks, passes=1,
+    )
+    times = {k: [checked[k]] + ts for k, ts in times.items()}
+    print(
+        f"# main path small slices m10 (tree {_tree_hash(tree)}, planned in "
+        f"{plan_s:.1f}s): {_plan_stats(tree)}; {n} slices in calls of {b}: "
+        + "; ".join(
+            f"{k} relerr {r:.3e} chain launches {la} step calls {sc}"
+            for k, (r, la, sc) in out.items()
+        )
+        + "; warm " + _modes_line(times, peaks),
+        flush=True,
+    )
+    return tree, out["vmap"][1], {k: min(t) for k, t in times.items()}
+
+
+def _model_s(tree, batch, mode, nslices=None):
+    from cotengra_tpu_torch.ops.simulate import simulate_grouped
+
+    return simulate_grouped(tree, slice_batch=batch,
+                            slice_batch_mode=mode or "auto",
+                            nslices=nslices)
+
+
+def vmap_measured(t27_modes, m20_batch, m20_modes, small_tree,
+                  small_modes):
+    """The runs of phases 32-34 for the calibration: t27 and m20 under
+    both modes, and the small slices."""
+    t27, m20 = _load_instance(T27)[0], _load_instance(M20)[0]
+    return [
+        {"plan": T27, "tree": t27, "slice_batch": VMAP_T27_BATCH,
+         "mode": mode, "nslices": t27.multiplicity,
+         "seconds": t27_modes[mode], "fit": True}
+        for mode in ("scan", "vmap")
+    ] + [
+        {"plan": M20, "tree": m20,
+         "slice_batch": M20_SLICES if mode == "scan" else m20_batch,
+         "mode": mode, "nslices": M20_SLICES, "seconds": m20_modes[mode],
+         "fit": True}
+        for mode in ("scan", "vmap")
+    ] + [
+        {"plan": SMALL_SLICE_PLAN, "tree": small_tree,
+         "slice_batch": SMALL_SLICE_BATCH, "mode": mode,
+         "nslices": small_tree.multiplicity, "seconds": small_modes[mode],
+         "fit": False}
+        for mode in ("scan", "vmap")
+    ]
+
+
+def phase_calibration(dev, measured):
+    """The warm seconds of each plan of ``CALIBRATION``, held to its
+    sidecar, then of ``measured`` (the runs that phases 32-34 timed:
+    dicts of plan, tree, slice_batch, mode, nslices, seconds), each
+    beside the cost model's. Prints the runs as one JSON line, as
+    ``ops/simulate.py``'s ``H100_MEASURED`` keeps them, and returns
+    them."""
+    import cotengra_tpu_torch as ctt
+
+    runs = []
+    for plan_name, batch, mode, fit in CALIBRATION:
+        tree, arrays, refs = _load_instance(plan_name)
+        n = tree.multiplicity
+        ref = refs[n]
+        planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+        if batch is None:
+            core = ctt.make_grouped_contractor(tree, dev, torch.float32)
+
+            def one_pass():
+                out = ctt.contract_slices(tree, core, planes)
+                return complex(out[0].item(), out[1].item())
+        else:
+            fn = ctt.make_grouped_contractor(
+                tree, dev, torch.float32, slice_batch=batch,
+                slice_batch_mode=mode)
+            one_pass = _calls_of(fn, planes, list(range(n)), batch)
+        _fresh_cache()
+        amp = one_pass()
+        relerr = abs(amp - ref) / abs(ref)
+        if not relerr <= AMP_RTOL:
+            raise AssertionError(
+                f"calibration {plan_name}: amplitude {amp} vs {ref}: "
+                f"relerr {relerr:.3e} > {AMP_RTOL}"
+            )
+        times = _in_turns(f"calibration {plan_name}", {"pass": one_pass},
+                          lambda v: abs(v), CALIBRATION_PASSES)["pass"]
+        runs.append({"plan": plan_name, "tree": tree, "slice_batch": batch,
+                     "mode": mode, "nslices": n, "seconds": min(times),
+                     "relerr": relerr, "fit": fit})
+        del planes
+    for r in runs + measured:
+        tree = r.pop("tree")
+        nsl = r["nslices"] if r["nslices"] != tree.multiplicity else None
+        r["model_s"] = _model_s(tree, r["slice_batch"], r["mode"], nsl)
+        err = r["model_s"] / r["seconds"] - 1
+        rel = f" relerr {r['relerr']:.3e}" if r.get("relerr") else ""
+        print(
+            f"# calibration {r['plan']} batch {r['slice_batch']} mode "
+            f"{r['mode']} slices {r['nslices']}: warm {r['seconds']:.4f} s"
+            f"{rel}; model {r['model_s']:.4f} s ({100 * err:+.1f}%)"
+            f"{'' if r['fit'] else ' (held out of the fit)'}",
+            flush=True,
+        )
+    runs += measured
+    print(json.dumps({"calibration": {
+        "card": _card_name(), "runs": [
+            {k: r[k] for k in ("plan", "slice_batch", "mode", "nslices",
+                               "seconds", "fit")}
+            for r in runs
+        ],
+    }}), flush=True)
+    return runs
+
+
+def _card_name():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def phase_gpu_planned(dev):
+    """m10 planned for the card: the port's hyper-optimizer with
+    ``minimize="gpu"`` (phase 17's seeded methods, 2^27, few repeats),
+    contracted and held to key "4"; its modelled and measured seconds
+    beside t27's. Returns its chain launches."""
+    import random
+
+    import cotengra_tpu_torch as ctt
+
+    committed, arrays, refs = _load_instance(T27)
+    ref = refs[committed.multiplicity]
+    opt = ctt.HyperOptimizer(
+        methods=_seeded_methods(HYPER_LABELS, random.Random(HYPER_SEED)),
+        max_repeats=GPU_PLAN_TRIALS, seed=HYPER_SEED, minimize="gpu",
+        slicing_reconf_opts={"target_size": HYPER_M10_TARGET,
+                             "temperature": 0},
+        parallel=False,
+    )
+    t0 = time.perf_counter()
+    tree = opt.search(committed.inputs, committed.output,
+                      committed.size_dict)
+    plan_s = time.perf_counter() - t0
+    if tree.max_size() > HYPER_M10_TARGET:
+        raise AssertionError(f"gpu m10: 2^{tree.max_size(log=2):.2f}")
+    expect = _chain_passes(tree) * tree.multiplicity
+    _reset_launches()
+    amp = complex(ctt.contract_tree(tree, arrays, device=dev).cpu().item())
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    relerr = abs(amp - ref) / abs(ref)
+    if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+        raise AssertionError(
+            f"gpu m10: launches {counts}, the plan has {expect} passes"
+        )
+    if not relerr <= AMP_RTOL:
+        raise AssertionError(
+            f"gpu m10: amplitude {amp} vs {ref}: relerr {relerr:.3e} > "
+            f"{AMP_RTOL}"
+        )
+    planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    _fresh_cache()
+    times = _warm_in_turns("gpu m10", {
+        "gpu-planned": _amp_pass(tree, dev, planes),
+        T27: _amp_pass(committed, dev, planes),
+    })
+    model = {"gpu-planned": _model_s(tree, None, None),
+             T27: _model_s(committed, None, None)}
+    print(
+        f"# main path gpu-planned m10: planned in {plan_s:.1f}s "
+        f"({len(opt.trials)} trials, minimize='gpu', tree "
+        f"{_tree_hash(tree)}): {_plan_stats(tree)}; relerr {relerr:.3e} "
+        f"chain launches {counts['gate_chain']}; slice by slice: "
+        + "; ".join(
+            f"{k} model {model[k]:.4f} s measured "
+            f"{' '.join(f'{t:.4f}' for t in ts)} (best {min(ts):.4f})"
+            for k, ts in times.items()
+        ),
+        flush=True,
+    )
+    return counts["gate_chain"]
+
+
 def _kernel_class(name):
     if "gate_chain_kernel" in name:
         return "gate-chain kernel"
@@ -2824,10 +3474,11 @@ def _compressed_class(name):
     return "other"
 
 
-def _warm_pass(plan_name, dev, slice_batch=None):
+def _warm_pass(plan_name, dev, slice_batch=None, mode="scan", n_slices=None):
     """One warm pass of a main path as a function (contractor and device
-    inputs made once), ending in a host pull; with ``slice_batch``, one
-    batched call over the first ``slice_batch`` slices."""
+    inputs made once), ending in a host pull; with ``slice_batch``, the
+    first ``n_slices`` (default ``slice_batch``) in calls of
+    ``slice_batch`` slices in ``mode``."""
     import cotengra_tpu_torch as ctt
 
     if plan_name == COMPRESSED:
@@ -2864,9 +3515,11 @@ def _warm_pass(plan_name, dev, slice_batch=None):
     planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
     if slice_batch:
         fn = ctt.make_grouped_contractor(
-            tree, dev, torch.float32, slice_batch=slice_batch
+            tree, dev, torch.float32, slice_batch=slice_batch,
+            slice_batch_mode=mode,
         )
-        return lambda: _batched_amp(fn, planes, slice_batch)
+        return _calls_of(fn, planes, list(range(n_slices or slice_batch)),
+                         slice_batch)
     core = ctt.make_grouped_contractor(tree, dev, torch.float32)
 
     def one_pass():
@@ -2876,15 +3529,19 @@ def _warm_pass(plan_name, dev, slice_batch=None):
     return one_pass
 
 
-def phase_profile(plan_name, dev, slice_batch=None, classify=None):
+def phase_profile(plan_name, dev, slice_batch=None, classify=None,
+                  mode="scan", n_slices=None):
     """Device time by kernel over one warm pass of the main path,
     grouped by ``classify`` (default ``_kernel_class``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    one_pass = _warm_pass(plan_name, dev, slice_batch)
+    one_pass = _warm_pass(plan_name, dev, slice_batch, mode, n_slices)
     if slice_batch:
-        plan_name = f"{plan_name} batched x{slice_batch}"
+        plan_name = (
+            f"{plan_name} {mode} {n_slices or slice_batch} slices in calls "
+            f"of {slice_batch}"
+        )
     one_pass()
     # the wall of one pass moves by tens of percent between passes (host
     # side): the idle share reads the median of several
@@ -2968,6 +3625,9 @@ def main():
         phase_profile(LATTICE, dev)
         phase_profile(M20, dev, slice_batch=M20_SLICES)
         phase_profile(COMPRESSED, dev, classify=_compressed_class)
+        phase_profile(T27, dev, slice_batch=4, mode="vmap")
+        phase_profile(M20, dev, slice_batch=_m20_vmap_batch(dev),
+                      mode="vmap", n_slices=M20_SLICES)
         return 0
     chain_rows = phase_chains(dev)
     chain_launches = phase_main_path(T27, 4, dev)
@@ -3003,6 +3663,14 @@ def main():
     phase_mixed_compressed(dev)
     example_launches = phase_example(dev)
     multi_launches, multi_plan_s = phase_multi(dev)
+    vmap_rows = phase_vmap_chains(dev)
+    vmap_t27_launches, t27_modes = phase_vmap_t27(dev)
+    vmap_m20_launches, m20_batch, m20_modes = phase_vmap_m20(dev)
+    small_tree, small_launches, small_modes = phase_small_slices(dev)
+    phase_calibration(dev, vmap_measured(
+        t27_modes, m20_batch, m20_modes, small_tree, small_modes,
+    ))
+    gpu_launches = phase_gpu_planned(dev)
     kernels = [
         {
             # per slice: the 13 chains of one m10-t27 slice
@@ -3039,6 +3707,25 @@ def main():
             # sliced over its configurations
             "example_m10_launches": example_launches,
             "multi_m10_launches": multi_launches,
+            # "vmap": one launch a pass for a batch of slices; t27 (4
+            # slices a call), m20 (16 slices in calls of vmap_m20_batch),
+            # the 2^22-sliced m10 (all slices in calls of 16), and the
+            # minimize="gpu" m10 tree slice by slice
+            "vmap_t27_launches": vmap_t27_launches,
+            "vmap_m20_launches": vmap_m20_launches,
+            "vmap_m20_batch": m20_batch,
+            "small_slices_vmap_launches": small_launches,
+            "gpu_m10_launches": gpu_launches,
+            # the batched kernel on every t27 chain at 4 slices (summed)
+            # and on the largest m20 chain at 16 (the last row): error,
+            # ms per batched pass, 4 (16) x one slice's ms, the bound
+            "vmap_max_abs_err": max(r[0] for r in vmap_rows),
+            "vmap_t27_ms": sum(r[1] for r in vmap_rows[:-1]),
+            "vmap_t27_single_x4_ms": sum(r[2] for r in vmap_rows[:-1]),
+            "vmap_t27_bound_ms": sum(r[3][0] for r in vmap_rows[:-1]),
+            "vmap_m20_chain_ms": vmap_rows[-1][1],
+            "vmap_m20_chain_single_x16_ms": vmap_rows[-1][2],
+            "vmap_m20_chain_bound_ms": vmap_rows[-1][3][0],
         },
         {
             # per slice: one slice's kernel steps, summed over the plan's

@@ -54,7 +54,18 @@
 // Index arithmetic: HBM offsets are 64-bit (the m=20 plans reach 2^30
 // plane elements); counters are 32-bit, divided by precomputed
 // multiplicative inverses (the host rejects x or out of 2^31 elements
-// or more).
+// or more per slice).
+//
+// Slice leg: one launch runs the pass for a whole batch of slices (the
+// grouped executor's "vmap" mode). The slice is the grid's y dimension:
+// block (bx, s) walks the tiles of slice s only, from x + s * x_slice
+// to out + s * out_slice (64-bit slice offsets, added once to the base
+// pointers, so every counter stays 32-bit within a slice: m=20 at 16
+// slices holds 2^33 floats in one batched x). A gate whose y differs
+// by slice (it reads a sliced index) takes a y slice stride: the block
+// loads y + s * y_slice into shared memory, so such a chain is still
+// one launch per pass for the batch, never one per slice. A stride of
+// 0 shares x or a gate across the batch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,8 +76,9 @@
 #define MAX_THREADS 512
 #define MAX_STAGES 4
 #define SMEM_LIMIT 232448
-#define META_HEAD 12
-#define META_GATE 12
+#define META_HEAD 15
+#define META_GATE 13
+#define MAX_SLICES 65535
 
 // n / d for 0 <= n < 2^32 and 1 <= d < 2^31 by one multiply-high
 // (Granlund & Montgomery, "Division by invariant integers using
@@ -94,6 +106,7 @@ __device__ __forceinline__ uint32_t fdiv(uint32_t n, const FastDiv& f) {
 
 struct ChainGate {
   const float* y;            // (2, K, N) on the device
+  int64_t y_slice;           // floats from one slice's y to the next's
   int K, N, tin, tout;       // tile sizes before and after the gate
   int koff, noff;            // table positions: y's K and N legs
   int oin_hi, oin_lo, oout_hi, oout_lo;  // the tile's other legs
@@ -105,6 +118,7 @@ struct PassArgs {
   int ngates, E, S, nb, twork, nwork, table_len, kn_len;
   int g_hi, g_lo;
   int64_t n_tiles, in_plane, out_plane;
+  int64_t x_slice, out_slice;  // floats between slices (0: shared x)
   uint32_t n_batch;
   FastDiv tin, gL, Ediv;
   FastDiv b_size[MAX_BATCH_DIMS];
@@ -333,11 +347,15 @@ __device__ void apply_any_gate(const ChainGate& g, const float2* src,
 // (int64), the index tables.
 // Tiles: this block takes tiles blockIdx.x + k * gridDim.x, k = 0, 1, ...;
 // tile k loads into slot k % S with its offsets in entry k % (S + 2).
+// Slices: block (bx, s) takes slice s = blockIdx.y.
 __global__ void __launch_bounds__(MAX_THREADS)
 gate_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
                   const int* __restrict__ tables,
                   const __grid_constant__ PassArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int64_t slice = blockIdx.y;
+  x += slice * a.x_slice;
+  out += slice * a.out_slice;
   const int S = a.S, E = a.E;
   const int PS = E * (int)a.tin.d, PW = E * a.twork;  // buffer sizes
   float2* const sy = reinterpret_cast<float2*>(smem_raw);
@@ -351,8 +369,9 @@ gate_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
   for (int j = 0; j < a.ngates; ++j) {
     const ChainGate& g = a.g[j];
     const int kn = g.K * g.N;
+    const float* gy = g.y + slice * g.y_slice;
     for (int i = threadIdx.x; i < kn; i += blockDim.x)
-      sy[g.yoff + i] = make_float2(g.y[i], g.y[kn + i]);
+      sy[g.yoff + i] = make_float2(gy[i], gy[kn + i]);
   }
 
   const int64_t step = gridDim.x;
@@ -413,8 +432,9 @@ static bool in_table(int64_t pos, int64_t len, int64_t table_len) {
 // writes it: a header (gates, batch tile, ring stages, batch runs,
 // largest intermediate tile, batch count, x and out elements per plane,
 // table length, then hi position, lo position and len(lo) of the
-// gather); per gate (y pointer, K, N, tile in, tile out, koff, noff, oin hi, oin
-// lo, oout hi, oout lo, len(lo) of oin and oout); per batch run (size,
+// gather, then slices, x and out slice strides); per gate (y pointer,
+// K, N, tile in, tile out, koff, noff, oin hi, oin lo, oout hi, oout
+// lo, len(lo) of oin and oout, y slice stride); per batch run (size,
 // x stride, out stride). tables: the int32 index tables on the device.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an argument block the kernel cannot take.
@@ -433,6 +453,9 @@ extern "C" int ctg_gate_chain_f32(const float* x, float* out,
   a.in_plane = meta[6];
   a.out_plane = meta[7];
   a.table_len = (int)meta[8];
+  const int64_t nslice = meta[12];
+  a.x_slice = meta[13];
+  a.out_slice = meta[14];
   if (a.ngates < 1 || a.ngates > MAX_PASS_GATES || a.nb < 0 ||
       a.nb > MAX_BATCH_DIMS ||
       meta_len != META_HEAD + META_GATE * a.ngates + 3 * a.nb ||
@@ -440,7 +463,9 @@ extern "C" int ctg_gate_chain_f32(const float* x, float* out,
       meta[4] >= ((int64_t)1 << 24) || n_batch < 0 || a.in_plane < 0 ||
       a.out_plane < 0 || a.in_plane >= ((int64_t)1 << 31) ||
       a.out_plane >= ((int64_t)1 << 31) || meta[8] < 0 ||
-      meta[8] >= ((int64_t)1 << 24))
+      meta[8] >= ((int64_t)1 << 24) || nslice < 1 || nslice > MAX_SLICES ||
+      a.x_slice < 0 || a.out_slice < 0 ||
+      (nslice > 1 && a.out_slice < 2 * a.out_plane))
     return bad;
   a.nwork = a.ngates - 1 < 2 ? a.ngates - 1 : 2;
   a.n_batch = (uint32_t)n_batch;
@@ -451,13 +476,14 @@ extern "C" int ctg_gate_chain_f32(const float* x, float* out,
   for (int j = 0; j < a.ngates; ++j, p += META_GATE) {
     ChainGate& g = a.g[j];
     g.y = reinterpret_cast<const float*>(p[0]);
+    g.y_slice = p[12];
     const int64_t K = p[1], N = p[2], tin = p[3], tout = p[4], L = p[11];
     // the tiles between gates live in the work buffers
     if (K < 1 || N < 1 || K * N > MAX_GATE_COMBOS || tin < 1 || tout < 1 ||
         tin >= ((int64_t)1 << 24) || tout >= ((int64_t)1 << 24) ||
         (j > 0 && tin > a.twork) || (j + 1 < a.ngates && tout > a.twork) ||
         tin % K || tin / K * N != tout || L < 1 || (tin / K) % L ||
-        g.y == nullptr)
+        g.y == nullptr || g.y_slice < 0)
       return bad;
     if (j > 0 && a.g[j - 1].tout != tin) return bad;
     g.K = (int)K;
@@ -528,9 +554,15 @@ extern "C" int ctg_gate_chain_f32(const float* x, float* out,
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  int64_t grid = (int64_t)per_sm * sms;
+  // the resident blocks shared out over the slices, each slice's
+  // blocks walking its tiles; rounded down, so that no block waits for
+  // a second wave (16 slices of 17 blocks on 264 resident ones took 1.7x
+  // the time of 16 single slices)
+  int64_t grid = (int64_t)per_sm * sms / nslice;
+  if (grid < 1) grid = 1;
   if (grid > a.n_tiles) grid = a.n_tiles;
-  gate_chain_kernel<<<(unsigned)grid, threads, (size_t)smem,
+  const dim3 blocks((unsigned)grid, (unsigned)nslice);
+  gate_chain_kernel<<<blocks, threads, (size_t)smem,
                       (cudaStream_t)stream>>>(x, out, tables, a);
   return (int)cudaGetLastError();
 }

@@ -523,35 +523,42 @@ def build_chain_spec(order0, sizes, gates):
 def _gate_plain(x, y, g):
     """One gate in plain PyTorch: a strided view of x as (2, B, K), a
     complex (B, K) @ (K, N) on the planes, and a strided write of the
-    (2, B, N) result into the output's leg order."""
+    (2, B, N) result into the output's leg order. A leading slice dim of
+    x (``(S, 2 * numel)``) or y (``(S, 2, K, N)``) broadcasts: the
+    result has it where either has."""
     bsz = tuple(d[0] for d in g.batch)
     ksz = tuple(d[0] for d in g.kdims)
     nsz = tuple(d[0] for d in g.ndims)
     B, K, N = prod(bsz), prod(ksz), prod(nsz)
+    x_lead = tuple(x.shape[:-1])
     xv = x.as_strided(
-        (2,) + bsz + ksz,
-        (g.numel_in,)
+        x_lead + (2,) + bsz + ksz,
+        tuple(x.stride()[:-1])
+        + (g.numel_in,)
         + tuple(d[1] for d in g.batch)
         + tuple(d[1] for d in g.kdims),
-    ).reshape(2, B, K)
-    yr, yi = y[0], y[1]
-    res = torch.stack(
-        [xv[0] @ yr - xv[1] @ yi, xv[0] @ yi + xv[1] @ yr]
-    )
-    out = x.new_empty(2 * g.numel_out)
+        x.storage_offset(),
+    ).reshape(x_lead + (2, B, K))
+    lead = tuple(torch.broadcast_shapes(x_lead, tuple(y.shape[:-3])))
+    xr, xi = xv.select(-3, 0), xv.select(-3, 1)
+    yr, yi = y.select(-3, 0), y.select(-3, 1)
+    res = torch.stack([xr @ yr - xi @ yi, xr @ yi + xi @ yr], dim=-3)
+    out = x.new_empty(lead + (2 * g.numel_out,))
     out.as_strided(
-        (2,) + bsz + nsz,
-        (g.numel_out,)
+        lead + (2,) + bsz + nsz,
+        (2 * g.numel_out,) * len(lead)
+        + (g.numel_out,)
         + tuple(d[2] for d in g.batch)
         + tuple(d[1] for d in g.ndims),
-    ).copy_(res.view((2,) + bsz + nsz))
+    ).copy_(res.reshape(lead + (2,) + bsz + nsz))
     return out
 
 
 def run_chain_plain(spec, x_flat, ys):
     """Plain PyTorch version of the chain: one strided complex matmul
     per gate. Runs on any device; :func:`run_chain` uses it for CPU
-    tensors only, and ``chip_smoke.py`` compares the kernel with it."""
+    tensors only, and ``chip_smoke.py`` compares the kernel with it.
+    Takes the batched forms of :func:`run_chain` too."""
     for g, y in zip(spec.gate_strides, ys, strict=True):
         x_flat = _gate_plain(x_flat, y, g)
     return x_flat
@@ -803,20 +810,26 @@ def pass_tables(ps):
 def _pass_kernel_args(ps):
     """(meta, tables) of one pass: the int64 argument block read by
     ``ctg_gate_chain_f32`` in csrc/gate_chain.cu, with a 0 in each
-    gate's y-pointer slot (``_META_Y + _META_GATE * g``), and the int32
-    index tables it points into. Layout: a header (gates, batch tile,
-    ring stages, batch runs, largest intermediate tile, batch count, x
-    and out elements, table length, then position of hi, position of lo
-    and len(lo) of the gather); per gate (y, K, N, tile in, tile out,
-    koff, noff, oin hi, oin lo, oout hi, oout lo, len(lo) of oin and
-    oout); per batch run (size, x stride, out stride)."""
+    gate's y-pointer slot (``_META_Y + _META_GATE * g``), one slice
+    (``_META_SLICES``) and slice strides of 0, and the int32 index
+    tables it points into. Layout: a header (gates, batch tile, ring
+    stages, batch runs, largest intermediate tile, batch count, x and
+    out elements, table length, then position of hi, position of lo and
+    len(lo) of the gather, then slices, x and out slice strides); per
+    gate (y, K, N, tile in, tile out, koff, noff, oin hi, oin lo, oout
+    hi, oout lo, len(lo) of oin and oout, y slice stride); per batch run
+    (size, x stride, out stride). Strides and sizes are per slice:
+    ``run_chain_cuda`` fills in the slice count and strides of a
+    batch."""
     io = ps.io
     if len(io.batch) > MAX_BATCH_DIMS:
         raise ValueError(f"{len(io.batch)} batch runs > {MAX_BATCH_DIMS}")
     if len(ps.tile) > MAX_PASS_GATES:
         raise ValueError(f"{len(ps.tile)} gates > {MAX_PASS_GATES}")
     if max(io.numel_in, io.numel_out) >= 2**31:
-        raise ValueError("x and out must have fewer than 2**31 elements")
+        raise ValueError(
+            "x and out must have fewer than 2**31 elements per slice"
+        )
     tabs = pass_tables(ps)
     parts = []
 
@@ -835,7 +848,7 @@ def _pass_kernel_args(ps):
             raise ValueError("oin and oout must share their split")
         gate_meta += [0, K, N, g.numel_in, g.numel_out, put(koff),
                       put(noff), put(oin[0]), put(oin[1]), put(oout[0]),
-                      put(oout[1]), len(oin[1])]
+                      put(oout[1]), len(oin[1]), 0]
     tables = np.concatenate(parts)
     if np.abs(tables).max() >= 2**31:
         raise ValueError("an index table exceeds int32")
@@ -843,15 +856,17 @@ def _pass_kernel_args(ps):
     meta = [
         len(ps.tile), ps.batch_tile, ps.stages, len(io.batch), t_work,
         prod(d[0] for d in io.batch), io.numel_in, io.numel_out,
-        len(tables), *head, *gate_meta,
+        len(tables), *head, 1, 0, 0, *gate_meta,
     ]
     for d in io.batch:
         meta.extend(d)
     return meta, tables.astype(np.int32)
 
 
-_META_Y = 12     # index of the first gate's y pointer in the argument block
-_META_GATE = 12  # int64s per gate in the argument block
+_META_SLICES = 12  # slices, x and out slice strides in the argument block
+_META_Y = 15       # index of the first gate's y pointer in the argument block
+_META_GATE = 13    # int64s per gate in the argument block
+_META_Y_SLICE = 12  # a gate's y slice stride, from its y pointer
 
 
 def _kernel_args(spec, device):
@@ -867,19 +882,31 @@ def _kernel_args(spec, device):
     return spec._tiles[key]
 
 
+def _slices_of(x_flat, ys):
+    """The slice count of a batched call (None if nothing is batched):
+    x ``(S, 2 * numel)``, a gate ``(S, 2, K, N)``."""
+    counts = {x_flat.shape[0]} if x_flat.dim() == 2 else set()
+    counts.update(y.shape[0] for y in ys if y.dim() == 4)
+    if len(counts) > 1:
+        raise ValueError(f"batched operands disagree on slices: {counts}")
+    return counts.pop() if counts else None
+
+
 def run_chain_cuda(spec, x_flat, ys):
     """Launch ``csrc/gate_chain.cu`` once per pass of
-    ``chain_tile_plan(spec)`` on CUDA float32 planes.
+    ``chain_tile_plan(spec)`` on CUDA float32 planes, for one slice or
+    for a whole batch (:func:`run_chain`'s batched forms: one launch per
+    pass either way, a gate read by slice through its slice stride).
     ``run_chain_cuda.launches`` counts the launches."""
     from ._build import load_library
 
     if x_flat.device.type != "cuda":
         raise ValueError("run_chain_cuda needs a CUDA tensor")
-    if x_flat.dtype != torch.float32 or x_flat.dim() != 1:
+    if x_flat.dtype != torch.float32 or x_flat.dim() not in (1, 2):
         raise ValueError("gate-chain kernel takes flat float32 planes")
     if not x_flat.is_contiguous():
         raise ValueError("gate-chain kernel needs contiguous x")
-    if x_flat.numel() != 2 * spec.gate_strides[0].numel_in:
+    if x_flat.shape[-1] != 2 * spec.gate_strides[0].numel_in:
         raise ValueError("x does not match the chain's input size")
     ys = list(ys)
     if len(ys) != len(spec.gate_strides):
@@ -892,25 +919,38 @@ def run_chain_cuda(spec, x_flat, ys):
         if (
             y.device != x_flat.device
             or y.dtype != torch.float32
-            or tuple(y.shape) != (2, K, N)
+            or tuple(y.shape[-3:]) != (2, K, N)
+            or y.dim() not in (3, 4)
             or not y.is_contiguous()
         ):
             raise ValueError(
-                f"gate must be contiguous float32 (2, {K}, {N}) on "
-                f"{x_flat.device}, got {y.dtype} {tuple(y.shape)} on "
-                f"{y.device}"
+                f"gate must be contiguous float32 (2, {K}, {N}) or (S, 2, "
+                f"{K}, {N}) on {x_flat.device}, got {y.dtype} "
+                f"{tuple(y.shape)} on {y.device}"
             )
+    nslice = _slices_of(x_flat, ys)
+    lead = () if nslice is None else (nslice,)
     lib = load_library()
     stream = torch.cuda.current_stream(x_flat.device).cuda_stream
     for ps, meta, tables in _kernel_args(spec, x_flat.device):
         meta = list(meta)
         first, stop = ps.gates
         for j, y in enumerate(ys[first:stop]):
-            meta[_META_Y + _META_GATE * j] = y.data_ptr()
-        meta = (ctypes.c_int64 * len(meta))(*meta)
+            at = _META_Y + _META_GATE * j
+            meta[at] = y.data_ptr()
+            if y.dim() == 4:
+                meta[at + _META_Y_SLICE] = y.stride(0)
         out = torch.empty(
-            2 * ps.io.numel_out, dtype=torch.float32, device=x_flat.device
+            lead + (2 * ps.io.numel_out,), dtype=torch.float32,
+            device=x_flat.device,
         )
+        if nslice is not None:
+            meta[_META_SLICES:_META_SLICES + 3] = [
+                nslice,
+                x_flat.stride(0) if x_flat.dim() == 2 else 0,
+                out.stride(0),
+            ]
+        meta = (ctypes.c_int64 * len(meta))(*meta)
         rc = lib.ctg_gate_chain_f32(
             x_flat.data_ptr(), out.data_ptr(), tables.data_ptr(), meta,
             len(meta), stream,
@@ -932,6 +972,11 @@ def run_chain(spec, x_flat, ys):
     imaginary plane, in the chain's input leg order); ``ys`` are the
     realigned (2, K, N) gates. Returns the flat planes in the chain's
     ``out_order``.
+
+    Batched: ``x_flat`` may be ``(S, 2 * numel)`` (S slices) and any
+    gate ``(S, 2, K, N)`` (a gate that reads a sliced index); the result
+    is then ``(S, 2 * numel_out)``, the unbatched operands shared by
+    every slice.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
     the plain version.

@@ -18,14 +18,17 @@ jit. Each is named where its replacement stands.
 import torch
 
 from .._device import resolve_device, resolve_plane_dtype
+from ..utils.misc import prod
 from .gate_chains import run_chain
 from .grouped_plan import plan_grouped
 from .lowering import extract_contractions, sliced_input_legs
 from .pairwise import apply_pairwise, apply_single
-from .slices import SliceBatch
+from .slices import SliceBatch, _flat_ids
 
-# leg label reserved for the plane axis in single-term ops
+# leg labels reserved for the plane axis and a batch's slice axis in
+# the einsum steps
 _PLANE = "\x00plane"
+_SLICE = "\x00slice"
 
 
 def _to_planes(a, plane_dtype):
@@ -38,9 +41,13 @@ def _to_planes(a, plane_dtype):
 
 
 def _planes_to_complex(flat, shape):
-    """flat (2*numel,) planes -> complex tensor of ``shape``."""
-    planes = flat.view((2,) + tuple(shape))
-    return torch.complex(planes[0], planes[1])
+    """flat (2*numel,) planes -> complex tensor of ``shape``; a batch's
+    (S, 2*numel) rows -> (S, *shape)."""
+    if flat.dim() == 1:
+        planes = flat.view((2,) + tuple(shape))
+        return torch.complex(planes[0], planes[1])
+    planes = flat.view((flat.shape[0], 2) + tuple(shape))
+    return torch.complex(planes[:, 0], planes[:, 1])
 
 
 # a CUDA TensorIterator copy takes at most this many dims
@@ -83,15 +90,22 @@ def permute_copy(x, perm, max_dims=None):
 # GPU copy needs none of them.
 def _apply_block_plan_split(flat, plan):
     """Block transpose of plane-major flat storage: both planes move with
-    the same plan, the plane dim stays leading. One permuted copy, split
-    where it has more than ``MAX_COPY_DIMS`` dims."""
+    the same plan, the plane dim (and a batch's slice dim before it)
+    stays leading. One permuted copy, split where it has more than
+    ``MAX_COPY_DIMS`` dims, the slice dim counted."""
     if plan is None:
         return flat
     block_dims, perm = plan
+    if flat.dim() == 1:
+        return permute_copy(
+            flat.view((2,) + tuple(block_dims)),
+            (0,) + tuple(p + 1 for p in perm),
+        ).view(-1)
+    S = flat.shape[0]
     return permute_copy(
-        flat.view((2,) + tuple(block_dims)),
-        (0,) + tuple(p + 1 for p in perm),
-    ).view(-1)
+        flat.view((S, 2) + tuple(block_dims)),
+        (0, 1) + tuple(p + 2 for p in perm),
+    ).view(S, -1)
 
 
 def _split_pair_scattered(x_flat, yf, p, block_dims, kpos):
@@ -187,6 +201,167 @@ def _split_apply_small_y(xf, x_layout, M, K, N, ykn_r, ykn_i):
     return torch.cat([zr.reshape(-1), zi.reshape(-1)])
 
 
+# Batched steps ("vmap"): a stored id holds a batch's (S, 2 * numel) rows
+# or one slice's (2 * numel,) planes, shared by the batch; the slice dim
+# leads, and an operand without it broadcasts. The unbatched functions
+# above keep their own code: the host's cost per step call is what the
+# slice-by-slice paths pay.
+
+
+def _lead(flat):
+    """``(S,)`` for a batch's rows, ``()`` for one slice's planes."""
+    return tuple(flat.shape[:-1])
+
+
+def _permuted_view(x, perm, shape):
+    """``x.permute(perm)`` viewed as ``shape``, copied
+    (``permute_copy``) only where no view exists."""
+    try:
+        return x.permute(perm).view(shape)
+    except RuntimeError:
+        return permute_copy(x, perm).view(shape)
+
+
+def _split_pair_scattered_batched(x_flat, yf, p, block_dims, kpos):
+    """``_split_pair_scattered`` with a slice dim on x, y or both: the
+    stored view's plane and K blocks gathered in front, (S, 2K, M), and
+    one batched GEMM with the lhs (2N, 2K), broadcast where unbatched;
+    the result (S, 2N, M) is already plane-major per slice."""
+    N, K = p.N, p.K
+    lead_x, lead_y = _lead(x_flat), _lead(yf)
+    if p.mode == "mm":
+        y2 = yf.view(lead_y + (2, N, K))
+        yr, yi = y2.select(-3, 0), y2.select(-3, 1)
+    else:  # y stored (K, N)
+        y2 = yf.view(lead_y + (2, K, N))
+        yr, yi = y2.select(-3, 0).mT, y2.select(-3, 1).mT
+    lhs = torch.stack(
+        [torch.cat([yr, yi], -2), torch.cat([-yi, yr], -2)], dim=-2
+    )  # (2N, 2, K)
+    nl = len(lead_x)
+    mpos = [q for q in range(len(block_dims)) if q not in kpos]
+    perm = (
+        tuple(range(nl + 1))
+        + tuple(q + nl + 1 for q in kpos)
+        + tuple(q + nl + 1 for q in mpos)
+    )
+    M = prod(block_dims[q] for q in mpos)
+    xk = _permuted_view(
+        x_flat.view(lead_x + (2,) + tuple(block_dims)), perm,
+        lead_x + (2 * K, M),
+    )
+    out = torch.matmul(lhs.reshape(lead_y + (2 * N, 2 * K)), xk)
+    return out.flatten(-2)
+
+
+def _mv(v, m):
+    """``v @ m`` for a vector ``v`` and a matrix ``m``, either with a
+    leading slice dim."""
+    if v.dim() == 1:
+        return v @ m
+    return (v.unsqueeze(-2) @ m).squeeze(-2)
+
+
+def _mv_right(m, v):
+    """``m @ v`` for a matrix ``m`` and a vector ``v``, either with a
+    leading slice dim."""
+    if v.dim() == 1:
+        return m @ v
+    return (m @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def _split_apply_small_y_batched(xf, x_layout, M, K, N, ykn_r, ykn_i):
+    """``_split_apply_small_y`` with a slice dim on ``xf`` (S, 2*K*M),
+    on the gate (S, K, N) or both. Where x alone has it, the slices fold
+    into x's free legs of the same GEMM."""
+    lead = _lead(xf)
+    if K < 8:
+        # mac: unrolled plane MACs on (strided) 1-D slices
+        if x_layout == "cm":
+            xv = xf.view(lead + (2, K, M))
+        else:
+            xv = xf.view(lead + (2, M, K)).transpose(-1, -2)
+        batched_y = ykn_r.dim() > 2
+        xs = xv.unbind(-3)
+        xr_k, xi_k = xs[0].unbind(-2), xs[1].unbind(-2)
+        cols_r, cols_i = [], []
+        for n in range(N):
+            accr = acci = None
+            for k in range(K):
+                xr, xi = xr_k[k], xi_k[k]
+                if batched_y:  # a gate per slice: (S, 1) against (M,)
+                    yr, yi = ykn_r[:, k, n, None], ykn_i[:, k, n, None]
+                else:
+                    yr, yi = ykn_r[k, n], ykn_i[k, n]
+                tr = xr * yr - xi * yi
+                ti = xr * yi + xi * yr
+                accr = tr if accr is None else accr + tr
+                acci = ti if acci is None else acci + ti
+            cols_r.append(accr)
+            cols_i.append(acci)
+        return torch.cat(cols_r + cols_i, dim=-1)
+
+    if N < 8:
+        # matvec: per-column matvecs
+        cols_r, cols_i = [], []
+        if x_layout == "cm":
+            x2 = xf.view(lead + (2 * K, M))
+            for n in range(N):
+                vr = torch.cat([ykn_r[..., n], -ykn_i[..., n]], -1)
+                vi = torch.cat([ykn_i[..., n], ykn_r[..., n]], -1)
+                cols_r.append(_mv(vr, x2))
+                cols_i.append(_mv(vi, x2))
+        else:
+            x2 = xf.view(lead + (2 * M, K))
+            for n in range(N):
+                a = _mv_right(x2, ykn_r[..., n])
+                b = _mv_right(x2, ykn_i[..., n])
+                cols_r.append(a[..., :M] - b[..., M:])
+                cols_i.append(b[..., :M] + a[..., M:])
+        return torch.cat(cols_r + cols_i, dim=-1)
+
+    # mm: K >= 8, N >= 8
+    yrT, yiT = ykn_r.mT, ykn_i.mT  # (N, K)
+    if x_layout == "cm":
+        yb = torch.cat(
+            [torch.cat([yrT, -yiT], dim=-1), torch.cat([yiT, yrT], dim=-1)],
+            dim=-2,
+        )  # (2N, 2K)
+        return (yb @ xf.view(lead + (2 * K, M))).flatten(-2)
+    x2 = xf.view(lead + (2 * M, K))
+    a = yrT @ x2.mT  # (N, 2M)
+    b = yiT @ x2.mT
+    zr = a[..., :M] - b[..., M:]
+    zi = b[..., :M] + a[..., M:]
+    return torch.cat([zr.flatten(-2), zi.flatten(-2)], dim=-1)
+
+
+def _pair_batched(p, xf, yf):
+    """A bmm / mac / matvec / mm pair step on realigned operands with a
+    slice dim on either or both."""
+    B, M, K, N = p.B, p.M, p.K, p.N
+    lead_x, lead_y = _lead(xf), _lead(yf)
+    if p.mode == "bmm":
+        x3 = xf.view(lead_x + (2, B, K, M))
+        y3 = yf.view(lead_y + (2, B, N, K))
+        xr, xi = x3.select(-4, 0), x3.select(-4, 1)
+        yr, yi = y3.select(-4, 0), y3.select(-4, 1)
+        rr, ii = torch.matmul(yr, xr), torch.matmul(yi, xi)
+        ri, ir = torch.matmul(yi, xr), torch.matmul(yr, xi)
+        return torch.cat([(rr - ii).flatten(-3), (ri + ir).flatten(-3)],
+                         dim=-1)
+    # y stored as (K, N) for mac/matvec, (N, K) for mm
+    if p.mode == "mm":
+        y2 = yf.view(lead_y + (2, N, K))
+        ykn_r, ykn_i = y2.select(-3, 0).mT, y2.select(-3, 1).mT
+    else:
+        y2 = yf.view(lead_y + (2, K, N))
+        ykn_r, ykn_i = y2.select(-3, 0), y2.select(-3, 1)
+    return _split_apply_small_y_batched(
+        xf, p.x_layout, M, K, N, ykn_r, ykn_i
+    )
+
+
 # The reference's _maybe_barrier has no counterpart: eager torch ops do
 # not fuse across steps.
 def _exec_steps_split(plans, steps, temps, shapes, last_use,
@@ -195,7 +370,13 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
     over ``temps`` (id -> plane-major flat real tensor, freed after its
     last use); ``shapes`` maps id -> logical complex shape. Returns the
     summed log10 exponent of the stripped steps (None if nothing was
-    stripped)."""
+    stripped).
+
+    A stored id of a batch of slices (``"vmap"``) holds ``(S, 2 *
+    numel)``, one row per slice; the others hold ``(2 * numel,)`` and
+    are shared by every slice. A step with a batched operand gives a
+    batched result, and its strip is per slice: the exponent is then a
+    ``(S,)`` vector."""
     exponent = None
 
     def store(out_id, flat, shape, si, srcs):
@@ -207,11 +388,16 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
 
     def strip(flat):
         # max over both planes, as the reference: max(|re|, |im|), not
-        # the modulus
+        # the modulus; a batch's slices each by their own
         nonlocal exponent
-        absmax = flat.abs().amax()
+        if flat.dim() == 1:
+            absmax = flat.abs().amax()
+        else:
+            absmax = flat.abs().amax(dim=1, keepdim=True)
         scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
         e = torch.log10(scale)
+        if flat.dim() == 2:
+            e = e[:, 0]
         exponent = e if exponent is None else exponent + e
         return flat / scale
 
@@ -219,36 +405,57 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
         kind, info = plans[si]
         if kind == "single":
             step = info
-            x2 = temps[step.inp].view((2,) + tuple(shapes[step.inp]))
+            flat = temps[step.inp]
+            lead = (_SLICE,) * (flat.dim() - 1)
+            x2 = flat.view(
+                flat.shape[:-1] + (2,) + tuple(shapes[step.inp])
+            )
             out = apply_single(
                 x2,
-                (_PLANE,) + tuple(step.in_legs),
-                (_PLANE,) + tuple(step.out_legs),
+                lead + (_PLANE,) + tuple(step.in_legs),
+                lead + (_PLANE,) + tuple(step.out_legs),
             )
             store(
-                step.out, out.reshape(-1), out.shape[1:], si, (step.inp,)
+                step.out, out.reshape(flat.shape[:-1] + (-1,)),
+                out.shape[len(lead) + 1:], si, (step.inp,),
             )
             continue
 
         if kind == "fallback":
             step, x_id, y_id, x_order, y_order, x_dims, y_dims = info
-            xc = _planes_to_complex(temps[x_id], x_dims)
-            yc = _planes_to_complex(temps[y_id], y_dims)
-            out = apply_pairwise(xc, yc, x_order, y_order, step.out_legs)
-            flat = torch.cat(
-                [out.real.reshape(-1), out.imag.reshape(-1)]
-            )
+            xf, yf = temps[x_id], temps[y_id]
+            xc = _planes_to_complex(xf, x_dims)
+            yc = _planes_to_complex(yf, y_dims)
+            if xf.dim() == 1 and yf.dim() == 1:
+                out = apply_pairwise(xc, yc, x_order, y_order, step.out_legs)
+                flat = torch.cat(
+                    [out.real.reshape(-1), out.imag.reshape(-1)]
+                )
+                shape = out.shape
+            else:
+                # the slice leg: kept on the batched operands, a batch
+                # leg where both have it
+                lx, ly = (_SLICE,) * (xf.dim() - 1), (_SLICE,) * (yf.dim() - 1)
+                out = apply_pairwise(
+                    xc, yc, lx + tuple(x_order), ly + tuple(y_order),
+                    (_SLICE,) + tuple(step.out_legs),
+                )
+                S = out.shape[0]
+                flat = torch.cat(
+                    [out.real.reshape(S, -1), out.imag.reshape(S, -1)], dim=1
+                )
+                shape = out.shape[1:]
             if strip_exponent:
                 flat = strip(flat)
-            store(step.out, flat, out.shape, si, (x_id, y_id))
+            store(step.out, flat, shape, si, (x_id, y_id))
             continue
 
         if kind == "inplace":
             rec = info
-            ys = [
-                _apply_block_plan_split(temps[y_id], y_plan).view(2, K, N)
-                for y_id, y_plan, K, N in rec.ys
-            ]
+            ys = []
+            for y_id, y_plan, K, N in rec.ys:
+                yf = _apply_block_plan_split(temps[y_id], y_plan)
+                ys.append(yf.view(yf.shape[:-1] + (2, K, N)))
             out = run_chain(rec.spec, temps[rec.x_id], ys)
             # no strip, as in the reference: chains are near-unitary and
             # the surrounding pair steps strip
@@ -261,10 +468,14 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
         p = info
         B, M, K, N = p.B, p.M, p.K, p.N
         if p.scatter is not None:
+            xf = temps[p.x_id]
             yf = _apply_block_plan_split(temps[p.y_id], p.y_plan)
-            out = _split_pair_scattered(
-                temps[p.x_id], yf, p, p.scatter[0], p.scatter[1]
+            scattered = (
+                _split_pair_scattered
+                if xf.dim() == 1 and yf.dim() == 1
+                else _split_pair_scattered_batched
             )
+            out = scattered(xf, yf, p, p.scatter[0], p.scatter[1])
             if strip_exponent:
                 out = strip(out)
             store(p.out_id, out, (B, N, M), si, (p.x_id, p.y_id))
@@ -272,7 +483,9 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
         xf = _apply_block_plan_split(temps[p.x_id], p.x_plan)
         yf = _apply_block_plan_split(temps[p.y_id], p.y_plan)
 
-        if p.mode == "bmm":
+        if xf.dim() == 2 or yf.dim() == 2:
+            out = _pair_batched(p, xf, yf)
+        elif p.mode == "bmm":
             x3 = xf.view(2, B, K, M)
             y3 = yf.view(2, B, N, K)
             rr = torch.bmm(y3[0], x3[0])
@@ -312,6 +525,96 @@ def _step_io(plans):
 
 SLICE_BATCH_MODES = ("auto", "scan", "vmap")
 
+# "auto" on the card takes "vmap" only where the batch's live peak, the
+# per-slice peak (``slice_peak_bytes``) times the slices, and the raw
+# inputs fit this share of the card's memory (the rest: the caching
+# allocator's slack and the GEMMs' workspaces) ...
+VMAP_MEMORY_SHARE = 0.9
+# ... and where one slice's live peak is at most this many bytes: the
+# largest per-slice peak at which "vmap" was measured no slower than
+# "scan" is m20-t28's 6.00 GiB (``auto_slice_batch_mode``).
+VMAP_AUTO_MAX_SLICE_BYTES = 7 * 2**30
+
+
+def _numel_out(kind, info, sizes):
+    if kind == "single":
+        return prod(sizes[ix] for ix in info.out_legs)
+    if kind == "fallback":
+        return prod(sizes[ix] for ix in info[0].out_legs)
+    if kind == "inplace":
+        return prod(info.out_shape)
+    return info.B * info.M * info.N
+
+
+def slice_peak_bytes(plans, in_shapes, last_use, sizes, itemsize=4):
+    """The live peak of one slice's steps, reckoned from the plan, in
+    bytes of split-complex planes of ``itemsize``-byte floats: before
+    each step the ids still live, plus the step's copies (realigned
+    operands, the complex operands of a fallback einsum) and twice its
+    output (the result and its stripped or flattened copy)."""
+    numel = {i: prod(shape) for i, shape in enumerate(in_shapes)}
+    live = sum(numel.values())
+    peak = live
+    for si, ((kind, info), (srcs, out)) in enumerate(
+        zip(plans, _step_io(plans))
+    ):
+        n_out = _numel_out(kind, info, sizes)
+        if kind == "fallback":
+            copies = numel[srcs[0]] + numel[srcs[1]]
+        elif kind == "pair":
+            copies = (
+                numel[info.x_id] * (info.x_plan is not None)
+                + numel[info.y_id] * (info.y_plan is not None)
+            )
+        else:
+            copies = 0
+        peak = max(peak, live + copies + 2 * n_out)
+        numel[out] = n_out
+        live += n_out
+        for vid in set(srcs):
+            if last_use.get(vid) == si:
+                live -= numel[vid]
+    return 2 * itemsize * peak
+
+
+def vmap_max_batch(slice_bytes, raw_bytes, device_bytes):
+    """The most slices whose ``"vmap"`` batch fits: ``slices x
+    slice_bytes + raw_bytes`` within ``VMAP_MEMORY_SHARE`` of
+    ``device_bytes`` (0 if not even one does)."""
+    room = VMAP_MEMORY_SHARE * device_bytes - raw_bytes
+    return max(0, int(room // slice_bytes))
+
+
+def auto_slice_batch_mode(device, slice_batch, slice_bytes, raw_bytes,
+                          device_bytes):
+    """What ``slice_batch_mode="auto"`` takes for a batch of
+    ``slice_batch`` slices.
+
+    CPU tensors take ``"scan"``. On the card, ``"vmap"`` where the batch
+    fits (``vmap_max_batch``) and one slice's live peak is at most
+    ``VMAP_AUTO_MAX_SLICE_BYTES``, else ``"scan"``. Warm seconds on an
+    NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` phases 32-34,
+    PERF.md), "vmap" against "scan":
+
+    - m10-t27, 4 slices a call (3.0 GiB a slice): 0.1168 against 0.1241;
+    - m20-t28, 16 slices in calls of 11 against one call of 16 (6.0 GiB
+      a slice; 16 do not fit): 0.8030 against 0.9132;
+    - the example's m10 tree sliced to 2^22, 512 slices in calls of 16
+      (0.09 GiB a slice): 1.1028 against 9.2964.
+
+    "vmap" was never slower; it saves host time (B times fewer step
+    calls), so its gain grows as slices shrink, at B times the memory.
+    The reference took scan once ``max_size * B > 2**24`` elements, a
+    TPU's HBM budget.
+    """
+    if torch.device(device).type != "cuda":
+        return "scan"
+    if slice_batch > vmap_max_batch(slice_bytes, raw_bytes, device_bytes):
+        return "scan"
+    if slice_bytes > VMAP_AUTO_MAX_SLICE_BYTES:
+        return "scan"
+    return "vmap"
+
 
 def make_grouped_contractor(
     tree, device="cuda", plane_dtype=torch.float32, gate_mode="auto",
@@ -335,14 +638,23 @@ def make_grouped_contractor(
     It returns the ``(len(slice_ids), 2, *out_shape)`` per-slice planes,
     and a ``(len(slice_ids),)`` exponent vector under
     ``strip_exponent``; the caller sums them. The steps that no sliced
-    index reaches run once per call, the others once per slice, on views
-    selected from the raw planes (``slice_batch_mode="scan"``, which
-    ``"auto"`` resolves to: one slice's memory at a time). ``"vmap"``,
-    all slices of the batch at once, is not ported (ROADMAP A5).
+    index reaches run once per call. ``slice_batch_mode`` says how the
+    others run:
+
+    - ``"scan"``: once per slice, on views selected from the raw planes
+      (one slice's memory at a time);
+    - ``"vmap"``: once per call for all the slices together, each
+      varying input gathered for the batch (``slices.gather_input``):
+      B times one slice's memory, and B times fewer step calls and
+      kernel launches (a chain pass is one launch for the batch). A
+      batch that does not fit raises the allocator's out-of-memory
+      error; it never turns into ``"scan"``;
+    - ``"auto"``: ``auto_slice_batch_mode`` (``"scan"`` on the CPU).
+
     With ``constants`` (input positions whose planes never change),
     ``fn.fold(planes)`` runs the steps that only constants reach once,
     and ``fn(planes, slice_ids, folded)`` reuses its result
-    (``slices.SliceBatch``).
+    (``slices.SliceBatch``). ``fn.mode`` is the mode taken.
 
     ``gate_mode="auto"`` resolves to ``"inplace"`` (gate chains), as the
     reference's split-complex default does; ``None`` plans pairs only.
@@ -356,12 +668,6 @@ def make_grouped_contractor(
         raise ValueError(
             f"slice_batch_mode must be one of {SLICE_BATCH_MODES}, got "
             f"{slice_batch_mode!r}"
-        )
-    if slice_batch and slice_batch_mode == "vmap":
-        raise NotImplementedError(
-            "slice_batch_mode='vmap' (all slices of a batch at once) is "
-            "not ported (ROADMAP A5: a batch leg through the chain "
-            "kernel); use 'scan'"
         )
     ir = extract_contractions(tree)
     input_orders = [sliced_input_legs(tree, i) for i in range(tree.N)]
@@ -390,7 +696,7 @@ def make_grouped_contractor(
 
     def finish(temps):
         flat = _apply_block_plan_split(temps[ir.final_id], out_plan)
-        return flat.view((2,) + tuple(out_shape))
+        return flat.view(_lead(flat) + (2,) + tuple(out_shape))
 
     def zero():
         return torch.zeros((), dtype=pdt, device=dev)
@@ -400,6 +706,17 @@ def make_grouped_contractor(
         # every call stores the same shape under an id, so one map
         # serves them all, the folded steps' ids included
         shapes = dict(enumerate(in_shapes))
+        mode = slice_batch_mode
+        if mode == "auto":
+            itemsize = torch.empty((), dtype=pdt).element_size()
+            mode = auto_slice_batch_mode(
+                dev, slice_batch,
+                slice_peak_bytes(plans, in_shapes, last_use, sizes,
+                                 itemsize),
+                2 * itemsize * sum(prod(s) for s in tree.get_shapes()),
+                torch.cuda.get_device_properties(dev).total_memory
+                if dev.type == "cuda" else 0,
+            )
 
         def run_steps(steps, temps, lu):
             return _exec_steps_split(
@@ -412,7 +729,7 @@ def make_grouped_contractor(
             # take
             return view.contiguous().view(-1)
 
-        def fn(planes, slice_ids, folded=None):
+        def fn_scan(planes, slice_ids, folded=None):
             check(planes, tree.get_shapes())
             outs, exps = [], []
             for temps, e in batch.run(
@@ -424,10 +741,27 @@ def make_grouped_contractor(
             res = torch.stack(outs)
             return (res, torch.stack(exps)) if strip_exponent else res
 
+        def fn_vmap(planes, slice_ids, folded=None):
+            check(planes, tree.get_shapes())
+            ids = _flat_ids(slice_ids)
+            temps, e = batch.run_batched(
+                planes, ids, run_steps, prepare, axis_offset=1,
+                folded=folded,
+            )
+            res = finish(temps)
+            # an output that no sliced index reaches is every slice's
+            res = res.expand((len(ids),) + tuple(res.shape[-1 - len(
+                out_shape):]))
+            if not strip_exponent:
+                return res
+            return res, (zero() if e is None else e).expand(len(ids))
+
         def fold(planes):
             check(planes, tree.get_shapes())
             return batch.fold(planes, run_steps, prepare, axis_offset=1)
 
+        fn = fn_vmap if mode == "vmap" else fn_scan
+        fn.mode = mode
         fn.plans = plans
         fn.batch = batch
         fn.fold = fold

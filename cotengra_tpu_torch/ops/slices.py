@@ -7,9 +7,11 @@ The counterparts of the reference's ``_sliced_axes_per_input`` and
 ``_ids_to_digits`` and ``_select_input`` (``cotengra_tpu/ops/grouped.py``)
 and of the varying-id propagation of its batched call, which also
 splits off the steps that only an expression's constants reach (the
-folding that the reference's jit does). Selection is
-eager: ``Tensor.select`` views on the inputs' device, one slice at a
-time, where the reference gathered a whole batch inside jit.
+folding that the reference's jit does). Selection is eager: in
+``"scan"`` mode ``Tensor.select`` views on the inputs' device, one
+slice at a time; in ``"vmap"`` mode one gather per varying input of
+the whole batch's digit rows (``gather_input``), where the reference
+gathered a batch inside jit.
 """
 
 import numpy as np
@@ -113,6 +115,31 @@ def _select_input(a, axes, meta, digits, axis_offset=0):
             project = int(digits[cols.index(ix)])
         a = a.select(ax + axis_offset, project)
     return a
+
+
+def gather_input(a, axes, meta, digits, axis_offset=0):
+    """The ``(S, *rest)`` stack of raw input ``a`` for the ``S`` rows of
+    slice-id ``digits`` (see ``_ids_to_digits``), by one gather on its
+    device: projected indices take their fixed value, the others each
+    row's digit; the remaining axes keep their order (as
+    ``_select_input`` leaves them). ``axes`` are its sliced (axis, ind)
+    pairs; ``axis_offset=1`` addresses plane stacks."""
+    cols = _digit_columns(meta)
+    sliced = sorted(ax + axis_offset for ax, _ in axes)
+    index = []
+    for ax, ix in sorted(axes):
+        project = meta[ix][2]
+        if project is None:
+            index.append(torch.as_tensor(
+                digits[:, cols.index(ix)], dtype=torch.int64,
+                device=a.device,
+            ))
+        else:
+            index.append(project)
+    rest = [d for d in range(a.dim()) if d not in sliced]
+    # the sliced axes in front, so that the batch axis of the advanced
+    # index lands first
+    return a.permute(sliced + rest)[tuple(index)]
 
 
 def _reached(ids, step_io):
@@ -222,10 +249,33 @@ class SliceBatch:
         }
         return temps, run_steps(self.steps_fold, temps, self.last_use_fold)
 
+    def _ids(self, slice_ids):
+        ids = _flat_ids(slice_ids)
+        if not ids:
+            raise ValueError("no slice ids given")
+        bad = [s for s in ids if not 0 <= s < self.nslices]
+        if bad:
+            raise ValueError(
+                f"slice ids {bad[:4]} out of range [0, {self.nslices})"
+            )
+        return ids
+
+    def _once(self, arrays, run_steps, prepare, axis_offset, folded):
+        """(temps, exponent) after the folded and slice-invariant steps:
+        what every slice shares."""
+        if folded is None:
+            folded = self.fold(arrays, run_steps, prepare, axis_offset)
+        base = dict(folded[0])
+        for i in self.inputs_once:
+            base[i] = self._select(arrays, i, prepare, axis_offset)
+        return base, _add_exponents(
+            folded[1], run_steps(self.steps_once, base, self.last_use_once)
+        )
+
     def run(self, arrays, slice_ids, run_steps, prepare, axis_offset=0,
             folded=None):
         """Generate ``(temps, exponent)`` for each slice of
-        ``slice_ids`` in turn.
+        ``slice_ids`` in turn (``"scan"``).
 
         ``arrays`` are the raw inputs; ``prepare`` turns a selected view
         into the executor's stored form; ``run_steps(steps, temps,
@@ -238,22 +288,9 @@ class SliceBatch:
         next slice starts. ``exponent`` adds the folded and invariant
         steps' exponents to the slice's own.
         """
-        ids = _flat_ids(slice_ids)
-        if not ids:
-            raise ValueError("no slice ids given")
-        bad = [s for s in ids if not 0 <= s < self.nslices]
-        if bad:
-            raise ValueError(
-                f"slice ids {bad[:4]} out of range [0, {self.nslices})"
-            )
-        digits = _ids_to_digits(ids, self.meta)
-        if folded is None:
-            folded = self.fold(arrays, run_steps, prepare, axis_offset)
-        base = dict(folded[0])
-        for i in self.inputs_once:
-            base[i] = self._select(arrays, i, prepare, axis_offset)
-        e_once = _add_exponents(
-            folded[1], run_steps(self.steps_once, base, self.last_use_once)
+        digits = _ids_to_digits(self._ids(slice_ids), self.meta)
+        base, e_once = self._once(
+            arrays, run_steps, prepare, axis_offset, folded
         )
         for row in digits:
             temps = dict(base)
@@ -262,3 +299,23 @@ class SliceBatch:
             e = run_steps(self.steps_each, temps, self.last_use)
             yield temps, _add_exponents(e_once, e)
             del temps
+
+    def run_batched(self, arrays, slice_ids, run_steps, prepare,
+                    axis_offset=0, folded=None):
+        """``(temps, exponent)`` of all ``slice_ids`` at once
+        (``"vmap"``): the invariant steps run once, as in ``run``; then
+        each varying input is gathered for the whole batch
+        (``gather_input``: ``(S, *shape)``, made ``(S, 2 * numel)`` by
+        ``prepare``) and the per-slice steps run once over the batch.
+        The ids they make hold a row per slice; the exponent is a
+        ``(S,)`` vector where a batched step stripped."""
+        digits = _ids_to_digits(self._ids(slice_ids), self.meta)
+        temps, e_once = self._once(
+            arrays, run_steps, prepare, axis_offset, folded
+        )
+        for i in self.inputs_each:
+            temps[i] = gather_input(
+                arrays[i], self.axes[i], self.meta, digits, axis_offset
+            ).reshape(len(digits), -1)
+        e = run_steps(self.steps_each, temps, self.last_use)
+        return temps, _add_exponents(e_once, e)

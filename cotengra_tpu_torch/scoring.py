@@ -12,8 +12,10 @@ String specs parse like ``"flops"``, ``"size"``, ``"write"``,
 ``"combo"``/``"combo-64"``, ``"limit:32"``, ``"peak-compressed-16"``
 (both ``-`` and ``:`` separators). The multi-contraction objectives
 (``MultiObjective*``, ``get_multi_objective``) price a batch of index
-configurations over one network (``tree_multi.py``). Not ported yet:
-the TPU time model (``"tpu"``, which raises).
+configurations over one network (``tree_multi.py``). ``"gpu"`` /
+``"gpu-<F>"`` score a tree by the grouped executor's modelled time on
+the card (``GpuTimeObjective``, ``ops/simulate.py``); the reference's
+``"tpu"`` model priced a TPU and raises here.
 """
 
 import collections
@@ -248,6 +250,88 @@ class LimitObjective(ExactObjective):
     def __call__(self, trial):
         tree = trial["tree"]
         return math.log2(tree.combo_cost(factor=self.factor, combine=max))
+
+
+class GpuTimeObjective(ExactObjective):
+    """Score trees by the grouped executor's modelled time on the card
+    (counterpart of the reference's ``TpuTimeObjective``).
+
+    A trial's score is the log2 of :func:`..ops.simulate.simulate_grouped`
+    (the port's own step plan priced with ``H100_CONSTANTS``, or
+    ``sim_constants`` over them). The cheap per-move hooks use the
+    per-step roofline
+
+        max(flops, flops_per_elem * (|out| + |lhs| + |rhs|))
+
+    where ``flops_per_elem`` is the scalar work the card's true-fp32
+    GEMMs retire while one stored element (``bytes_per_elem``: split
+    complex float32, 8 B) streams: ``bytes_per_elem * gemm_tflops /
+    dot_gbps`` of the constants.
+    """
+
+    __slots__ = ("bytes_per_elem", "flops_per_elem", "sim_constants")
+
+    def __init__(self, bytes_per_elem=8, flops_per_elem=None,
+                 sim_constants=None):
+        from .ops.simulate import H100_CONSTANTS
+
+        self.bytes_per_elem = bytes_per_elem
+        if flops_per_elem is None:
+            c = dict(H100_CONSTANTS, **(sim_constants or {}))
+            flops_per_elem = (
+                bytes_per_elem * c["gemm_tflops"] * 1e12
+                / (c["dot_gbps"] * 1e9)
+            )
+        self.flops_per_elem = flops_per_elem
+        self.sim_constants = sim_constants
+
+    def _node_time(self, tree, node):
+        traffic = tree.get_size(node)
+        lr = tree.children.get(node)
+        if lr is not None:
+            traffic += tree.get_size(lr[0]) + tree.get_size(lr[1])
+        return max(tree.get_flops(node), self.flops_per_elem * traffic)
+
+    def cost_local_tree_node(self, tree, node):
+        return self._node_time(tree, node)
+
+    def score_local(self, **kwargs):
+        # moves report (flops, output size) per step only: the operand
+        # reads are taken as twice the output write, traffic 3 * |out|
+        f = kwargs["flops"]
+        s = kwargs["size"]
+        try:
+            total = sum(
+                max(fi, 3 * self.flops_per_elem * si)
+                for fi, si in zip(f, s)
+            )
+        except TypeError:
+            total = max(f, 3 * self.flops_per_elem * s)
+        return math.log2(total)
+
+    def score_slice_index(self, costs, ix):
+        return math.log(
+            costs.flop_reductions[ix]
+            + costs.write_reductions[ix] * self.flops_per_elem
+            + 1
+        )
+
+    def get_dynamic_programming_minimize(self):
+        # the nearest objective of the bitmask DP: per-step
+        # max(flops, F * write)
+        return f"limit-{int(self.flops_per_elem)}"
+
+    def estimated_seconds(self, tree):
+        """Modelled seconds of contracting ``tree`` once, all slices,
+        slice by slice on the card (``simulate_grouped``)."""
+        from .ops.simulate import simulate_grouped
+
+        return simulate_grouped(tree, constants=self.sim_constants)
+
+    def __call__(self, trial):
+        tree = trial["tree"]
+        ensure_basic_quantities(trial)
+        return math.log2(max(self.estimated_seconds(tree), 1e-30))
 
 
 # -- compressed contraction scoring ------------------------------------------
@@ -574,7 +658,7 @@ class CompressedComboObjective(CompressedObjective):
 
 _OBJECTIVE_RE = re.compile(
     r"^(?P<name>"
-    r"flops|write|size|combo|limit|tpu|"
+    r"flops|write|size|combo|limit|tpu|gpu|"
     r"flops-compressed|size-compressed|max-compressed|"
     r"peak-compressed|write-compressed|combo-compressed"
     r")"
@@ -619,10 +703,14 @@ def _parse_minimize_str(minimize):
         f = float(factor) if factor is not None else DEFAULT_COMBO_FACTOR
         f = int(f) if f == int(f) else f
         return LimitObjective(factor=f)
+    if name == "gpu":
+        if factor is None:
+            return GpuTimeObjective()
+        return GpuTimeObjective(flops_per_elem=float(factor))
     if name == "tpu":
         raise NotImplementedError(
-            f"{minimize!r}: the TPU time model is not ported to "
-            "cotengra_tpu_torch (ROADMAP A6 fits a GPU one)"
+            f"{minimize!r}: the TPU time model priced a TPU; "
+            "cotengra_tpu_torch models the card: minimize='gpu'"
         )
 
     # compressed objectives: the factor slot is the chi value

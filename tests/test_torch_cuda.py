@@ -103,6 +103,47 @@ def test_gate_chain_kernel_matches_plain(cuda, n, gates, passes):
     assert (got - ref).abs().max().item() <= 1e-5 * scale
 
 
+@pytest.mark.parametrize("batched", ["x", "gates", "both"])
+@pytest.mark.parametrize(
+    "n,gates,passes",
+    [
+        (19, [((15, 16), 2), ((3, 9), 2)], 1),
+        (19, [((0, 1, 2, 3, 4), 3)], 1),
+        (24, _OVER_BUDGET, 2),
+    ],
+)
+def test_batched_gate_chain_kernel_matches_plain(cuda, n, gates, passes,
+                                                 batched):
+    """The slice leg: x ``(S, 2 * numel)``, gates ``(S, 2, K, N)`` or
+    both, one launch per pass for the whole batch, against the plain
+    version on the same batch and on each slice."""
+    spec, x, ys = _chain(n, gates, seed=len(gates))
+    S = 3
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n)
+    xt = torch.from_numpy(x).to(cuda)
+    yt = [torch.from_numpy(y).to(cuda) for y in ys]
+    if batched in ("x", "both"):
+        xt = torch.randn((S,) + tuple(xt.shape), generator=gen, device=cuda)
+    if batched in ("gates", "both"):
+        yt = [torch.randn((S,) + tuple(y.shape), generator=gen, device=cuda)
+              for y in yt]
+    before = run_chain_cuda.launches
+    got = run_chain(spec, xt, yt)
+    assert run_chain_cuda.launches - before == passes
+    ref = run_chain_plain(spec, xt, yt)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (S, 2 * spec.gate_strides[-1].numel_out)
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-5 * scale
+    for s in range(S):
+        one = run_chain_plain(
+            spec, xt[s] if xt.dim() == 2 else xt,
+            [y[s] if y.dim() == 4 else y for y in yt],
+        )
+        assert (got[s] - one).abs().max().item() <= 1e-5 * scale
+
+
 _M20_CHAINS = {}
 
 

@@ -294,7 +294,11 @@ NAMES_LEFT_OUT = {
         "peaked_amplitude_value": "A9: raises NotImplementedError in the "
                                   "reference",
     },
-    "scoring.py": {"TpuTimeObjective": "A6"},
+    "scoring.py": {
+        "TpuTimeObjective": "replaced by GpuTimeObjective "
+                            "(minimize='gpu')",
+    },
+    "ops/simulate.py": {"V5E_CONSTANTS": "replaced by H100_CONSTANTS"},
 }
 
 # Modules whose every public name the port carries (but those left out).
@@ -304,7 +308,7 @@ PARITY_MODULES = [
     "ops/pairwise.py", "ops/executor.py", "models/circuits.py",
     "hyper/__init__.py", "hyper/driver.py", "pathfinders/linegraph.py",
     "pathfinders/external.py", "pathfinders/kahypar.py",
-    "pathfinders/igraph.py", "pathfinders/mcts.py",
+    "pathfinders/igraph.py", "pathfinders/mcts.py", "ops/simulate.py",
 ]
 
 

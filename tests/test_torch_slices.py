@@ -24,8 +24,14 @@ from cotengra_tpu.utils.io import load_tree as ref_load_tree
 import cotengra_tpu_torch as ctt
 from cotengra_tpu_torch import config
 from cotengra_tpu_torch.ops import grouped, slices
+from cotengra_tpu_torch.ops.gate_chains import (
+    build_chain_spec,
+    run_chain_plain,
+)
 from cotengra_tpu_torch.ops.lowering import extract_contractions
 
+from test_torch_chains import CASES as CHAIN_CASES
+from test_torch_chains import _gates as _chain_gates
 from test_torch_plans import _circuit_tree, _gate_tree
 
 torch.set_num_threads(1)
@@ -112,8 +118,10 @@ def test_batched_grouped_call_matches_reference(case, mode, strip):
         np.asarray(ids),
     ), strip)
     fn = ctt.make_grouped_contractor(
-        tree, "cpu", torch.float64, strip_exponent=strip, slice_batch=nsl
+        tree, "cpu", torch.float64, strip_exponent=strip, slice_batch=nsl,
+        slice_batch_mode=mode,
     )
+    assert fn.mode == mode
     res = fn(ctt.to_plane_tensors(arrays, "cpu", torch.float64), ids)
     if strip:
         assert res[1].shape == (len(ids),)
@@ -152,6 +160,167 @@ def test_invariant_steps_run_once_per_call(monkeypatch):
         want = one(*ctt.slice_arrays(tree, planes, sid, axis_offset=1))
         assert_allclose(r.numpy(), want.numpy(), rtol=F64_RTOL,
                         atol=F64_RTOL * want.abs().max().item())
+
+
+def test_vmap_equals_scan_with_the_invariant_chain_once(monkeypatch):
+    """On the chunked gate construction, ``"vmap"`` gives ``"scan"``'s
+    per-slice planes and exponents; the invariant chain runs once per
+    call in both, the other chain once per slice under scan and once
+    per call (one batched run) under vmap."""
+    tree = _port_tree(_gates_chunked())
+    planes = ctt.to_plane_tensors(_complex_arrays(tree, seed=2), "cpu",
+                                  torch.float64)
+    calls = []
+    real = grouped.run_chain
+    monkeypatch.setattr(
+        grouped, "run_chain",
+        lambda spec, x, ys: calls.append(
+            x.dim() == 2 or any(y.dim() == 4 for y in ys)
+        ) or real(spec, x, ys),
+    )
+    ids = [2, 3, 1]
+    got = {}
+    for mode in ("scan", "vmap"):
+        for strip in (False, True):
+            calls.clear()
+            fn = ctt.make_grouped_contractor(
+                tree, "cpu", torch.float64, slice_batch=4,
+                slice_batch_mode=mode, strip_exponent=strip,
+            )
+            got[mode, strip] = fn(planes, ids)
+            # the invariant chain unbatched; the other on each slice's
+            # operands (scan) or once on the batch's (vmap: its x is
+            # shared, its gate batched)
+            want = (
+                [False] * (1 + len(ids)) if mode == "scan" else [False, True]
+            )
+            assert calls == want
+    for strip in (False, True):
+        scan, vmap = got["scan", strip], got["vmap", strip]
+        if strip:
+            assert vmap[1].shape == (len(ids),)
+            scan = _per_slice(tuple(r.numpy() for r in scan), strip)
+            vmap = _per_slice(tuple(r.numpy() for r in vmap), strip)
+        else:
+            scan, vmap = scan.numpy(), vmap.numpy()
+        assert_allclose(vmap, scan, rtol=F64_RTOL,
+                        atol=F64_RTOL * np.abs(scan).max())
+
+
+@pytest.mark.parametrize("batched", ["x", "gates", "both"])
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES))
+def test_batched_plain_chain_equals_per_slice(case, batched):
+    """``run_chain_plain`` on a batch of 3 slices (x ``(S, 2 * numel)``,
+    gates ``(S, 2, K, N)``, or both) equals the plain chain of each
+    slice."""
+    n, picks = CHAIN_CASES[case]
+    spec, _, c_orders = build_chain_spec(*_chain_gates(n, picks))
+    rng = np.random.default_rng(5)
+    S = 3
+    n_in = spec.gate_strides[0].numel_in
+    xs = torch.from_numpy(rng.normal(size=(S, 2 * n_in)))
+    ys = [
+        torch.from_numpy(rng.normal(size=(S, 2, 2 ** len(c), 2 ** len(ny))))
+        for c, ny in c_orders
+    ]
+    x_arg = xs if batched in ("x", "both") else xs[0]
+    y_args = ys if batched in ("gates", "both") else [y[0] for y in ys]
+    out = run_chain_plain(spec, x_arg, y_args)
+    assert out.shape == (S, 2 * spec.gate_strides[-1].numel_out)
+    for s in range(S):
+        want = run_chain_plain(
+            spec, x_arg[s] if x_arg.dim() == 2 else x_arg,
+            [y[s] if y.dim() == 4 else y for y in y_args],
+        )
+        assert_allclose(out[s].numpy(), want.numpy(), rtol=1e-12,
+                        atol=1e-12 * want.abs().max().item())
+
+
+def _pair(mode, layout, B, M, K, N, scatter=None):
+    from cotengra_tpu_torch.ops.grouped_plan import _GroupedPair
+
+    p = _GroupedPair()
+    p.x_id, p.y_id, p.out_id = 0, 1, 2
+    p.x_plan = p.y_plan = None
+    p.mode, p.x_layout = mode, layout
+    p.B, p.M, p.K, p.N = B, M, K, N
+    p.scatter = scatter
+    return p
+
+
+# (mode, x layout, B, M, K, N, scatter): every branch of a pair step
+_PAIRS = {
+    "mac-cm": ("mac", "cm", 1, 48, 4, 2, None),
+    "mac-mc": ("mac", "mc", 1, 48, 4, 2, None),
+    "matvec-cm": ("matvec", "cm", 1, 40, 16, 2, None),
+    "matvec-mc": ("matvec", "mc", 1, 40, 16, 2, None),
+    "mm-cm": ("mm", "cm", 1, 24, 16, 8, None),
+    "mm-mc": ("mm", "mc", 1, 24, 16, 8, None),
+    "bmm": ("bmm", "cm", 3, 10, 8, 4, None),
+    # a stored (4, 2, 6, 4) view contracting its blocks 1 and 3 (K = 8)
+    "scatter-mm": ("mm", "scat", 1, 24, 8, 8, ((4, 2, 6, 4), (1, 3))),
+    "scatter-matvec": ("matvec", "scat", 1, 24, 8, 2,
+                       ((4, 2, 6, 4), (1, 3))),
+}
+
+
+@pytest.mark.parametrize("strip", [False, True])
+@pytest.mark.parametrize("batched", ["x", "y", "both"])
+@pytest.mark.parametrize("pair", sorted(_PAIRS))
+def test_batched_pair_step_equals_per_slice(pair, batched, strip):
+    """Each branch of a pair step on a batch of slices (x, y or both
+    with a leading slice dim) equals the step run slice by slice, its
+    strip per slice included."""
+    mode, layout, B, M, K, N, scatter = _PAIRS[pair]
+    p = _pair(mode, layout, B, M, K, N, scatter)
+    rng = np.random.default_rng(11)
+    S = 3
+    x = torch.from_numpy(rng.normal(size=(S, 2 * B * M * K)))
+    y = torch.from_numpy(rng.normal(size=(S, 2 * B * K * N)))
+    x_arg = x if batched in ("x", "both") else x[0]
+    y_arg = y if batched in ("y", "both") else y[0]
+
+    def run(xv, yv):
+        temps = {0: xv, 1: yv}
+        e = grouped._exec_steps_split(
+            [("pair", p)], [0], temps, {}, {0: 0, 1: 0}, strip
+        )
+        assert set(temps) == {2}
+        return temps[2], e
+
+    out, e = run(x_arg, y_arg)
+    assert out.shape == (S, 2 * B * N * M)
+    if strip:
+        assert e.shape == (S,)
+    for s in range(S):
+        want, we = run(x_arg[s] if x_arg.dim() == 2 else x_arg,
+                       y_arg[s] if y_arg.dim() == 2 else y_arg)
+        assert_allclose(out[s].numpy(), want.numpy(), rtol=1e-12,
+                        atol=1e-12 * want.abs().max().item())
+        if strip:
+            assert_allclose(e[s].item(), we.item(), rtol=1e-12)
+
+
+def test_batched_single_step_equals_per_slice():
+    """A single step (a trace and a transposition) on a batch of slices
+    equals the step of each slice."""
+    from cotengra_tpu_torch.ops.lowering import SingleStep
+
+    step = SingleStep(inp=0, out=1, in_legs=("a", "b", "a", "c"),
+                      out_legs=("c", "a"))
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(3, 2 * 3 * 4 * 3 * 5)))
+    shapes = {0: (3, 4, 3, 5)}
+
+    def run(xv):
+        temps = {0: xv}
+        grouped._exec_steps_split([("single", step)], [0], temps,
+                                  dict(shapes), {0: 0})
+        return temps[1]
+
+    out = run(x)
+    for s in range(3):
+        assert_allclose(out[s].numpy(), run(x[s]).numpy(), rtol=1e-12)
 
 
 # -- slice ids and selection ------------------------------------------------
@@ -242,6 +411,23 @@ def test_select_input_on_m20_planes():
             assert np.array_equal(got.numpy(), host[r][i])
 
 
+def test_gather_input_on_m20_planes():
+    """One gather per input of the four slice ids' digit rows (``"vmap"``)
+    stacks the views that ``_select_input`` takes slice by slice."""
+    tree, _, planes = _m20()
+    meta = slices._slice_meta(tree)
+    axes = slices._sliced_axes_per_input(tree)
+    digits = slices._ids_to_digits(_M20_IDS, meta)
+    for i in [i for i, ax in enumerate(axes) if ax]:
+        t = torch.from_numpy(planes[i])
+        got = slices.gather_input(t, axes[i], meta, digits, 1)
+        assert got.is_contiguous()
+        for r in range(len(_M20_IDS)):
+            assert torch.equal(
+                got[r], slices._select_input(t, axes[i], meta, digits[r], 1)
+            )
+
+
 def _sycamore(m, t):
     if m == 20:
         return _m20()[0]
@@ -282,6 +468,39 @@ def test_slice_invariant_partition_of_committed_plans(m, t, once, each):
     assert len(fn.plans) == sum(once.values()) + sum(each.values())
 
 
+# the card's memory as torch reports an H100 80GB HBM3's (chip_smoke.py
+# phase 33: 79.18 GiB)
+_CARD_BYTES = 79.18 * 2**30
+
+
+@pytest.mark.parametrize(
+    "m,t,batch,mode",
+    [
+        (10, 27, 4, "vmap"),     # 4 x 3.0 GiB a slice
+        (20, 28, 16, "scan"),    # 16 x 6.0 GiB do not fit
+        (20, 28, 11, "vmap"),    # the most that fit
+        (20, 28, 12, "scan"),
+    ],
+)
+def test_auto_mode_of_committed_plans_on_the_card(m, t, batch, mode):
+    """``"auto"``'s decisions on an 80 GB card, reckoned on the CPU from
+    the plans' per-slice live peaks; on CPU tensors it takes "scan"."""
+    from cotengra_tpu_torch.ops.simulate import step_records
+
+    recs = step_records(_sycamore(m, t))
+    got = grouped.auto_slice_batch_mode(
+        torch.device("cuda"), batch, recs["slice_bytes"], recs["raw_bytes"],
+        _CARD_BYTES,
+    )
+    assert got == mode
+    assert grouped.auto_slice_batch_mode(
+        "cpu", batch, recs["slice_bytes"], recs["raw_bytes"], _CARD_BYTES
+    ) == "scan"
+    if m == 20:
+        assert grouped.vmap_max_batch(
+            recs["slice_bytes"], recs["raw_bytes"], _CARD_BYTES) == 11
+
+
 def test_m20_invariant_chain_runs_once_per_call(monkeypatch):
     """The whole m20 batched call, traced on meta tensors (shapes only,
     no data): the slice-invariant chain runs once per call, the other
@@ -319,9 +538,15 @@ def test_slice_ids_and_modes_are_checked():
             fn(planes, bad)
     with pytest.raises(ValueError, match="expected"):
         fn(planes[1:], [0])
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        ctt.make_grouped_contractor(tree, "cpu", torch.float64,
-                                    slice_batch=2, slice_batch_mode="vmap")
+    # an explicit mode is kept on the CPU too; "auto" takes "scan" there
+    for mode, want in [("vmap", "vmap"), ("scan", "scan"), ("auto", "scan")]:
+        fn = ctt.make_grouped_contractor(tree, "cpu", torch.float64,
+                                         slice_batch=2, slice_batch_mode=mode)
+        assert fn.mode == want
+        with pytest.raises(ValueError, match="on the host"):
+            fn(planes, torch.zeros(2, dtype=torch.int64, device="meta"))
+        with pytest.raises(ValueError, match="out of range"):
+            fn(planes, [4])
     with pytest.raises(ValueError, match="slice_batch_mode"):
         ctt.make_grouped_contractor(tree, "cpu", torch.float64,
                                     slice_batch=2, slice_batch_mode="map")
