@@ -254,26 +254,54 @@ Run from the root of a checkout. Phases:
    ``GPU_PLAN_TRIALS`` trials, 2^27), its slices contracted and held to
    key ``"4"`` at relerr <= 1e-5 with its chain launches; its modelled
    and measured warm seconds beside t27's, slice by slice, in turns;
-37. one JSON line of kernel results (launches on the main path, error,
+37. the window engine on m10-t27 at full width
+   (``gate_mode="window"``): slice by slice and under ``"vmap"`` (4
+   slices a call), each held to key ``"4"`` at relerr <= 1e-5 with no
+   chain launch; 15 window steps a slice; the operator builds that the
+   hoist runs once a call and per slice (``"w2build"`` steps of the
+   executor plan), the largest ``W2`` in bytes, the window steps' and
+   operator builds' device ms (CUDA events around each step); warm
+   seconds in turns with ``"inplace"`` slice by slice and under vmap;
+38. fused kron chains on m10-t27 (``fuse_gates=True``) under
+   ``"inplace"`` and under None, one scan call of 4 slices each: relerr
+   <= 1e-5, 1 and 11 fused steps a slice, chain launches (52 and 0),
+   the fused steps' device ms; warm seconds in turns with the same
+   engine unfused;
+39. the one-step layout lookahead on m10-t27 under ``"inplace"``
+   (``grouped_plan._LAYOUT_LOOKAHEAD`` set for the phase, restored
+   after), slice by slice: relerr <= 1e-5, chain launches, the stored
+   orders that changed, block transposes of a pass and their device ms
+   against the default;
+40. the window engine on m20-t28 slices 0..3 in one scan call and under
+   ``"vmap"`` in calls of the batch that fits (from the window plan's
+   per-slice peak): relerr <= 1e-5 against key ``"4"``, 44 window steps
+   a slice, no chain launch, the operators stacked per slice (those
+   whose gates read a sliced index), the first and a warm call's
+   seconds;
+41. the cost model on phases 37-38's runs: ``simulate_grouped`` with
+   ``gate_mode="window"`` and with ``fuse_gates``, modelled over
+   measured (no limit: no constant was fitted to them);
+42. one JSON line of kernel results (launches on the main path, error,
    ms, plain ms, bound, library ms; the gate chain's m=20 figures
    under ``m20_*`` keys, the launches of phases 17 and 18 under
    ``hyper_*`` keys, of phases 19 and 20 under ``default_*`` keys, of
    phases 22-24 under ``sharded_*`` (per rank) and ``nccl_*`` keys, of
    phase 26 under ``folded_*`` keys, of phase 27 under
    ``mixed_lattice_launches``, of phases 29 and 30 under
-   ``example_m10_launches`` and ``multi_m10_launches``, and of phases
+   ``example_m10_launches`` and ``multi_m10_launches``, of phases
    31-34 and 36 under ``vmap_*``, ``small_slices_vmap_launches`` and
-   ``gpu_m10_launches``), one JSON line
-   ``{"host_native": {...}}`` of the host library's build seconds and
-   the planning seconds of phases 15, 17-21 and 30, then the last line
-   ``{"ok": true, "device": {...}}``.
+   ``gpu_m10_launches``, and of phases 37 and 38 under
+   ``window_t27_chain_launches`` and ``fused_t27_launches``), one JSON
+   line ``{"host_native": {...}}`` of the host library's build seconds
+   and the planning seconds of phases 15, 17-21 and 30, then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Every instance is built and every plan loaded through the port
 (``cotengra_tpu_torch.rand_circuit_tn``, ``lattice_equation``,
 ``load_tree``): the script imports neither JAX nor the JAX package.
 
 Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15-20, 22-24, 26-30, 32-34,
-36) is
+36-40) is
 driven with every kernel's launch count set to 0 just before it and
 read just after (in each rank, by the rank). Any failed
 phase raises, and the script exits non-zero without the last line. It
@@ -282,7 +310,9 @@ needs a CUDA device and never falls back to the CPU.
 ``--profile`` instead runs ``torch.profiler`` over one warm pass of each
 main path (m10-t27 slice by slice and through the batched call,
 m10-t29, the lattice, 16 slices of m20-t28, the compressed 16x16 lattice
-in float64, then t27 and m20's 16 slices under ``"vmap"``) and prints
+in float64, then t27 and m20's 16 slices under ``"vmap"``, and t27
+under ``"vmap"`` with ``gate_mode="window"``, whose window steps and
+operator builds are profiler ranges of their own) and prints
 the median wall time of 5 unprofiled passes, the
 device's busy time and idle share, and every device kernel's time
 grouped by class (the breakdown in ``PERF.md`` section 5).
@@ -3443,6 +3473,394 @@ def phase_gpu_planned(dev):
     return counts["gate_chain"]
 
 
+# phases 37-41: the window engine, fused kron chains and the layout
+# lookahead (opt-in engines of the grouped executor)
+M20_WINDOW_SLICES = 4     # phase 40: slices 0..3 (the sidecar's key 4)
+T27_WINDOW_STEPS = 15     # window steps a slice of each plan
+M20_WINDOW_STEPS = 44
+T27_FUSED_STEPS = {"inplace": 1, None: 11}   # fused chains a t27 slice
+
+
+@contextlib.contextmanager
+def _step_events(kinds):
+    """CUDA event pairs around every executor step of ``kinds`` run
+    inside the block, by kind (``grouped._exec_steps_split`` split into
+    one call per step). No synchronisation: a pair times the step's own
+    kernels once the stream reaches it, plus any gap while the host
+    still issues them."""
+    from cotengra_tpu_torch.ops import grouped
+
+    run = grouped._exec_steps_split
+    pairs = {k: [] for k in kinds}
+
+    def per_step(plans, steps, temps, shapes, last_use,
+                 strip_exponent=False):
+        exponent = None
+        for si in steps:
+            kind = plans[si][0]
+            if kind in pairs:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            e = run(plans, [si], temps, shapes, last_use, strip_exponent)
+            if kind in pairs:
+                ev[1].record()
+                pairs[kind].append(ev)
+            if e is not None:
+                exponent = e if exponent is None else exponent + e
+        return exponent
+
+    grouped._exec_steps_split = per_step
+    try:
+        yield pairs
+    finally:
+        grouped._exec_steps_split = run
+
+
+@contextlib.contextmanager
+def _copy_events():
+    """CUDA event pairs around every block transpose
+    (``grouped._apply_block_plan_split`` with a plan) inside the block."""
+    from cotengra_tpu_torch.ops import grouped
+
+    apply = grouped._apply_block_plan_split
+    pairs = []
+
+    def timed(flat, plan):
+        if plan is None:
+            return flat
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = apply(flat, plan)
+        ev[1].record()
+        pairs.append(ev)
+        return out
+
+    grouped._apply_block_plan_split = timed
+    try:
+        yield pairs
+    finally:
+        grouped._apply_block_plan_split = apply
+
+
+def _events_ms(pairs):
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
+def _held_to(label, ref):
+    """A pull for ``_in_turns``: each pass's amplitude within
+    ``AMP_RTOL`` of ``ref`` (engines sum in other orders, so passes of
+    two engines are held to the reference, not to each other)."""
+    def pull(amp):
+        relerr = abs(amp - ref) / abs(ref)
+        if not relerr <= AMP_RTOL:
+            raise AssertionError(
+                f"{label}: amplitude {amp} vs {ref}: relerr {relerr:.3e} > "
+                f"{AMP_RTOL}"
+            )
+        return 1.0
+
+    return pull
+
+
+def _window_stats(fn):
+    """Window steps, operator builds run once per call and per slice
+    (``SliceBatch``'s split of the executor plan), and the largest
+    operator ``W2`` in bytes (float32: 16 S_in S_out)."""
+    kinds = [k for k, _ in fn.plans]
+    builds = [si for si, k in enumerate(kinds) if k == "w2build"]
+    once = sum(si in set(fn.batch.steps_once) | set(fn.batch.steps_fold)
+               for si in builds)
+    w2 = max((16 * info.rec.S_in * info.rec.S_out
+              for k, info in fn.plans if k == "w2build"), default=0)
+    return kinds.count("window"), once, len(builds) - once, w2
+
+
+def _check_amp(label, amp, ref, counts, chain_expect):
+    relerr = abs(amp - ref) / abs(ref)
+    if counts != {"gate_chain": chain_expect, "bmm_absmax": 0}:
+        raise AssertionError(
+            f"{label}: launches {counts}, expected {chain_expect} chain "
+            "launches"
+        )
+    if not relerr <= AMP_RTOL:
+        raise AssertionError(
+            f"{label}: amplitude {amp} vs {ref}: relerr {relerr:.3e} > "
+            f"{AMP_RTOL}"
+        )
+    return relerr
+
+
+def phase_window_t27(dev):
+    """m10-t27 at full width with ``gate_mode="window"``: slice by slice
+    and under "vmap" (4 slices a call), held to key "4"; 15 window steps
+    a slice and no chain launch; the operator builds the hoist runs once
+    and per slice; the largest W2; the window steps' and operator
+    builds' device ms per call (CUDA events); warm seconds in turns with
+    "inplace" on the same planes. Returns (chain launches, warm seconds
+    by run)."""
+    import cotengra_tpu_torch as ctt
+
+    _fresh_cache()
+    tree, arrays, refs = _load_instance(T27)
+    n = tree.multiplicity
+    ref = refs[n]
+    planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    core = ctt.make_grouped_contractor(tree, dev, torch.float32,
+                                       gate_mode="window")
+    vmap = ctt.make_grouped_contractor(
+        tree, dev, torch.float32, slice_batch=n, slice_batch_mode="vmap",
+        gate_mode="window",
+    )
+    steps, once, each, w2 = _window_stats(vmap)
+    if steps != T27_WINDOW_STEPS:
+        raise AssertionError(f"window t27: {steps} window steps a slice, "
+                             f"expected {T27_WINDOW_STEPS}")
+
+    def by_slice(c):
+        def run():
+            out = ctt.contract_slices(tree, c, planes)
+            return complex(out[0].item(), out[1].item())
+        return run
+
+    runs = {"window slice by slice": by_slice(core),
+            "window vmap": _calls_of(vmap, planes, list(range(n)), n)}
+    launches = 0
+    for label, run in runs.items():
+        _reset_launches()
+        with _step_events(("window", "w2build")) as ev:
+            amp = run()
+        counts = _read_launches()
+        relerr = _check_amp(f"{label} t27", amp, ref, counts, 0)
+        launches += counts["gate_chain"]
+        print(
+            f"# {label} {T27}: amplitude {amp.real:.12e}{amp.imag:+.12e}j "
+            f"relerr {relerr:.3e} chain launches {counts['gate_chain']}; "
+            f"window steps a slice {steps} ({len(ev['window'])} run), "
+            f"operator builds run {len(ev['w2build'])} (a batched call "
+            f"builds {once} once and {each} per slice); device ms: window "
+            f"steps "
+            f"{_events_ms(ev['window']):.3f}, operator builds "
+            f"{_events_ms(ev['w2build']):.3f}; largest W2 {w2} bytes",
+            flush=True,
+        )
+    runs["inplace slice by slice"] = by_slice(
+        ctt.make_grouped_contractor(tree, dev, torch.float32))
+    runs["inplace vmap"] = _calls_of(ctt.make_grouped_contractor(
+        tree, dev, torch.float32, slice_batch=n, slice_batch_mode="vmap"),
+        planes, list(range(n)), n)
+    times, peaks = _warm_modes("window t27", runs, _held_to("t27", ref))
+    print(f"# warm window {T27} x{n}: " + _modes_line(times, peaks),
+          flush=True)
+    return launches, {k: min(t) for k, t in times.items()}
+
+
+def phase_fused_t27(dev):
+    """m10-t27 with ``fuse_gates=True`` under "inplace" and under None,
+    4 slices in one "scan" call: held to key "4"; fused steps a slice
+    (1 and 11); chain launches (52 under "inplace", none under None);
+    the fused steps' device ms; warm seconds in turns with the same
+    engine unfused. Returns (chain launches under "inplace", warm
+    seconds by run)."""
+    import cotengra_tpu_torch as ctt
+
+    _fresh_cache()
+    tree, arrays, refs = _load_instance(T27)
+    n = tree.multiplicity
+    ref = refs[n]
+    planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    ids = list(range(n))
+    runs, launches = {}, None
+    for gate_mode, fused_expect in T27_FUSED_STEPS.items():
+        fn = ctt.make_grouped_contractor(
+            tree, dev, torch.float32, slice_batch=n, slice_batch_mode="scan",
+            gate_mode=gate_mode, fuse_gates=True,
+        )
+        fused = sum(k == "fusedchain" for k, _ in fn.plans)
+        if fused != fused_expect:
+            raise AssertionError(f"fused t27 {gate_mode}: {fused} fused "
+                                 f"steps a slice, expected {fused_expect}")
+        expect = _batched_chain_passes(fn, n)
+        _reset_launches()
+        with _step_events(("fusedchain",)) as ev:
+            amp = _calls_of(fn, planes, ids, n)()
+        counts = _read_launches()
+        relerr = _check_amp(f"fused t27 {gate_mode}", amp, ref, counts,
+                            expect)
+        if gate_mode == "inplace":
+            launches = counts["gate_chain"]
+        print(
+            f"# fused {T27} gate_mode {gate_mode} (scan, 4 slices a call): "
+            f"amplitude {amp.real:.12e}{amp.imag:+.12e}j relerr "
+            f"{relerr:.3e} chain launches {counts['gate_chain']}; fused "
+            f"steps a slice {fused}, device ms "
+            f"{_events_ms(ev['fusedchain']):.3f} for "
+            f"{len(ev['fusedchain'])}",
+            flush=True,
+        )
+        runs[f"{gate_mode} fused"] = _calls_of(fn, planes, ids, n)
+        runs[f"{gate_mode}"] = _calls_of(ctt.make_grouped_contractor(
+            tree, dev, torch.float32, slice_batch=n, slice_batch_mode="scan",
+            gate_mode=gate_mode), planes, ids, n)
+    times, peaks = _warm_modes("fused t27", runs, _held_to("t27", ref))
+    print(f"# warm fused {T27} x{n} (scan): " + _modes_line(times, peaks),
+          flush=True)
+    return launches, {k: min(t) for k, t in times.items()}
+
+
+def phase_lookahead_t27(dev):
+    """m10-t27 under "inplace" with the layout lookahead on
+    (``grouped_plan._LAYOUT_LOOKAHEAD``, restored after), slice by
+    slice: held to key "4"; the plan's stored orders that changed; block
+    transposes of one slice and their device ms against the default."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.ops import grouped_plan
+    from cotengra_tpu_torch.ops.lowering import (
+        extract_contractions,
+        sliced_input_legs,
+    )
+
+    _fresh_cache()
+    tree, arrays, refs = _load_instance(T27)
+    ref = refs[tree.multiplicity]
+    planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    ir = extract_contractions(tree)
+    orders = [sliced_input_legs(tree, i) for i in range(tree.N)]
+    out = {}
+    default = grouped_plan._LAYOUT_LOOKAHEAD
+    try:
+        for lookahead in (False, True):
+            grouped_plan._LAYOUT_LOOKAHEAD = lookahead
+            storage = grouped_plan.plan_grouped(
+                ir, tree.size_dict, orders, gate_mode="inplace")[1]
+            core = ctt.make_grouped_contractor(tree, dev, torch.float32)
+            _reset_launches()
+            res = ctt.contract_slices(tree, core, planes)
+            amp = complex(res[0].item(), res[1].item())
+            relerr = _check_amp(
+                f"lookahead {lookahead} t27", amp, ref, _read_launches(),
+                _chain_passes(tree) * tree.multiplicity,
+            )
+            with _copy_events() as ev:
+                ctt.contract_slices(tree, core, planes)
+            out[lookahead] = (storage, relerr, len(ev), _events_ms(ev))
+    finally:
+        grouped_plan._LAYOUT_LOOKAHEAD = default
+    changed = sum(out[True][0].get(k) != v for k, v in out[False][0].items())
+    print(
+        f"# lookahead {T27} (inplace, slice by slice): relerr "
+        f"{out[True][1]:.3e} (off: {out[False][1]:.3e}); stored orders "
+        f"changed {changed} of {len(out[False][0])}; block transposes a "
+        f"pass of {tree.multiplicity} slices {out[True][2]} in "
+        f"{out[True][3]:.3f} ms (off: {out[False][2]} in "
+        f"{out[False][3]:.3f} ms)",
+        flush=True,
+    )
+
+
+def _window_vmap_batch(dev, tree):
+    """The most slices (at most ``M20_WINDOW_SLICES``) a "vmap" call of
+    the window plan fits on this card, from its per-slice live peak."""
+    from cotengra_tpu_torch.ops import grouped
+    from cotengra_tpu_torch.ops.simulate import step_records
+
+    recs = step_records(tree, gate_mode="window")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    return min(M20_WINDOW_SLICES, grouped.vmap_max_batch(
+        recs["slice_bytes"], recs["raw_bytes"], total))
+
+
+def phase_window_m20(dev):
+    """m20-t28 slices 0..3 with ``gate_mode="window"`` in one "scan"
+    call, and under "vmap" in calls of the batch that fits (from the
+    window plan's per-slice peak): held to the sidecar's key "4"; 44
+    window steps a slice and no chain launch; the operators stacked per
+    slice (those whose gates read a sliced index); warm seconds of one
+    more call in each mode."""
+    import cotengra_tpu_torch as ctt
+
+    _fresh_cache()
+    tree, arrays, refs = _load_instance(M20)
+    n = M20_WINDOW_SLICES
+    ref = refs[n]
+    planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    ids = list(range(n))
+    scan = ctt.make_grouped_contractor(
+        tree, dev, torch.float32, slice_batch=n, slice_batch_mode="scan",
+        gate_mode="window",
+    )
+    steps, once, each, w2 = _window_stats(scan)
+    if steps != M20_WINDOW_STEPS:
+        raise AssertionError(f"window m20: {steps} window steps a slice, "
+                             f"expected {M20_WINDOW_STEPS}")
+    batch = _window_vmap_batch(dev, tree)
+    runs = {"scan": _calls_of(scan, planes, ids, n)}
+    if batch:
+        vmap = ctt.make_grouped_contractor(
+            tree, dev, torch.float32, slice_batch=batch,
+            slice_batch_mode="vmap", gate_mode="window",
+        )
+        runs["vmap"] = _calls_of(vmap, planes, ids, batch)
+    times = {}
+    for mode, run in runs.items():
+        _fresh_cache()
+        _reset_launches()
+        t0 = time.perf_counter()
+        amp = run()
+        cold = time.perf_counter() - t0
+        counts = _read_launches()
+        relerr = _check_amp(f"window m20 {mode}", amp, ref, counts, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _held_to("window m20", ref)(run())
+        times[mode] = time.perf_counter() - t0
+        print(
+            f"# window {M20} slices 0..{n - 1} {mode}"
+            f"{f' (calls of {batch})' if mode == 'vmap' else ''}: "
+            f"amplitude {amp.real:.12e}{amp.imag:+.12e}j relerr "
+            f"{relerr:.3e} chain launches {counts['gate_chain']}; window "
+            f"steps a slice {steps}, operators once a call {once}, stacked "
+            f"per slice {each}; largest W2 {w2} bytes; first call "
+            f"{cold:.4f} s, warm {times[mode]:.4f} s; peak_mem_gib "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+            flush=True,
+        )
+    print(f"# window {M20}: vmap batch that fits {batch}", flush=True)
+    return times
+
+
+def phase_engine_model(window_s, fused_s):
+    """``simulate_grouped`` with ``gate_mode="window"`` and with
+    ``fuse_gates`` on t27, beside phases 37-38's warm seconds (no limit:
+    no constant was fitted to these runs)."""
+    from cotengra_tpu_torch.ops.simulate import simulate_grouped
+
+    tree = _load_instance(T27)[0]
+    n = tree.multiplicity
+    rows = {
+        "window slice by slice": dict(gate_mode="window"),
+        "window vmap": dict(gate_mode="window", slice_batch=n,
+                            slice_batch_mode="vmap"),
+        "inplace slice by slice": dict(),
+        "inplace vmap": dict(slice_batch=n, slice_batch_mode="vmap"),
+        "inplace fused": dict(fuse_gates=True, slice_batch=n,
+                              slice_batch_mode="scan"),
+        "inplace": dict(slice_batch=n, slice_batch_mode="scan"),
+        "None fused": dict(gate_mode=None, fuse_gates=True, slice_batch=n,
+                           slice_batch_mode="scan"),
+        "None": dict(gate_mode=None, slice_batch=n, slice_batch_mode="scan"),
+    }
+    measured = {**window_s, **fused_s}
+    parts = []
+    for label, kw in rows.items():
+        model = simulate_grouped(tree, **kw)
+        parts.append(f"{label} model {model:.4f} s measured "
+                     f"{measured[label]:.4f} s (x{model / measured[label]:.3f})")
+    print(f"# engine model {T27}: " + "; ".join(parts), flush=True)
+
+
 def _kernel_class(name):
     if "gate_chain_kernel" in name:
         return "gate-chain kernel"
@@ -3474,11 +3892,12 @@ def _compressed_class(name):
     return "other"
 
 
-def _warm_pass(plan_name, dev, slice_batch=None, mode="scan", n_slices=None):
+def _warm_pass(plan_name, dev, slice_batch=None, mode="scan", n_slices=None,
+               gate_mode="auto"):
     """One warm pass of a main path as a function (contractor and device
     inputs made once), ending in a host pull; with ``slice_batch``, the
     first ``n_slices`` (default ``slice_batch``) in calls of
-    ``slice_batch`` slices in ``mode``."""
+    ``slice_batch`` slices in ``mode``; circuits with ``gate_mode``."""
     import cotengra_tpu_torch as ctt
 
     if plan_name == COMPRESSED:
@@ -3516,11 +3935,12 @@ def _warm_pass(plan_name, dev, slice_batch=None, mode="scan", n_slices=None):
     if slice_batch:
         fn = ctt.make_grouped_contractor(
             tree, dev, torch.float32, slice_batch=slice_batch,
-            slice_batch_mode=mode,
+            slice_batch_mode=mode, gate_mode=gate_mode,
         )
         return _calls_of(fn, planes, list(range(n_slices or slice_batch)),
                          slice_batch)
-    core = ctt.make_grouped_contractor(tree, dev, torch.float32)
+    core = ctt.make_grouped_contractor(tree, dev, torch.float32,
+                                       gate_mode=gate_mode)
 
     def one_pass():
         out = ctt.contract_slices(tree, core, planes)
@@ -3529,19 +3949,57 @@ def _warm_pass(plan_name, dev, slice_batch=None, mode="scan", n_slices=None):
     return one_pass
 
 
+@contextlib.contextmanager
+def _window_ranges():
+    """The window steps and operator builds of the grouped executor in
+    ``torch.profiler`` ranges of their own, inside the block."""
+    from torch.profiler import record_function
+
+    from cotengra_tpu_torch.ops import grouped
+
+    saved = {}
+    for name, label in (("exec_window", "window step"),
+                        ("build_w4", "window operator build")):
+        fn = saved[name] = getattr(grouped, name)
+
+        def ranged(*args, _fn=fn, _label=label, **kw):
+            with record_function(_label):
+                return _fn(*args, **kw)
+
+        setattr(grouped, name, ranged)
+    try:
+        yield ("window step", "window operator build")
+    finally:
+        for name, fn in saved.items():
+            setattr(grouped, name, fn)
+
+
+def _range_kernels(event):
+    """(name, us) of every device kernel launched under a CPU event."""
+    for k in event.kernels:
+        yield k.name, k.duration
+    for child in event.cpu_children:
+        yield from _range_kernels(child)
+
+
 def phase_profile(plan_name, dev, slice_batch=None, classify=None,
-                  mode="scan", n_slices=None):
+                  mode="scan", n_slices=None, gate_mode="auto"):
     """Device time by kernel over one warm pass of the main path,
-    grouped by ``classify`` (default ``_kernel_class``)."""
+    grouped by ``classify`` (default ``_kernel_class``); under
+    ``gate_mode="window"`` also the device time of the window steps
+    (their GEMMs and rotation copies) and of the operator builds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    one_pass = _warm_pass(plan_name, dev, slice_batch, mode, n_slices)
+    one_pass = _warm_pass(plan_name, dev, slice_batch, mode, n_slices,
+                          gate_mode)
     if slice_batch:
         plan_name = (
             f"{plan_name} {mode} {n_slices or slice_batch} slices in calls "
             f"of {slice_batch}"
         )
+    if gate_mode != "auto":
+        plan_name = f"{plan_name} gate_mode {gate_mode}"
     one_pass()
     # the wall of one pass moves by tens of percent between passes (host
     # side): the idle share reads the median of several
@@ -3552,7 +4010,9 @@ def phase_profile(plan_name, dev, slice_batch=None, classify=None,
         one_pass()
         walls.append(time.perf_counter() - t0)
     wall = float(np.median(walls))
-    with profile(
+    ranges = (_window_ranges() if gate_mode == "window"
+              else contextlib.nullcontext(()))
+    with ranges as names, profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
     ) as prof:
         t0 = time.perf_counter()
@@ -3561,7 +4021,9 @@ def phase_profile(plan_name, dev, slice_batch=None, classify=None,
 
     per_kernel = {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # the profiler mirrors a record_function range on the device's
+        # timeline: not a kernel
+        if e.device_type != DeviceType.CUDA or e.name in names:
             continue
         ms, n = per_kernel.get(e.name, (0.0, 0))
         per_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
@@ -3581,6 +4043,23 @@ def phase_profile(plan_name, dev, slice_batch=None, classify=None,
         cls = classify(name)
         c_ms, c_n = by_class.get(cls, (0.0, 0))
         by_class[cls] = (c_ms + ms, c_n + n)
+    for label in names:
+        # the kernels under the range, by class (the window GEMMs are
+        # the "GEMM" class of "window step")
+        in_range = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU and e.name == label:
+                for name, us in _range_kernels(e):
+                    cls = classify(name)
+                    c_ms, c_n = in_range.get(cls, (0.0, 0))
+                    in_range[cls] = (c_ms + us / 1e3, c_n + 1)
+        print(
+            f"#   under {label}: " + ", ".join(
+                f"{cls} {ms:.3f} ms x {n}" for cls, (ms, n) in sorted(
+                    in_range.items(), key=lambda kv: -kv[1][0])
+            ),
+            flush=True,
+        )
     for cls, (ms, n) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
         print(f"#   {cls}: {ms:.3f} ms x {n}", flush=True)
         for name, (k_ms, k_n) in sorted(
@@ -3628,6 +4107,8 @@ def main():
         phase_profile(T27, dev, slice_batch=4, mode="vmap")
         phase_profile(M20, dev, slice_batch=_m20_vmap_batch(dev),
                       mode="vmap", n_slices=M20_SLICES)
+        phase_profile(T27, dev, slice_batch=4, mode="vmap",
+                      gate_mode="window")
         return 0
     chain_rows = phase_chains(dev)
     chain_launches = phase_main_path(T27, 4, dev)
@@ -3671,6 +4152,11 @@ def main():
         t27_modes, m20_batch, m20_modes, small_tree, small_modes,
     ))
     gpu_launches = phase_gpu_planned(dev)
+    window_launches, window_s = phase_window_t27(dev)
+    fused_launches, fused_s = phase_fused_t27(dev)
+    phase_lookahead_t27(dev)
+    phase_window_m20(dev)
+    phase_engine_model(window_s, fused_s)
     kernels = [
         {
             # per slice: the 13 chains of one m10-t27 slice
@@ -3726,6 +4212,11 @@ def main():
             "vmap_m20_chain_ms": vmap_rows[-1][1],
             "vmap_m20_chain_single_x16_ms": vmap_rows[-1][2],
             "vmap_m20_chain_bound_ms": vmap_rows[-1][3][0],
+            # t27 (4 slices) with gate_mode="window" (slice by slice and
+            # under vmap: none), and with fuse_gates under "inplace"
+            # (one scan call of 4 slices: 13 a slice, as unfused)
+            "window_t27_chain_launches": window_launches,
+            "fused_t27_launches": fused_launches,
         },
         {
             # per slice: one slice's kernel steps, summed over the plan's

@@ -24,6 +24,7 @@ from .grouped_plan import plan_grouped
 from .lowering import extract_contractions, sliced_input_legs
 from .pairwise import apply_pairwise, apply_single
 from .slices import SliceBatch, _flat_ids
+from .windowed import build_w4, exec_window
 
 # leg labels reserved for the plane axis and a batch's slice axis in
 # the einsum steps
@@ -362,6 +363,15 @@ def _pair_batched(p, xf, yf):
     )
 
 
+def _kron(a, b):
+    """``torch.kron`` of the last two dims of ``a`` and ``b``, a leading
+    slice dim on either broadcast."""
+    out = torch.einsum("...ij,...kl->...ikjl", a, b)
+    return out.reshape(out.shape[:-4] + (
+        a.shape[-2] * b.shape[-2], a.shape[-1] * b.shape[-1]
+    ))
+
+
 # The reference's _maybe_barrier has no counterpart: eager torch ops do
 # not fuse across steps.
 def _exec_steps_split(plans, steps, temps, shapes, last_use,
@@ -450,6 +460,61 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
             store(step.out, flat, shape, si, (x_id, y_id))
             continue
 
+        if kind == "w2build":
+            # a window step's operator, from its gates alone (see
+            # hoist_window_operators)
+            rec = info.rec
+            ys = []
+            for y_id, y_plan, K, N in rec.gates:
+                yf = _apply_block_plan_split(temps[y_id], y_plan)
+                ys.append(yf.view(yf.shape[:-1] + (2, K, N)))
+            w2 = build_w4(rec.recipe, ys, info.dtype, info.device)
+            store(info.w2_id, w2, (2 * rec.S_in * rec.S_out,), si,
+                  tuple(g[0] for g in rec.gates))
+            continue
+
+        if kind == "window":
+            rec = info.rec
+            out = exec_window(rec, temps[rec.x_id], temps[info.w2_id])
+            # no strip, as in the reference: window chains are
+            # near-unitary and the surrounding pair steps strip
+            store(rec.out_id, out, rec.out_shape, si,
+                  (rec.x_id, info.w2_id))
+            continue
+
+        if kind == "fusedchain":
+            ch = info
+            xf = _apply_block_plan_split(temps[ch.x_id], ch.x_plan)
+            gk = None
+            for gid, gorder, c_legs, n_legs in ch.gates:
+                gf = temps[gid]
+                lead = (_SLICE,) * (gf.dim() - 1)
+                g2 = apply_single(
+                    _planes_to_complex(gf, shapes[gid]),
+                    lead + tuple(gorder),
+                    lead + tuple(c_legs) + tuple(n_legs),
+                )
+                dims = g2.shape[len(lead):]
+                g2 = g2.reshape(g2.shape[:len(lead)] + (
+                    prod(dims[:len(c_legs)]), prod(dims[len(c_legs):])
+                ))
+                gk = g2 if gk is None else _kron(gk, g2)
+            # The reference rounds the kron product to float32 even
+            # under float64 planes (cotengra_tpu/ops/grouped.py:
+            # 1649-1650); here it keeps the planes' precision.
+            small_y = (
+                _split_apply_small_y
+                if xf.dim() == 1 and gk.dim() == 2
+                else _split_apply_small_y_batched
+            )
+            out = small_y(xf, ch.x_layout, ch.M, ch.K, ch.N, gk.real,
+                          gk.imag)
+            if strip_exponent:
+                out = strip(out)
+            store(ch.out_id, out, (1, ch.N, ch.M), si,
+                  (ch.x_id, *(g[0] for g in ch.gates)))
+            continue
+
         if kind == "inplace":
             rec = info
             ys = []
@@ -511,7 +576,8 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
 
 
 def _step_io(plans):
-    """(source ids, output id) of each plan step."""
+    """(source ids, output id) of each step of an executor plan (see
+    ``hoist_window_operators``)."""
     for kind, info in plans:
         if kind == "single":
             yield (info.inp,), info.out
@@ -519,8 +585,66 @@ def _step_io(plans):
             yield (info[1], info[2]), info[0].out
         elif kind == "inplace":
             yield (info.x_id, *(y[0] for y in info.ys)), info.out_id
+        elif kind == "fusedchain":
+            yield (info.x_id, *(g[0] for g in info.gates)), info.out_id
+        elif kind == "w2build":
+            yield tuple(g[0] for g in info.rec.gates), info.w2_id
+        elif kind == "window":
+            yield (info.rec.x_id, info.w2_id), info.rec.out_id
         else:
             yield (info.x_id, info.y_id), info.out_id
+
+
+class _WindowOp:
+    """A window step of an executor plan and the id of its operator,
+    built by a ``"w2build"`` step of its own (``device`` and ``dtype``
+    place a rotation's operator, which reads no gate)."""
+
+    __slots__ = ("rec", "w2_id", "device", "dtype")
+
+
+def hoist_window_operators(plans, final_id, num_inputs, device=None,
+                           dtype=torch.float32):
+    """The executor plan of ``plan_grouped``'s ``plans``: each window
+    step preceded by the build of its operator ``W2`` as a step of its
+    own (``"w2build"``), which reads only the gates and writes a fresh
+    id that the window step reads. Returns ``(plans, last_use)``.
+
+    This is the counterpart of the reference's operator hoist
+    (``_plan_operator_hoist``, ``cotengra_tpu/ops/grouped.py:1891``),
+    through the machinery that runs every step: ``SliceBatch`` runs a
+    build once per call where no sliced index reaches its gates (and
+    ``fold`` keeps it where only constants do), else once per slice
+    under ``"scan"`` and once, stacked over the slices, under
+    ``"vmap"``. The reference's cross-call cache of operators, keyed on
+    the identity of the leaf arrays, is not copied: a tensor can change
+    in place under the same identity. Nor is its option to build on
+    the host CPU (``CTG_HOIST_BACKEND``), a workaround for the TPU's
+    remote compiler.
+    """
+    next_id = 1 + max([num_inputs - 1] + [
+        info.out if kind == "single"
+        else info[0].out if kind == "fallback"
+        else info.out_id
+        for kind, info in plans
+    ])
+    out = []
+    for kind, info in plans:
+        if kind == "window":
+            op = _WindowOp()
+            op.rec, op.w2_id = info, next_id
+            op.device, op.dtype = device, dtype
+            next_id += 1
+            out.append(("w2build", op))
+            out.append(("window", op))
+        else:
+            out.append((kind, info))
+    last_use = {}
+    for si, (srcs, _) in enumerate(_step_io(out)):
+        for vid in srcs:
+            last_use[vid] = si
+    last_use.pop(final_id, None)
+    return out, last_use
 
 
 SLICE_BATCH_MODES = ("auto", "scan", "vmap")
@@ -543,6 +667,13 @@ def _numel_out(kind, info, sizes):
         return prod(sizes[ix] for ix in info[0].out_legs)
     if kind == "inplace":
         return prod(info.out_shape)
+    if kind == "window":
+        return prod(info.rec.out_shape)
+    if kind == "w2build":
+        # W2 holds 4 S_in S_out floats: twice the planes of S_in S_out
+        return 2 * info.rec.S_in * info.rec.S_out
+    if kind == "fusedchain":
+        return info.M * info.N
     return info.B * info.M * info.N
 
 
@@ -566,6 +697,11 @@ def slice_peak_bytes(plans, in_shapes, last_use, sizes, itemsize=4):
                 numel[info.x_id] * (info.x_plan is not None)
                 + numel[info.y_id] * (info.y_plan is not None)
             )
+        elif kind == "fusedchain":
+            copies = numel[info.x_id] * (info.x_plan is not None)
+        elif kind == "window":
+            # the rotation copy of a non-prefix form
+            copies = numel[info.rec.x_id] * (info.rec.form != "prefix")
         else:
             copies = 0
         peak = max(peak, live + copies + 2 * n_out)
@@ -619,7 +755,7 @@ def auto_slice_batch_mode(device, slice_batch, slice_bytes, raw_bytes,
 def make_grouped_contractor(
     tree, device="cuda", plane_dtype=torch.float32, gate_mode="auto",
     strip_exponent=False, slice_batch=None, slice_batch_mode="auto",
-    constants=None,
+    constants=None, fuse_gates=False,
 ):
     """Plan ``tree`` once and return ``fn(*planes) -> planes``.
 
@@ -656,8 +792,25 @@ def make_grouped_contractor(
     and ``fn(planes, slice_ids, folded)`` reuses its result
     (``slices.SliceBatch``). ``fn.mode`` is the mode taken.
 
-    ``gate_mode="auto"`` resolves to ``"inplace"`` (gate chains), as the
-    reference's split-complex default does; ``None`` plans pairs only.
+    ``gate_mode`` picks the engine of the small-gate absorptions:
+
+    - ``"inplace"``: in-place gate chains through the gate-chain kernel
+      (``gate_chains.py``), one launch a pass;
+    - ``"window"``: windowed-matmul clusters (``windowed.py``): each
+      cluster one ``torch.matmul`` of its dense operator ``W2`` with the
+      large tensor, after one rotation copy unless the window is a
+      prefix; each ``W2`` is built by a step of its own that reads only
+      the gates (``hoist_window_operators``), so a batch builds it once
+      where no sliced index reaches the gates;
+    - ``None``: pair steps only;
+    - ``"auto"``: ``"inplace"``, as the reference's split-complex
+      default.
+
+    ``fuse_gates=True`` merges consecutive small-gate absorptions that
+    the engine did not take into fused kron chains (one small-y product
+    of the gates' kron product). ``"window"`` and ``fuse_gates`` are
+    opt-in, as in the reference; ``PERF.md`` section 6 has their times
+    on the card. ``fn.plans`` is the executor's plan.
     There is no staging: it worked around the TPU compiler.
     """
     dev = resolve_device(device)
@@ -671,8 +824,12 @@ def make_grouped_contractor(
         )
     ir = extract_contractions(tree)
     input_orders = [sliced_input_legs(tree, i) for i in range(tree.N)]
-    plans, _, out_plan, out_shape, last_use = plan_grouped(
-        ir, tree.size_dict, input_orders, gate_mode=gate_mode
+    plans, _, out_plan, out_shape, _ = plan_grouped(
+        ir, tree.size_dict, input_orders, gate_mode=gate_mode,
+        fuse_gates=fuse_gates,
+    )
+    plans, last_use = hoist_window_operators(
+        plans, ir.final_id, ir.num_inputs, dev, pdt
     )
     sizes = tree.size_dict
     in_shapes = [tuple(sizes[ix] for ix in order) for order in input_orders]

@@ -24,6 +24,16 @@ each planned step as the port executes it:
 - a fallback einsum as a read of both operands and a write of its
   output, complex, at ``einsum_gbps``, and a single step as a read and
   write of its output at ``copy_gbps``;
+- a window step (``gate_mode="window"``) as its rotation copy (none
+  for a prefix window) at ``copy_gbps`` and one true-fp32 GEMM of
+  ``8 S_in S_out M`` flops (``W2 (2 S_out, 2 S_in) @ X (2 S_in, M)``)
+  priced as a pair product; its operator build (a ``"w2build"`` step of
+  the executor plan) as the writes and reads of its mask, one-hot
+  products and ``W2`` (16 plane elements per ``S_in S_out``) at
+  ``copy_gbps``, slice-invariant where no sliced index reaches the
+  gates, as the executor runs it;
+- a fused kron chain (``fuse_gates``) as its copy plus its small-y
+  product, as a pair step;
 - the host: ``step_s`` per step call and ``launch_s`` per kernel
   launch the step makes (``_step_launches`` reckons them from the
   branch the executor takes), counted as the executor runs: slice by
@@ -51,6 +61,7 @@ from .gate_chains import chain_tile_plan
 from .grouped import (
     _step_io,
     auto_slice_batch_mode,
+    hoist_window_operators,
     slice_peak_bytes,
 )
 from .grouped_plan import plan_grouped
@@ -134,7 +145,26 @@ def _step_launches(kind, info, strip):
     if kind == "inplace":
         passes = len(chain_tile_plan(info.spec))
         return passes + sum(y[1] is not None for y in info.ys)
+    if kind == "window":
+        # the rotation copy (not for a prefix window) and the GEMM
+        return 1 + (info.rec.form != "prefix")
+    if kind == "w2build":
+        # per gate its realignment and four einsums with their sum and
+        # difference after the first; the index tensors, mask, one-hots,
+        # two products each side, the block embedding
+        gates = info.rec.gates
+        return (sum(y[1] is not None for y in gates)
+                + 6 * max(len(gates) - 1, 0) + 20)
     p = info
+    if kind == "fusedchain":
+        # per gate a complex view, its permutation and the kron; then
+        # the small-y product of the branch its K and N take
+        pre = 3 * len(p.gates) + (p.x_plan is not None)
+        if p.K < 8:
+            return pre + 8 * p.K * p.N + 1 + strips
+        if p.N < 8:
+            return pre + 5 * p.N + 1 + strips
+        return pre + 5 + strips
     copies = (getattr(p, "x_plan", None) is not None) + (
         p.y_plan is not None
     )
@@ -151,17 +181,23 @@ def _step_launches(kind, info, strip):
     return copies + 5 + strips
 
 
-def step_records(tree, gate_mode="inplace", strip_exponent=False):
-    """Per planned step of ``tree``: ``(bucket, device seconds by rate,
-    launches, slice-invariant)``, where the device seconds are held as
-    tallies to price later (``_price_step``). Also returns the plan's
-    per-slice live peak in bytes. The plan is the port's own
-    (``plan_grouped``); this is the slow, chip-independent half of
-    :func:`simulate_grouped`."""
+def step_records(tree, gate_mode="inplace", strip_exponent=False,
+                 fuse_gates=False):
+    """Per step of ``tree``'s executor plan: ``(kind, bucket, device
+    seconds by rate, launches, slice-invariant)``, where the device
+    seconds are held as tallies to price later (``_price_step``). Also
+    returns the plan's per-slice live peak in bytes. The plan is the
+    port's own (``plan_grouped``, with the window operators hoisted as
+    the executor hoists them); this is the slow, chip-independent half
+    of :func:`simulate_grouped`."""
     ir = extract_contractions(tree)
     input_orders = [sliced_input_legs(tree, i) for i in range(tree.N)]
-    plans, _, out_plan, out_shape, last_use = plan_grouped(
-        ir, tree.size_dict, input_orders, gate_mode=gate_mode
+    plans, _, out_plan, out_shape, _ = plan_grouped(
+        ir, tree.size_dict, input_orders, gate_mode=gate_mode,
+        fuse_gates=fuse_gates,
+    )
+    plans, last_use = hoist_window_operators(
+        plans, ir.final_id, ir.num_inputs
     )
     sizes = tree.size_dict
     step_io = list(_step_io(plans))
@@ -188,17 +224,30 @@ def step_records(tree, gate_mode="inplace", strip_exponent=False):
         elif kind == "single":
             t["single"] = 4 * prod(sizes[ix] for ix in info.out_legs)
             bucket = "other"
+        elif kind == "window":
+            rec = info.rec
+            M = prod(rec.out_shape) // rec.S_out
+            x_elems = rec.S_in * M
+            t["copy"] = 4 * x_elems * (rec.form != "prefix")
+            t["dot"] = (8.0 * rec.S_in * rec.S_out * M,
+                        2 * (x_elems + rec.S_out * M)
+                        + 4 * rec.S_in * rec.S_out)
+            bucket = "window"
+        elif kind == "w2build":
+            t["single"] = 16 * info.rec.S_in * info.rec.S_out
+            bucket = "window"
         elif kind == "fallback":
             step = info[0]
             so = prod(sizes[ix] for ix in step.out_legs)
             t["einsum"] = 2 * (prod(info[5]) + prod(info[6]) + so)
             bucket = "other"
-        else:
-            B, M, K, N = info.B, info.M, info.K, info.N
+        else:  # a pair or a fused chain (B = 1, its gates' kron as y)
+            B = getattr(info, "B", 1)
+            M, K, N = info.M, info.K, info.N
             x_elems, y_elems = B * M * K, B * K * N
             t["copy"] = 4 * (
                 x_elems * (info.x_plan is not None)
-                + y_elems * (info.y_plan is not None)
+                + y_elems * (getattr(info, "y_plan", None) is not None)
             )
             t["dot"] = (8.0 * B * M * K * N,
                         2 * (x_elems + y_elems + B * M * N))
@@ -323,7 +372,9 @@ def price(records, constants=None, slice_batch=None,
         "seconds": seconds,
         "per_slice_s": sum(b.values()),
         "nslices": nsl,
-        "n_plans": len(records["steps"]),
+        # plan_grouped's steps (the reference's count): the operator
+        # builds are the executor's own
+        "n_plans": sum(r[0] != "w2build" for r in records["steps"]),
         "n_calls": len(batches),
         "mode": mode,
         "chain_s": b["chain"],
@@ -344,7 +395,7 @@ def price(records, constants=None, slice_batch=None,
 
 def simulate_grouped(tree, constants=None, gate_mode="inplace",
                      slice_batch=None, slice_batch_mode="auto",
-                     detail=False, nslices=None):
+                     detail=False, nslices=None, fuse_gates=False):
     """Modelled wall-clock seconds of contracting ``tree`` on the card
     through the grouped executor: all its slices (or the first
     ``nslices``), slice by slice, or in batches of ``slice_batch`` in
@@ -358,8 +409,10 @@ def simulate_grouped(tree, constants=None, gate_mode="inplace",
     host's bucket (``host_s``: step calls and launches), the device's
     (``device_s``), the step calls, launches, calls and the mode taken.
     There is no ``n_stages``: the port compiles no stages.
+    ``gate_mode`` and ``fuse_gates`` are the executor's
+    (``make_grouped_contractor``).
     """
     return price(
-        step_records(tree, gate_mode), constants, slice_batch,
-        slice_batch_mode, nslices, detail,
+        step_records(tree, gate_mode, fuse_gates=fuse_gates), constants,
+        slice_batch, slice_batch_mode, nslices, detail,
     )

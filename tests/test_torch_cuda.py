@@ -550,3 +550,63 @@ def test_two_gloo_ranks_on_one_card(cuda, tmp_path):
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, out
         assert f"RANK_OK {r}" in out, out
+
+
+def _gate_chain_tree(n_ax=17, n_gates=12, seed=3):
+    """A rank-``n_ax`` state absorbing 1- and 2-leg gates one after
+    another (the window tests' instance), as the port's tree, with two
+    gate legs sliced; complex128 arrays."""
+    import cotengra_tpu_torch as ctt
+
+    rng = np.random.default_rng(seed)
+    live = [f"x{i}" for i in range(n_ax)]
+    inputs = [tuple(live)]
+    arrays = [rng.standard_normal((2,) * n_ax)
+              + 1j * rng.standard_normal((2,) * n_ax)]
+    for g in range(n_gates):
+        nq = 1 + g % 2
+        pos = sorted(rng.choice(len(live), size=nq, replace=False))
+        c = tuple(live[p] for p in pos)
+        ny = tuple(f"n{g}_{j}" for j in range(nq))
+        inputs.append(c + ny)
+        arrays.append(rng.standard_normal((2,) * 2 * nq)
+                      + 1j * rng.standard_normal((2,) * 2 * nq))
+        for p, ix in zip(pos, ny):
+            live[p] = ix
+    size_dict = {ix: 2 for t in inputs for ix in t}
+    n = len(inputs)
+    tree = ctt.ContractionTree.from_path(
+        inputs, tuple(live), size_dict,
+        ssa_path=[(0, 1)] + [(n + k - 2, k) for k in range(2, n)],
+    )
+    for ix in (inputs[1][0], inputs[2][0]):
+        tree.remove_ind_(ix)
+    return tree, arrays
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("mode", ["scan", "vmap"])
+def test_window_contractor_on_the_card(cuda, mode, fuse):
+    """``gate_mode="window"`` on CUDA tensors runs its window steps on
+    the card, launches no chain kernel, and equals the CPU run of the
+    same contractor in float64 (rtol 1e-10) and float32 (rtol 1e-5)."""
+    import cotengra_tpu_torch as ctt
+
+    tree, arrays = _gate_chain_tree()
+    for dtype, rtol in [(torch.float64, 1e-10), (torch.float32, 1e-5)]:
+        out = {}
+        for dev in (cuda, torch.device("cpu")):
+            fn = ctt.make_grouped_contractor(
+                tree, dev, dtype, gate_mode="window", fuse_gates=fuse,
+                slice_batch=4, slice_batch_mode=mode,
+            )
+            assert any(k == "window" for k, _ in fn.plans)
+            before = run_chain_cuda.launches
+            res = fn(ctt.to_plane_tensors(arrays, dev, dtype), range(4))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                assert res.device == cuda
+                assert run_chain_cuda.launches == before
+            out[dev.type] = res.sum(0).cpu().numpy()
+        scale = np.abs(out["cpu"]).max()
+        assert np.abs(out["cuda"] - out["cpu"]).max() <= rtol * scale

@@ -309,6 +309,7 @@ PARITY_MODULES = [
     "hyper/__init__.py", "hyper/driver.py", "pathfinders/linegraph.py",
     "pathfinders/external.py", "pathfinders/kahypar.py",
     "pathfinders/igraph.py", "pathfinders/mcts.py", "ops/simulate.py",
+    "ops/windowed.py",
 ]
 
 

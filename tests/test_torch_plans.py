@@ -1,6 +1,9 @@
 """The port's host-side planning makes the reference's decisions:
-lowering, absorption, grouped step plans and gate-chain specs are equal
-to the JAX package's on the same trees."""
+lowering, absorption, grouped step plans (every gate mode, with and
+without fused kron chains, the layout lookahead off and on) and
+gate-chain specs are equal to the JAX package's on the same trees."""
+
+import collections
 
 import numpy as np
 import pytest
@@ -12,6 +15,7 @@ from cotengra_tpu.ops import grouped as ref_grouped
 from cotengra_tpu.ops import lowering as ref_lowering
 from cotengra_tpu.ops import pallas_gates as ref_gates
 from cotengra_tpu.ops import preprocess as ref_preprocess
+from cotengra_tpu.ops import windowed as ref_windowed
 from cotengra_tpu.utils.io import load_tree
 
 from cotengra_tpu_torch.ops import gate_chains, grouped_plan, lowering
@@ -48,9 +52,11 @@ def _circuit_tree(nq, depth, seed, nslice):
     return tree
 
 
-def _gate_tree():
+def _gate_tree(absorb=False):
     """18 size-2 axes with 2-qubit gates at leading, middle, trailing and
-    mixed positions (the reference's in-place chain construction)."""
+    mixed positions (the reference's in-place chain construction); with
+    ``absorb``, the state absorbs the gates one after another (the
+    order in which consecutive gates fuse into kron chains)."""
     n = 18
     state = [f"a{k}" for k in range(n)]
     inputs = [tuple(state)]
@@ -62,6 +68,12 @@ def _gate_tree():
         inputs.append((bi, bj, cur[i], cur[j]))
         cur[i], cur[j] = bi, bj
     size_dict = {ix: 2 for t in inputs for ix in t}
+    if absorb:
+        nt = len(inputs)
+        return ctg.ContractionTree.from_path(
+            inputs, tuple(cur), size_dict,
+            ssa_path=[(0, 1)] + [(nt + k, k + 2) for k in range(nt - 2)],
+        )
     return ctg.ContractionTree.from_path(
         inputs, tuple(cur), size_dict, path=[(0, 1)] * (len(inputs) - 1)
     )
@@ -77,6 +89,26 @@ def _sycamore_tree(m, t):
 
 
 _PAIR_SLOTS = ref_grouped._GroupedPair.__slots__
+_FUSED_SLOTS = ref_grouped._FusedChain.__slots__
+_WINDOW_SLOTS = ref_windowed.WindowRec.__slots__
+
+
+def _canon_recipe(recipe):
+    """A window recipe as plain data: its index arrays as (dtype, list)."""
+    expand = {
+        k: (v.dtype.str, v.tolist()) if isinstance(v, np.ndarray) else v
+        for k, v in recipe["expand"].items()
+    }
+    return (tuple(map(tuple, recipe["apply"])), expand, recipe["S_in"],
+            recipe["S_out"])
+
+
+def canon_window(rec):
+    """A WindowRec of either package as plain data, field by field."""
+    return tuple(
+        _canon_recipe(rec.recipe) if s == "recipe" else getattr(rec, s)
+        for s in _WINDOW_SLOTS
+    )
 
 
 def _canon(res):
@@ -87,6 +119,10 @@ def _canon(res):
     for kind, info in plans:
         if kind == "pair":
             rec = tuple(getattr(info, s) for s in _PAIR_SLOTS)
+        elif kind == "fusedchain":
+            rec = tuple(getattr(info, s) for s in _FUSED_SLOTS)
+        elif kind == "window":
+            rec = canon_window(info)
         elif kind == "inplace":
             rec = (info.x_id, info.out_id, info.spec.key(), info.ys,
                    info.out_order, info.out_shape)
@@ -96,7 +132,14 @@ def _canon(res):
     return out, storage, out_plan, out_shape, last_use
 
 
-def _assert_same_plans(tree):
+GATE_MODES = (None, "inplace", "window")
+
+
+def _assert_same_plans(tree, monkeypatch):
+    """Plans equal for every gate mode and ``fuse_gates``, with the
+    layout lookahead off and on in both packages. Returns the step
+    kinds and, per (gate mode, fuse_gates), the kind counts with the
+    lookahead off."""
     ref_ir = ref_lowering.extract_contractions(tree)
     ir = lowering.extract_contractions(tree)
     assert ir == ref_ir
@@ -104,46 +147,63 @@ def _assert_same_plans(tree):
     assert orders == [
         ref_lowering.sliced_input_legs(tree, i) for i in range(tree.N)
     ]
-    kinds = set()
-    for mode in (None, "inplace"):
-        ref = ref_grouped.plan_grouped(
-            ref_ir, tree.size_dict, orders, gate_mode=mode
-        )
-        got = grouped_plan.plan_grouped(
-            ir, tree.size_dict, orders, gate_mode=mode
-        )
-        assert _canon(got) == _canon(ref)
-        kinds |= {k for k, _ in got[0]}
-    return kinds
+    kinds, counts = set(), {}
+    for lookahead in (False, True):
+        monkeypatch.setattr(ref_grouped, "_LAYOUT_LOOKAHEAD", lookahead)
+        monkeypatch.setattr(grouped_plan, "_LAYOUT_LOOKAHEAD", lookahead)
+        for mode in GATE_MODES:
+            for fuse in (False, True):
+                ref = ref_grouped.plan_grouped(
+                    ref_ir, tree.size_dict, orders, gate_mode=mode,
+                    fuse_gates=fuse,
+                )
+                got = grouped_plan.plan_grouped(
+                    ir, tree.size_dict, orders, gate_mode=mode,
+                    fuse_gates=fuse,
+                )
+                assert _canon(got) == _canon(ref), (mode, fuse, lookahead)
+                kinds |= {k for k, _ in got[0]}
+                if not lookahead:
+                    counts[mode, fuse] = collections.Counter(
+                        k for k, _ in got[0]
+                    )
+    return kinds, counts
 
 
 @pytest.mark.parametrize(
     "nq,depth,seed,nslice",
     [(12, 4, 0, 1), (16, 6, 1, 4), (20, 8, 2, 2), (26, 10, 3, 1)],
 )
-def test_plans_equal_on_random_circuits(nq, depth, seed, nslice):
-    _assert_same_plans(_circuit_tree(nq, depth, seed, nslice))
+def test_plans_equal_on_random_circuits(nq, depth, seed, nslice,
+                                        monkeypatch):
+    _assert_same_plans(_circuit_tree(nq, depth, seed, nslice), monkeypatch)
 
 
-def test_plans_equal_on_gate_construction():
-    kinds = _assert_same_plans(_gate_tree())
-    assert "inplace" in kinds
+@pytest.mark.parametrize("absorb", [False, True])
+def test_plans_equal_on_gate_construction(absorb, monkeypatch):
+    kinds, _ = _assert_same_plans(_gate_tree(absorb), monkeypatch)
+    assert {"inplace", "window"} <= kinds
+    if absorb:
+        assert "fusedchain" in kinds
 
 
 @pytest.mark.parametrize(
-    "m,t,chains",
-    [(10, 27, 13), (10, 29, 0), (20, 28, 38)],
+    "m,t,chains,windows,fused_inplace,fused_pairs",
+    [(10, 27, 13, 15, 1, 11), (10, 29, 0, 2, 0, 0), (20, 28, 38, 44, 1, 46)],
 )
-def test_plans_equal_on_committed_sycamore_plans(m, t, chains):
+def test_plans_equal_on_committed_sycamore_plans(
+    m, t, chains, windows, fused_inplace, fused_pairs, monkeypatch
+):
+    """Equal plans, and the step counts of each engine: in-place chains,
+    window steps, fused chains beside the in-place chains and in place
+    of the pairs."""
     tree = _sycamore_tree(m, t)
-    _assert_same_plans(tree)
-    if chains is not None:
-        ir = lowering.extract_contractions(tree)
-        orders = [lowering.sliced_input_legs(tree, i) for i in range(tree.N)]
-        plans = grouped_plan.plan_grouped(
-            ir, tree.size_dict, orders, gate_mode="inplace"
-        )[0]
-        assert sum(k == "inplace" for k, _ in plans) == chains
+    _, counts = _assert_same_plans(tree, monkeypatch)
+    assert counts["inplace", False]["inplace"] == chains
+    assert counts["window", False]["window"] == windows
+    assert counts["inplace", True]["fusedchain"] == fused_inplace
+    assert counts["inplace", True]["inplace"] == chains
+    assert counts[None, True]["fusedchain"] == fused_pairs
 
 
 def _random_gates(rng, n, ngates):
@@ -181,11 +241,30 @@ def test_chain_specs_equal(seed):
             assert numel == g.numel_in
 
 
-def test_unported_gate_modes_raise():
-    tree = _gate_tree()
+@pytest.mark.parametrize(
+    "gate_mode,fuse,kind",
+    [("window", False, "window"), (None, True, "fusedchain"),
+     ("inplace", True, "inplace"), ("bogus", False, None)],
+)
+def test_window_and_fused_plans_on_gate_construction(gate_mode, fuse, kind):
+    """``"window"`` and ``fuse_gates=True`` plan window and fused-chain
+    steps on the gate construction, equal to the reference's; an
+    unknown gate mode plans pairs only, as the reference's does."""
+    tree = _gate_tree(absorb=True)
     ir = lowering.extract_contractions(tree)
     orders = [lowering.sliced_input_legs(tree, i) for i in range(tree.N)]
-    with pytest.raises(ValueError, match="not ported"):
-        grouped_plan.plan_grouped(
-            ir, tree.size_dict, orders, gate_mode="window"
-        )
+    got = grouped_plan.plan_grouped(
+        ir, tree.size_dict, orders, gate_mode=gate_mode, fuse_gates=fuse
+    )
+    ref = ref_grouped.plan_grouped(
+        ref_lowering.extract_contractions(tree), tree.size_dict, orders,
+        gate_mode=gate_mode, fuse_gates=fuse,
+    )
+    assert _canon(got) == _canon(ref)
+    kinds = {k for k, _ in got[0]}
+    if kind is None:
+        plain = grouped_plan.plan_grouped(ir, tree.size_dict, orders)
+        assert _canon(got) == _canon(plain)
+        assert kinds <= {"pair", "fallback", "single"}
+    else:
+        assert kind in kinds

@@ -288,6 +288,50 @@ def test_batch_modes_count_the_host_as_the_executor_runs():
     assert (part["nslices"], part["n_calls"]) == (2, 1)
 
 
+@pytest.mark.parametrize("gate_mode,fuse", [("window", False),
+                                            (None, True),
+                                            ("inplace", True)])
+def test_window_and_fused_steps_are_priced(gate_mode, fuse):
+    """The window and fused engines on t27: the steps planned are
+    plan_grouped's; the GEMM flops are the window steps' 8 S_in S_out M
+    and the pairs' and fused chains' 8 B M K N; a window operator build
+    is one step call per call where the executor runs it once (no
+    sliced index reaches its gates), per slice where it does not."""
+    tree, _ = _plan_trees("sycamore53_m10_t27")
+    ir = extract_contractions(tree)
+    orders = [sliced_input_legs(tree, i) for i in range(tree.N)]
+    plans = plan_grouped(ir, tree.size_dict, orders, gate_mode=gate_mode,
+                         fuse_gates=fuse)[0]
+    flops = 0.0
+    for kind, info in plans:
+        if kind == "window":
+            M = prod(info.out_shape) // info.S_out
+            flops += 8.0 * info.S_in * info.S_out * M
+        elif kind in ("pair", "fusedchain"):
+            flops += 8.0 * getattr(info, "B", 1) * info.M * info.K * info.N
+    got = simulate_grouped(tree, gate_mode=gate_mode, fuse_gates=fuse,
+                           slice_batch=2, slice_batch_mode="scan",
+                           detail=True)
+    assert got["n_plans"] == len(plans)
+    assert got["dot_tflop"] == pytest.approx(flops / 1e12, rel=RTOL)
+    fn = ctt.make_grouped_contractor(
+        tree, "cpu", slice_batch=2, slice_batch_mode="scan",
+        gate_mode=gate_mode, fuse_gates=fuse,
+    )
+    once, each = len(fn.batch.steps_once), len(fn.batch.steps_each)
+    assert got["step_calls"] == once * 2 + each * tree.multiplicity
+    builds = [si for si, (k, _) in enumerate(fn.plans) if k == "w2build"]
+    assert len(builds) == (15 if gate_mode == "window" else 0)
+    assert set(builds) <= set(fn.batch.steps_once) | set(
+        fn.batch.steps_each)
+    # the model's time grows with the window steps' identity-inflated
+    # flops: above the in-place chains' on the same tree
+    if gate_mode == "window":
+        inplace = simulate_grouped(tree, slice_batch=2,
+                                   slice_batch_mode="scan")
+        assert got["seconds"] > inplace
+
+
 # -- the fit to the card ----------------------------------------------------
 
 
