@@ -281,7 +281,21 @@ Run from the root of a checkout. Phases:
 41. the cost model on phases 37-38's runs: ``simulate_grouped`` with
    ``gate_mode="window"`` and with ``fuse_gates``, modelled over
    measured (no limit: no constant was fitted to them);
-42. one JSON line of kernel results (launches on the main path, error,
+42. the plots, on the host: ``cotengra_tpu_torch.plot`` and
+   ``.schematic`` import and the 19 plot methods are bound onto
+   ``ContractionTree``, ``HyperOptimizer``, ``SliceFinder`` and
+   ``HyperGraph``; the ring and tent layouts of the trees that phases 4
+   (t27, 182 leaves) and 11 (m20, 413 leaves) contracted: a position
+   for each of the 2N-1 nodes, the ring's internal nodes strictly inside
+   the unit disc, tent heights extent / N, the convex hull of the ring
+   positions of the last step's leaves (every one a vertex: they lie on
+   the unit circle); no kernel launched; which of matplotlib,
+   networkx, pandas and altair are installed, and the host
+   milliseconds, beside the card's name and power limit; where
+   matplotlib cannot be imported,
+   ``plot_ring()`` raises the ``ImportError`` naming it, and where it
+   can, the t27 ring drawn to Agg has 2(N-1) edge lines;
+43. one JSON line of kernel results (launches on the main path, error,
    ms, plain ms, bound, library ms; the gate chain's m=20 figures
    under ``m20_*`` keys, the launches of phases 17 and 18 under
    ``hyper_*`` keys, of phases 19 and 20 under ``default_*`` keys, of
@@ -603,13 +617,17 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_device():
-    smi = subprocess.run(
+def _smi_line():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+
+
+def phase_device():
+    print(_smi_line(), flush=True)
     print(
         f"# torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -980,7 +998,8 @@ def phase_main_path(plan_name, n_ref, dev, passes=3):
         f"peak_mem_gib {peak:.2f}",
         flush=True,
     )
-    return launches
+    tree.contraction_cores.clear()  # kept for phase 42: no device state
+    return launches, tree
 
 
 def phase_bmm(dev):
@@ -1337,7 +1356,8 @@ def phase_m20(dev, passes=3):
         f"peak_mem_gib {peak:.2f}",
         flush=True,
     )
-    return counts["gate_chain"]
+    tree.contraction_cores.clear()  # kept for phase 42: no device state
+    return counts["gate_chain"], tree
 
 
 def _in_turns(label, calls, pull, passes=3):
@@ -3861,6 +3881,131 @@ def phase_engine_model(window_s, fused_s):
     print(f"# engine model {T27}: " + "; ".join(parts), flush=True)
 
 
+# the methods that plot.py binds onto the port's classes (phase 42)
+PLOT_METHODS = {
+    "ContractionTree": (
+        "plot_tree", "plot_ring", "plot_tent", "plot_span", "plot_flat",
+        "plot_rubberband", "plot_circuit", "plot_contractions",
+        "plot_contractions_alt", "to_networkx", "to_df",
+    ),
+    "HyperOptimizer": (
+        "plot_trials", "plot_trials_alt", "plot_scatter", "plot_scatter_alt",
+        "plot_parameters_parallel",
+    ),
+    "SliceFinder": ("plot_slicings", "plot_slicings_alt"),
+    "HyperGraph": ("plot",),
+}
+
+
+def _check_layouts(label, tree):
+    """The ring and tent layouts of ``tree`` and the convex hull of the
+    ring positions of its last step's leaves, checked; returns the
+    hull's vertex count."""
+    from cotengra_tpu_torch import plot
+
+    n = tree.N
+    nodes = set(tree.gen_leaves()) | set(tree.children)
+    leaves = plot._leaf_angles(tree)
+    if sorted(leaves) != list(tree.gen_leaves()):
+        raise AssertionError(f"plots {label}: leaf order is not the leaves")
+    ring = plot._tree_positions(tree, "ring")
+    tent = plot._tree_positions(tree, "tent")
+    for layout, pos in (("ring", ring), ("tent", tent)):
+        if len(pos) != 2 * n - 1 or set(pos) != nodes:
+            raise AssertionError(
+                f"plots {label}: {layout} has {len(pos)} positions for "
+                f"{2 * n - 1} nodes"
+            )
+    outside = [p for p in tree.children if not math.hypot(*ring[p]) < 1]
+    if outside:
+        raise AssertionError(
+            f"plots {label}: {len(outside)} ring nodes outside the unit disc"
+        )
+    wrong = [p for p in tree.children if tent[p][1] != p.bit_count() / n]
+    if wrong:
+        raise AssertionError(
+            f"plots {label}: {len(wrong)} tent heights are not extent / N"
+        )
+    last = list(tree.traverse())[-1][0]
+    points = [ring[1 << i] for i in range(n) if (last >> i) & 1]
+    hull = plot._convex_hull(points)
+    if len(hull) != len(points):
+        raise AssertionError(
+            f"plots {label}: hull of {len(points)} points on the unit "
+            f"circle has {len(hull)} vertices"
+        )
+    return len(hull)
+
+
+def phase_plots(trees):
+    """The plots on the host, on the trees the card contracted (``trees``:
+    plan name -> tree): the bound methods, the layouts, and a plot that
+    draws where matplotlib is installed and raises its ImportError where
+    it is not."""
+    import importlib.util
+
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch import plot, schematic
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    unbound = [
+        f"{cls}.{name}" for cls, names in PLOT_METHODS.items()
+        for name in names
+        if getattr(getattr(ctt, cls), name, None) is None
+        or getattr(ctt, cls).__dict__[name].__module__ != plot.__name__
+    ]
+    if unbound or not hasattr(schematic, "Drawing"):
+        raise AssertionError(f"plots: methods not bound {unbound}")
+    parts = []
+    for label, tree in trees.items():
+        t = time.perf_counter()
+        hull = _check_layouts(label, tree)
+        parts.append(
+            f"{label} leaves {tree.N} positions {2 * tree.N - 1} hull {hull} "
+            f"layout_ms {1e3 * (time.perf_counter() - t):.3f}"
+        )
+    tree = trees[T27]
+    have = {name: importlib.util.find_spec(name) is not None
+            for name in ("matplotlib", "networkx", "pandas", "altair")}
+    if not have["matplotlib"]:
+        try:
+            tree.plot_ring()
+        except ImportError as e:
+            if "matplotlib" not in str(e):
+                raise AssertionError(
+                    f"plots: plot_ring raised an ImportError not naming "
+                    f"matplotlib: {e}"
+                ) from e
+            drew = f"plot_ring raises ImportError ({e})"
+        else:
+            raise AssertionError("plots: plot_ring ran without matplotlib")
+    else:
+        import matplotlib.pyplot as plt
+
+        fig, ax = tree.plot_ring()
+        edges = len(ax.lines)
+        plt.close(fig)
+        if edges != 2 * (tree.N - 1):
+            raise AssertionError(
+                f"plots: the t27 ring has {edges} edge lines, not "
+                f"{2 * (tree.N - 1)}"
+            )
+        drew = f"plot_ring drew {edges} edge lines on Agg"
+    counts = _read_launches()
+    if any(counts.values()):
+        raise AssertionError(f"plots: kernels launched {counts}")
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    print(
+        f"# plots (host) {sum(map(len, PLOT_METHODS.values()))} methods "
+        f"bound; installed: "
+        + " ".join(f"{k} {'yes' if v else 'no'}" for k, v in have.items())
+        + "; " + "; ".join(parts) + f"; {drew}; host_ms {host_ms:.3f} "
+        f"on {_smi_line()}",
+        flush=True,
+    )
+
+
 def _kernel_class(name):
     if "gate_chain_kernel" in name:
         return "gate-chain kernel"
@@ -4111,14 +4256,14 @@ def main():
                       gate_mode="window")
         return 0
     chain_rows = phase_chains(dev)
-    chain_launches = phase_main_path(T27, 4, dev)
+    chain_launches, t27_tree = phase_main_path(T27, 4, dev)
     phase_main_path("sycamore53_m10_t29", 1, dev)
     bmm_rows = phase_bmm(dev)
     bmm_launches = phase_lattice(dev)
     phase_t27_stripped(dev)
     phase_t27_batched(dev)
     m20_rows = phase_chains_m20(dev)
-    m20_launches = phase_m20(dev)
+    m20_launches, m20_tree = phase_m20(dev)
     phase_front_lattice(dev)
     phase_front_t27(dev)
     auto_plan_s = phase_front_auto(dev)
@@ -4157,6 +4302,7 @@ def main():
     phase_lookahead_t27(dev)
     phase_window_m20(dev)
     phase_engine_model(window_s, fused_s)
+    phase_plots({T27: t27_tree, M20: m20_tree})
     kernels = [
         {
             # per slice: the 13 chains of one m10-t27 slice

@@ -27,7 +27,10 @@ chains and for matmuls with a fused max|out| (exponent stripping), and
 sums slices over the ranks of a ``torch.distributed`` group, one process
 per card (``parallel.mesh``).
 Compressed trees run through ``contract_compressed`` (``ops.compressed``:
-QR and SVD bond truncation with ``torch.linalg``).
+QR and SVD bond truncation with ``torch.linalg``). The plots (``plot``,
+``schematic``) draw on the host, where matplotlib, networkx, pandas or
+altair are installed, and are bound onto the classes as methods
+(``tree.plot_ring()``, ``opt.plot_trials()``, ``tree.to_df()``, ...).
 
 Entry points run on the card (``device="cuda"``, the default) unless
 the caller passes ``device="cpu"``; without a card ``"cuda"`` raises.
@@ -175,6 +178,30 @@ register_external_presets()
 register_kahypar_hyper_methods()
 register_igraph_hyper_methods()
 
+# the plots (host only: matplotlib, networkx, pandas and altair are
+# imported when a plot is drawn), bound onto the classes as methods
+from .plot import (  # noqa: E402
+    plot_contractions,
+    plot_contractions_alt,
+    plot_hypergraph,
+    plot_scatter,
+    plot_scatter_alt,
+    plot_slicings,
+    plot_slicings_alt,
+    plot_tree,
+    plot_tree_circuit,
+    plot_tree_ring,
+    plot_tree_span,
+    plot_tree_tent,
+    plot_trials,
+    plot_trials_alt,
+    tree_to_df,
+    tree_to_networkx,
+)
+from .plot import _attach_plot_methods  # noqa: E402
+
+_attach_plot_methods()
+
 # the reference's aliases (``cotengra.__init__``)
 contract = einsum
 contract_expression = einsum_expression
@@ -320,6 +347,11 @@ __all__ = [
     "path_kahypar",
     "path_labels",
     "perverse_equation",
+    "plot_contractions_alt",
+    "plot_scatter_alt",
+    "plot_slicings_alt",
+    "plot_tree_circuit",
+    "plot_trials_alt",
     "rand_circuit_tn",
     "rand_equation",
     "rand_tree",

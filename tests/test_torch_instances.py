@@ -188,27 +188,9 @@ def test_instance_files_load_in_either_package(meta, tmp_path):
 # -- top-level names ---------------------------------------------------------
 
 # Top-level names of ``cotengra_tpu`` the port does not have, each with
-# the ROADMAP item that queues it or the reason it is left out. The list
-# shrinks as modules are ported.
-QUEUED = {
-    # not queued (ROADMAP A, last paragraph): plot.py draws on the host
-    "plot_contractions": "A, plot.py",
-    "plot_contractions_alt": "A, plot.py",
-    "plot_hypergraph": "A, plot.py",
-    "plot_scatter": "A, plot.py",
-    "plot_scatter_alt": "A, plot.py",
-    "plot_slicings": "A, plot.py",
-    "plot_slicings_alt": "A, plot.py",
-    "plot_tree": "A, plot.py",
-    "plot_tree_circuit": "A, plot.py",
-    "plot_tree_ring": "A, plot.py",
-    "plot_tree_span": "A, plot.py",
-    "plot_tree_tent": "A, plot.py",
-    "plot_trials": "A, plot.py",
-    "plot_trials_alt": "A, plot.py",
-    "tree_to_df": "A, plot.py",
-    "tree_to_networkx": "A, plot.py",
-}
+# the ROADMAP item that queues it or the reason it is left out. Empty:
+# the port carries every one.
+QUEUED = {}
 
 
 def _reference_top_level_names():
@@ -254,24 +236,21 @@ def test_mesh_names_where_the_reference_exports_them():
 
 # -- public methods and module-level names ------------------------------------
 
-PLOT = "A, plot.py"
 # Public methods of the reference's classes that the port leaves out, with
-# the reason. The plot methods are attached to the classes by plot.py.
+# the reason (none now). The plot methods are attached to the classes by
+# plot.py in both packages.
 METHODS_LEFT_OUT = {
-    "ContractionTree": {
-        **{name: PLOT for name in (
-            "plot_circuit", "plot_contractions", "plot_contractions_alt",
-            "plot_flat", "plot_ring", "plot_rubberband", "plot_span",
-            "plot_tent", "plot_tree",
-        )},
-        "to_df": PLOT,
-        "to_networkx": PLOT,
-    },
-    "HyperGraph": {"plot": PLOT},
-    "HyperOptimizer": {name: PLOT for name in (
-        "plot_parameters_parallel", "plot_scatter", "plot_scatter_alt",
-        "plot_trials", "plot_trials_alt",
-    )},
+    "ContractionTree": set(),
+    "HyperGraph": set(),
+    "HyperOptimizer": set(),
+    "SliceFinder": set(),
+}
+# a method of each class that the port had before its plots were attached
+PORT_METHOD = {
+    "ContractionTree": "describe",
+    "HyperGraph": "resistance_centrality",
+    "HyperOptimizer": "get_trials",
+    "SliceFinder": "trial",
 }
 
 # Module-level public names of the reference that the port leaves out, by
@@ -309,7 +288,7 @@ PARITY_MODULES = [
     "hyper/__init__.py", "hyper/driver.py", "pathfinders/linegraph.py",
     "pathfinders/external.py", "pathfinders/kahypar.py",
     "pathfinders/igraph.py", "pathfinders/mcts.py", "ops/simulate.py",
-    "ops/windowed.py",
+    "ops/windowed.py", "plot.py", "schematic.py",
 ]
 
 
@@ -326,8 +305,7 @@ def test_every_reference_public_method_is_ported_or_left_out(name):
         f"{sorted(missing - set(METHODS_LEFT_OUT[name]))}; listed but "
         f"ported: {sorted(set(METHODS_LEFT_OUT[name]) - missing)}"
     )
-    assert {"describe", "get_eq", "print_contractions", "get_trials",
-            "resistance_centrality"} & _public_methods(cls)
+    assert PORT_METHOD[name] in _public_methods(cls)
 
 
 def _module_names(rel):

@@ -219,6 +219,101 @@ def test_port_runs_without_jax():
     assert "NO_JAX_OK 2 16" in proc.stdout
 
 
+_NO_PLOT_PACKAGES = textwrap.dedent(
+    """
+    import sys
+
+    BLOCKED = ("jax", "jaxlib", "cotengra_tpu", "matplotlib", "networkx",
+               "pandas", "altair")
+
+    class _Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(name + " is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, _Block())
+    sys.path.insert(0, {root!r})
+
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch import plot, schematic
+    from cotengra_tpu_torch.slicing import SliceFinder
+
+    methods = {{
+        ctt.ContractionTree: (
+            "plot_tree", "plot_ring", "plot_tent", "plot_span", "plot_flat",
+            "plot_rubberband", "plot_circuit", "plot_contractions",
+            "plot_contractions_alt", "to_networkx", "to_df",
+        ),
+        ctt.HyperOptimizer: (
+            "plot_trials", "plot_trials_alt", "plot_scatter",
+            "plot_scatter_alt", "plot_parameters_parallel",
+        ),
+        SliceFinder: ("plot_slicings", "plot_slicings_alt"),
+        ctt.HyperGraph: ("plot",),
+    }}
+    n = 0
+    for cls, names in methods.items():
+        for name in names:
+            assert getattr(cls, name).__module__ == plot.__name__, name
+            n += 1
+
+    inputs, output, _, size_dict = ctt.rand_equation(14, 3, seed=0)
+    tree = ctt.array_contract_tree(inputs, output, size_dict=size_dict,
+                                   optimize="greedy")
+    leaves = plot._leaf_angles(tree)
+    assert sorted(leaves) == list(tree.gen_leaves())
+    ring = plot._tree_positions(tree, "ring")
+    tent = plot._tree_positions(tree, "tent")
+    assert len(ring) == len(tent) == 2 * tree.N - 1
+    for p in tree.children:
+        x, y = ring[p]
+        assert x * x + y * y < 1
+        assert tent[p][1] == p.bit_count() / tree.N
+    hull = plot._convex_hull([ring[leaf] for leaf in leaves])
+    assert len(hull) == tree.N
+    assert len(schematic.auto_colors(5)) == 5
+
+    raised = {{}}
+    hg = ctt.get_hypergraph(inputs, output, size_dict)
+    for label, call in [
+        ("plot_ring", tree.plot_ring),
+        ("plot_circuit", tree.plot_circuit),
+        ("to_networkx", tree.to_networkx),
+        ("to_df", tree.to_df),
+        ("hypergraph", hg.plot),
+        ("trials_alt", ctt.HyperOptimizer().plot_trials_alt),
+    ]:
+        try:
+            call()
+        except ImportError as e:
+            raised[label] = str(e)
+    assert "matplotlib" in raised["plot_ring"], raised
+    assert "matplotlib" in raised["plot_circuit"], raised
+    assert "networkx" in raised["to_networkx"], raised
+    assert "pandas" in raised["to_df"], raised
+    assert "networkx" in raised["hypergraph"], raised
+    assert "altair" in raised["trials_alt"], raised
+    for name in BLOCKED:
+        assert name not in sys.modules, name
+    print("NO_PLOT_PACKAGES_OK", n, len(raised))
+    """
+)
+
+
+def test_port_imports_and_lays_out_without_the_plot_packages():
+    """The card machine's environment: with matplotlib, networkx, pandas
+    and altair blocked (and JAX), the port imports, its classes carry the
+    plot methods, the tree layouts run, and each plot raises the
+    ``ImportError`` of the package it needs."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_PLOT_PACKAGES.format(root=ROOT)],
+        capture_output=True, text=True, cwd=ROOT, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NO_PLOT_PACKAGES_OK 19 6" in proc.stdout
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
