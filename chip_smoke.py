@@ -295,7 +295,36 @@ Run from the root of a checkout. Phases:
    matplotlib cannot be imported,
    ``plot_ring()`` raises the ``ImportError`` naming it, and where it
    can, the t27 ring drawn to Agg has 2(N-1) edge lines;
-43. one JSON line of kernel results (launches on the main path, error,
+43. the staged contractor (``ops/grouped.py::make_grouped_staged_contractor``,
+   stages of ``STAGE_SIZE`` plan steps, each a CUDA graph, replayed
+   after ``fn.precompile``) on m10-t27, 4 slices a call under
+   ``"vmap"`` and ``"scan"``, each against the eager contractor in the
+   same mode: relerr <= 1e-5 against key ``"4"``; replays a call equal
+   to the graphs, no Python step call (``capture.STEP_CALLS``) in a
+   replayed call; ``gate_chain_kernel`` launches equal to the plan's
+   (13 vmap, 52 scan), exactly, by the wrapper's counter: in an eager
+   call, and recorded into the graphs at capture (a replay runs each
+   recorded kernel once and ticks no counter), and seen by the profiler
+   inside a replayed call (which now and then loses a block of records,
+   so its count is printed, not held to the plan); capture seconds;
+   warm seconds in turns (best of 5, each pass ending in a host pull
+   checked finite and stable); device busy ms, wall ms and idle share
+   (1 - busy / wall) of one profiled call on each side, both read from
+   that call; eager GiB allocated against the GiB the graphs' pool and
+   buffers reserve;
+44. m20-t28 slices 0..15 staged under ``"scan"``, 4 slices a call: the
+   same graphs replayed on ids 0..3, 4..7, 8..11 and 12..15, the
+   partial sums at 4, 8 and 16 slices held to the sidecar at relerr
+   <= 1e-5 (a slice baked into a graph would repeat), with phase 43's
+   checks and measures against the eager contractor on the same ids;
+45. the stripped 7x7 lattice through ``make_full_contractor(...,
+   autojit=True, implementation="pallas")``: the 16 slices and their sum
+   as one CUDA graph, |delta log10| <= 1e-4, 464 ``bmm_absmax_kernel``
+   launches recorded into the graph and seen running in a profiled
+   replay, no Python step call, phase 43's measures against eager;
+46. m10-t27 under ``"vmap"``: stages of 12 steps against the whole plan
+   as one graph, warm seconds in turns;
+47. one JSON line of kernel results (launches on the main path, error,
    ms, plain ms, bound, library ms; the gate chain's m=20 figures
    under ``m20_*`` keys, the launches of phases 17 and 18 under
    ``hyper_*`` keys, of phases 19 and 20 under ``default_*`` keys, of
@@ -305,7 +334,9 @@ Run from the root of a checkout. Phases:
    ``example_m10_launches`` and ``multi_m10_launches``, of phases
    31-34 and 36 under ``vmap_*``, ``small_slices_vmap_launches`` and
    ``gpu_m10_launches``, and of phases 37 and 38 under
-   ``window_t27_chain_launches`` and ``fused_t27_launches``), one JSON
+   ``window_t27_chain_launches`` and ``fused_t27_launches``, of phases
+   43-45 under ``captured_*``: counted by the profiler in replayed
+   graphs), one JSON
    line ``{"host_native": {...}}`` of the host library's build seconds
    and the planning seconds of phases 15, 17-21 and 30, then the last
    line ``{"ok": true, "device": {...}}``.
@@ -317,7 +348,8 @@ Every instance is built and every plan loaded through the port
 Each main path (4, 5, 7, 8, 9, 11, 12, 13, 15-20, 22-24, 26-30, 32-34,
 36-40) is
 driven with every kernel's launch count set to 0 just before it and
-read just after (in each rank, by the rank). Any failed
+read just after (in each rank, by the rank); the captured paths (43-45)
+count the launches of a replayed call with the profiler. Any failed
 phase raises, and the script exits non-zero without the last line. It
 needs a CUDA device and never falls back to the CPU.
 
@@ -4006,6 +4038,344 @@ def phase_plots(trees):
     )
 
 
+STAGE_SIZE = 12         # phases 43-46: plan steps a stage (the reference's)
+STAGED_PASSES = 5       # phases 43 and 46: best of 5 warm passes in turns
+M20_STAGED_BATCH = 4    # phase 44: slices a call (ids 0..3, ..., 12..15)
+
+
+def _profiled(call):
+    """Device busy ms of one profiled call, the same call's wall ms (from
+    before it starts to the card's last kernel), and its device kernels
+    by name (the profiler sees each kernel inside a replayed CUDA
+    graph)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, kernels = 0.0, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        busy += e.time_range.elapsed_us() / 1e3
+        kernels[e.name] = kernels.get(e.name, 0) + 1
+    if not kernels:
+        raise AssertionError("the profiler saw no device time")
+    return busy, wall, kernels
+
+
+def _replays(fn):
+    """Graph replays so far of a captured contractor (``fn.graphs``:
+    ``Graphs``, or ``(Graphs, static buffers)`` pairs)."""
+    return sum(
+        (g[0] if isinstance(g, tuple) else g).replays
+        for g in fn.graphs.values()
+    )
+
+
+def _capture_s(fn):
+    return sum(
+        (g[0] if isinstance(g, tuple) else g).capture_s
+        for g in fn.graphs.values()
+    )
+
+
+def _python_step_calls():
+    """Python step calls so far, of both executors."""
+    from cotengra_tpu_torch.ops.capture import STEP_CALLS
+
+    return sum(STEP_CALLS.values())
+
+
+def _captured_against_eager(label, fn, capture, call, eager, pull, kernel,
+                            expect, passes, calls=1):
+    """Captured graphs (``fn``, captured by ``capture()``, called by
+    ``call``) against the eager contractor (``eager``), on one card:
+    each side's peak (eager: GiB allocated over a pass; captured: GiB
+    the graphs' pool and static buffers reserve); ``kernel`` launches,
+    exactly, by its wrapper's counter: an eager call's (held to
+    ``expect``), and the kernels recorded into the graphs by
+    ``capture()`` (its eager warm-up launches them and its capture
+    records them, one call of ``expect / calls`` each: each replay then
+    runs those nodes once); the captured call's replays (one per graph
+    for each of its ``calls`` contractor calls) and Python step calls
+    (none); then warm seconds in turns, each pass ending in ``pull``.
+    One profiled call on each side gives the device busy ms, the wall ms
+    of that same call, the idle share 1 - busy / wall (the profiler
+    slows the host, so that wall exceeds the unprofiled passes') and
+    ``kernel``'s count among the device records: it must see the kernel
+    run inside the replays, and no more often than the plan says, but
+    it now and then loses a block of records in a window of ~8k
+    (``scratch/profiler_counts.py``), so it is not the exact count.
+    Returns the captured side's numbers."""
+    counter = _kernel_counters()[kernel.removesuffix("_kernel")]
+    _fresh_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = counter.launches
+    pull(eager())
+    eager_launches = counter.launches - before
+    eager_gib = torch.cuda.max_memory_allocated() / 2**30
+    eager_busy, eager_wall, kernels = _profiled(eager)
+    eager_seen = sum(n for k, n in kernels.items() if kernel in k)
+    eager_records = sum(kernels.values())
+
+    _fresh_cache()
+    r0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    before = counter.launches
+    n_graphs = capture()
+    recorded = counter.launches - before
+    capture_s = time.perf_counter() - t0
+    _fresh_cache()
+    pool_gib = (torch.cuda.memory_reserved() - r0) / 2**30
+    replays, steps = _replays(fn), _python_step_calls()
+    before = counter.launches
+    pull(call())
+    replays = _replays(fn) - replays
+    busy, wall, kernels = _profiled(call)
+    steps = _python_step_calls() - steps
+    ticked = counter.launches - before
+    seen = sum(n for k, n in kernels.items() if kernel in k)
+    records = sum(kernels.values())
+    if replays != calls * n_graphs or steps or ticked:
+        raise AssertionError(
+            f"{label}: {replays} replays a call for {n_graphs} graphs, "
+            f"{steps} Python step calls and {ticked} wrapper launches in "
+            "replays"
+        )
+    launches = recorded // 2 * calls
+    if (eager_launches != expect or recorded != 2 * expect // calls
+            or launches != expect):
+        raise AssertionError(
+            f"{label}: {kernel} launches {eager_launches} eager, "
+            f"{recorded} in the warm-up and capture of one call "
+            f"({calls} a replayed set); the plan gives {expect}"
+        )
+    if not (0 < seen <= expect and 0 < eager_seen <= expect):
+        raise AssertionError(
+            f"{label}: the profiler saw {kernel} {seen} times in a "
+            f"replayed call, {eager_seen} eager; the plan gives {expect}"
+        )
+    _fresh_cache()
+    times = _in_turns(label, {"captured": call, "eager": eager}, pull,
+                      passes)
+    walls = {k: float(np.median(ts)) for k, ts in times.items()}
+    busy_of = {"captured": busy, "eager": eager_busy}
+    profiled_of = {"captured": wall, "eager": eager_wall}
+    print(
+        f"# staged {label}: graphs {n_graphs} (replays a call {replays}, "
+        f"Python step calls in replays {steps}), capture_s "
+        f"{capture_s:.3f} (graphs' own {_capture_s(fn):.3f}), {kernel} "
+        f"launches in a replayed call {launches} (recorded into the "
+        f"graphs; eager {eager_launches}, plan {expect}; the profiler "
+        f"saw {seen} among {records} device records, eager {eager_seen} "
+        f"among {eager_records}); warm_s "
+        + "; ".join(
+            f"{k} {' '.join(f'{t:.4f}' for t in ts)} (best {min(ts):.4f}, "
+            f"median {walls[k]:.4f}; profiled call: busy {busy_of[k]:.1f} "
+            f"ms, wall {profiled_of[k]:.1f} ms, idle share "
+            f"{1 - busy_of[k] / profiled_of[k]:.3f})"
+            for k, ts in times.items()
+        )
+        + "; captured / eager best "
+        f"{min(times['captured']) / min(times['eager']):.3f}"
+        f"; peak: eager {eager_gib:.2f} GiB allocated, captured graphs and "
+        f"buffers {pool_gib:.2f} GiB reserved",
+        flush=True,
+    )
+    return {"launches": launches, "graphs": n_graphs, "capture_s": capture_s,
+            "wall_s": min(times["captured"]), "busy_ms": busy,
+            "profiled_wall_ms": wall, "profiled_launches": seen,
+            "pool_gib": pool_gib}
+def _sum_amp(res):
+    """The amplitude summed over a batch's per-slice planes."""
+    out = res.sum(0)
+    return complex(out[0].item(), out[1].item())
+
+
+def phase_staged_t27(dev):
+    """m10-t27 through the staged contractor (captured CUDA graphs), 4
+    slices a call under "vmap" and "scan", against the eager contractor
+    in the same mode; relerr against the sidecar."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.ops.grouped import make_grouped_staged_contractor
+
+    _fresh_cache()
+    tree, arrays, refs = _load_instance(T27)
+    n = tree.multiplicity
+    planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    ids = list(range(n))
+    out = {}
+    for mode in ("vmap", "scan"):
+        fn = make_grouped_staged_contractor(
+            tree, stage_size=STAGE_SIZE, device=dev, slice_batch=n,
+            slice_batch_mode=mode,
+        )
+        eager = ctt.make_grouped_contractor(
+            tree, dev, torch.float32, slice_batch=n, slice_batch_mode=mode
+        )
+        label = f"{T27} {mode} ({n} slices a call, stage_size {STAGE_SIZE})"
+        out[mode] = _captured_against_eager(
+            label, fn, lambda: fn.precompile(planes, ids),
+            lambda: fn(planes, ids), lambda: eager(planes, ids), _sum_amp,
+            "gate_chain_kernel", _batched_chain_passes(fn, n),
+            STAGED_PASSES,
+        )
+        amp = _sum_amp(fn(planes, ids))
+        relerr = abs(amp - refs[n]) / abs(refs[n])
+        print(f"# staged {label}: amplitude {amp.real:.12e}"
+              f"{amp.imag:+.12e}j relerr {relerr:.3e}", flush=True)
+        if not relerr <= AMP_RTOL:
+            raise AssertionError(
+                f"staged {label}: relerr {relerr:.3e} > {AMP_RTOL}"
+            )
+        del fn, eager
+        _fresh_cache()
+    return out
+
+
+def phase_staged_m20(dev):
+    """m20-t28 slices 0..15 through the staged contractor in "scan", 4
+    slices a call: the same graphs replayed on ids 0..3, 4..7, 8..11 and
+    12..15, the partial sums at 4, 8 and 16 slices held to the sidecar
+    (a slice baked into a graph at capture would repeat); against the
+    eager contractor in calls of the same ids."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.ops.grouped import make_grouped_staged_contractor
+
+    _fresh_cache()
+    tree, arrays, refs = _load_instance(M20)
+    planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    B = M20_STAGED_BATCH
+    batches = [list(range(k, k + B)) for k in range(0, M20_SLICES, B)]
+    fn = make_grouped_staged_contractor(
+        tree, stage_size=STAGE_SIZE, device=dev, slice_batch=B,
+        slice_batch_mode="scan",
+    )
+    eager = ctt.make_grouped_contractor(
+        tree, dev, torch.float32, slice_batch=B, slice_batch_mode="scan"
+    )
+
+    def staged():
+        return torch.cat([fn(planes, ids) for ids in batches])
+
+    def eager_calls():
+        return torch.cat([eager(planes, ids) for ids in batches])
+
+    label = (f"{M20} scan (slices 0..{M20_SLICES - 1} in calls of {B}, "
+             f"stage_size {STAGE_SIZE})")
+    res = _captured_against_eager(
+        label, fn, lambda: fn.precompile(planes, batches[0]), staged,
+        eager_calls, _sum_amp, "gate_chain_kernel",
+        _batched_chain_passes(fn, M20_SLICES, B), 3, calls=len(batches),
+    )
+    partial = staged().cpu().double().cumsum(0)
+    errs = {}
+    for k, ref in sorted(refs.items()):
+        amp = complex(partial[k - 1, 0].item(), partial[k - 1, 1].item())
+        errs[k] = abs(amp - ref) / abs(ref)
+        if not errs[k] <= AMP_RTOL:
+            raise AssertionError(
+                f"staged {label}: first {k} slices {amp} vs {ref}: relerr "
+                f"{errs[k]:.3e} > {AMP_RTOL}"
+            )
+    print(f"# staged {label}: partial amplitudes "
+          + " ".join(f"[{k}] relerr {e:.3e}" for k, e in sorted(errs.items())),
+          flush=True)
+    del fn, eager
+    _fresh_cache()
+    return res
+
+
+def phase_staged_lattice(dev):
+    """The stripped 7x7 lattice through ``make_full_contractor(...,
+    autojit=True, implementation="pallas")``: the 16 slices and their
+    stripped sum as one CUDA graph, against the eager contractor."""
+    import cotengra_tpu_torch as ctt
+
+    _fresh_cache()
+    tree, arrays, ref = _load_lattice()
+    tensors = ctt.to_tensors(arrays, dev, torch.float32)
+    fn = ctt.make_full_contractor(
+        tree, dev, strip_exponent=True, implementation="pallas",
+        autojit=True,
+    )
+    eager = ctt.make_full_contractor(
+        tree, dev, strip_exponent=True, implementation="pallas"
+    )
+
+    def capture():
+        fn(*tensors)
+        return 1
+
+    label = f"{LATTICE} autojit ({tree.multiplicity} slices, one graph)"
+    res = _captured_against_eager(
+        label, fn, capture, lambda: fn(*tensors), lambda: eager(*tensors),
+        _stripped_log10, "bmm_absmax_kernel",
+        sum(_lattice_kernel_shapes(tree).values()) * tree.multiplicity, 3,
+    )
+    log10 = _stripped_log10(fn(*tensors))
+    d_log10 = abs(log10 - ref["log10"])
+    print(f"# staged {label}: log10 {log10:.7f} (reference "
+          f"{ref['log10']:.7f}) |delta log10| {d_log10:.3e}", flush=True)
+    if not (np.isfinite(log10) and d_log10 <= LOG10_ATOL):
+        raise AssertionError(
+            f"staged {label}: |delta log10| {d_log10:.3e} > {LOG10_ATOL}"
+        )
+    del fn, eager
+    _fresh_cache()
+    return res
+
+
+def phase_staged_one_graph(dev):
+    """m10-t27 under "vmap" (4 slices a call): stages of ``STAGE_SIZE``
+    steps against the whole plan as one graph, in turns."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.ops.grouped import make_grouped_staged_contractor
+
+    _fresh_cache()
+    tree, arrays, refs = _load_instance(T27)
+    n = tree.multiplicity
+    planes = ctt.to_plane_tensors(arrays, dev, torch.float32)
+    ids = list(range(n))
+    fns, graphs = {}, {}
+    for label, size in (("stage_size 12", STAGE_SIZE), ("one graph", None)):
+        fn = make_grouped_staged_contractor(
+            tree, stage_size=size or 10**9, device=dev, slice_batch=n,
+            slice_batch_mode="vmap",
+        )
+        graphs[label] = fn.precompile(planes, ids)
+        fns[label] = fn
+    if graphs["one graph"] != 1:
+        raise AssertionError(f"one graph: {graphs['one graph']} graphs")
+    times = _in_turns(
+        f"staged {T27} vmap", {k: (lambda f=f: f(planes, ids))
+                               for k, f in fns.items()},
+        _sum_amp, STAGED_PASSES,
+    )
+    amp = _sum_amp(fns["one graph"](planes, ids))
+    relerr = abs(amp - refs[n]) / abs(refs[n])
+    if not relerr <= AMP_RTOL:
+        raise AssertionError(f"one graph: relerr {relerr:.3e} > {AMP_RTOL}")
+    print(
+        f"# staged {T27} vmap: "
+        + "; ".join(
+            f"{k} ({graphs[k]} graphs) {' '.join(f'{t:.4f}' for t in ts)} "
+            f"(best {min(ts):.4f})" for k, ts in times.items()
+        )
+        + f"; one graph relerr {relerr:.3e}",
+        flush=True,
+    )
+    del fns
+    _fresh_cache()
+
+
 def _kernel_class(name):
     if "gate_chain_kernel" in name:
         return "gate-chain kernel"
@@ -4303,6 +4673,10 @@ def main():
     phase_window_m20(dev)
     phase_engine_model(window_s, fused_s)
     phase_plots({T27: t27_tree, M20: m20_tree})
+    staged_t27 = phase_staged_t27(dev)
+    staged_m20 = phase_staged_m20(dev)
+    staged_lattice = phase_staged_lattice(dev)
+    phase_staged_one_graph(dev)
     kernels = [
         {
             # per slice: the 13 chains of one m10-t27 slice
@@ -4363,6 +4737,12 @@ def main():
             # (one scan call of 4 slices: 13 a slice, as unfused)
             "window_t27_chain_launches": window_launches,
             "fused_t27_launches": fused_launches,
+            # inside replayed CUDA graphs (the staged contractor; the
+            # profiler's count of one call): t27 4 slices a call under
+            # vmap and scan, m20 slices 0..15 in calls of 4 under scan
+            "captured_t27_vmap_launches": staged_t27["vmap"]["launches"],
+            "captured_t27_scan_launches": staged_t27["scan"]["launches"],
+            "captured_m20_scan_launches": staged_m20["launches"],
         },
         {
             # per slice: one slice's kernel steps, summed over the plan's
@@ -4391,6 +4771,9 @@ def main():
             "folded_later_launches": folded_later,
             # the 7x7 with one complex input: its real x real steps
             "mixed_lattice_launches": mixed_lattice,
+            # the lattice's 16 slices as one CUDA graph (autojit),
+            # counted by the profiler in one replayed call
+            "captured_lattice_launches": staged_lattice["launches"],
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

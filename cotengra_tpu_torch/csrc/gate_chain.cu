@@ -70,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #define MAX_PASS_GATES 8
 #define MAX_BATCH_DIMS 24
 #define MAX_GATE_COMBOS 512
@@ -428,6 +430,63 @@ static bool in_table(int64_t pos, int64_t len, int64_t table_len) {
   return pos >= 0 && len >= 0 && pos + len <= table_len;
 }
 
+// What a launch asks of the runtime, asked once per device and kept:
+// the kernel's dynamic shared memory limit (raised to the most any
+// launch has needed), the SM count, and the resident blocks per SM of
+// each (threads, shared memory) seen. None of these is stream work, and
+// a CUDA graph capture in the global mode may refuse such calls; every
+// capture follows an eager warm-up of the same launches, which fills
+// this cache, so a captured launch makes none of them.
+namespace {
+constexpr int MAX_DEVICES = 64;
+constexpr int OCC_SLOTS = 256;
+struct Occupancy {
+  int dev, threads;
+  int64_t smem;
+  int per_sm;
+};
+std::mutex config_mutex;
+int64_t smem_set[MAX_DEVICES];
+int sm_count[MAX_DEVICES];
+Occupancy occupancy[OCC_SLOTS];
+int n_occupancy = 0;
+
+cudaError_t launch_config(int threads, int64_t smem, int* per_sm,
+                          int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(config_mutex);
+  if (smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(gate_chain_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = smem;
+  }
+  if (sm_count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sm_count[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = sm_count[dev];
+  for (int i = 0; i < n_occupancy; ++i) {
+    const Occupancy& o = occupancy[i];
+    if (o.dev == dev && o.threads == threads && o.smem == smem) {
+      *per_sm = o.per_sm;
+      return cudaSuccess;
+    }
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, gate_chain_kernel, threads, (size_t)smem);
+  if (err != cudaSuccess) return err;
+  if (n_occupancy < OCC_SLOTS)
+    occupancy[n_occupancy++] = Occupancy{dev, threads, smem, *per_sm};
+  return cudaSuccess;
+}
+}  // namespace
+
 // meta (host memory, int64), as ops/gate_chains.py::_pass_kernel_args
 // writes it: a header (gates, batch tile, ring stages, batch runs,
 // largest intermediate tile, batch count, x and out elements per plane,
@@ -541,19 +600,10 @@ extern "C" int ctg_gate_chain_f32(const float* x, float* out,
   // two blocks of 256 threads share an SM where shared memory allows,
   // else one of 512 (the registers of an SM hold 512 threads either way)
   const int threads = 2 * smem <= SMEM_LIMIT ? MAX_THREADS / 2 : MAX_THREADS;
-  cudaError_t err = cudaFuncSetAttribute(
-      gate_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, gate_chain_kernel, threads, (size_t)smem);
+  int per_sm = 0, sms = 0;
+  cudaError_t err = launch_config(threads, smem, &per_sm, &sms);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return bad;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
   // the resident blocks shared out over the slices, each slice's
   // blocks walking its tiles; rounded down, so that no block waits for
   // a second wave (16 slices of 17 blocks on 264 resident ones took 1.7x

@@ -226,7 +226,7 @@ class Expression:
     """A reusable contraction expression: ``expr(*arrays, **opts)`` runs
     ``tree.contract`` with the expression's options (``device``,
     ``plane_dtype``, ``strip_exponent``, ``implementation``,
-    ``slice_batch``) updated by ``opts``. The tree keeps the contractor
+    ``slice_batch``, ``autojit``) updated by ``opts``. The tree keeps the contractor
     it plans, so every call after the first reuses it. Stripped results
     come back as ``(mantissa, exponent)`` pairs.
 
@@ -236,7 +236,9 @@ class Expression:
     once and the steps that only they reach, and no sliced index, run
     once, at the first call; later calls run only the other steps
     (``ops.executor.make_full_contractor(constants=...)``), as the
-    reference's jit folds them.
+    reference's jit folds them. ``autojit=True`` captures each call as
+    one CUDA graph on the card, the folded steps' results read by it, as
+    the reference jits its folded expression.
     """
 
     __slots__ = ("tree", "_kwargs", "_constants", "_folded", "__weakref__")
@@ -254,12 +256,13 @@ class Expression:
 
     def _folded_contractor(self, device=None, plane_dtype=None,
                            strip_exponent=False, implementation=None,
-                           slice_batch=None):
+                           slice_batch=None, autojit=False):
         """The contractor closing over the constants, made once per
         device, plane dtype and options; returns it and its device."""
         dev = resolve_device(device)
         implementation, slice_batch = _defaults(implementation, slice_batch)
-        key = (dev, plane_dtype, strip_exponent, implementation, slice_batch)
+        key = (dev, plane_dtype, strip_exponent, implementation, slice_batch,
+               autojit)
         fn = self._folded.get(key)
         if fn is None:
             tensors = to_tensors(
@@ -270,6 +273,7 @@ class Expression:
                 slice_batch=slice_batch, implementation=implementation,
                 plane_dtype=plane_dtype,
                 constants=dict(zip(self._constants, tensors)),
+                autojit=autojit,
             )
         return fn, dev
 

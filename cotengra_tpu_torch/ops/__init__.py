@@ -10,9 +10,10 @@ from .executor import (
     gen_output_chunks,
     make_contractor,
     make_full_contractor,
+    make_staged_contractor,
     slice_arrays,
 )
-from .grouped import make_grouped_contractor
+from .grouped import make_grouped_contractor, make_grouped_staged_contractor
 from .lowering import ContractionIR, extract_contractions
 from .pairwise import (
     apply_pairwise,
@@ -36,6 +37,8 @@ __all__ = [
     "make_contractor",
     "make_full_contractor",
     "make_grouped_contractor",
+    "make_grouped_staged_contractor",
+    "make_staged_contractor",
     "pairwise_einsum",
     "slice_arrays",
     "tensordot",

@@ -35,13 +35,21 @@ The counterpart of ``cotengra_tpu/ops/executor.py``:
    ``implementation``, ``slice_batch``), so that repeated calls, and the
    front end's expressions (``interface.py``), plan once.
 
-What the reference had for jit and the TPU compiler has no counterpart:
-``make_traced_slicer`` (slices are selected on the host as views,
-``slice_arrays`` and ``slices._select_input``),
-``make_staged_contractor`` (staging bounded compile cost; eager torch
-compiles nothing), and the ``autojit``, ``precision`` and
-``preferred_element_type`` arguments (the port runs true float32
-everywhere, ``_device.full_fp32_matmuls``).
+5. ``autojit=True`` (``make_contractor``, ``make_full_contractor``,
+   ``contract_tree``) captures the whole call as one CUDA graph on the
+   card (``capture.capture_call``), the counterpart of the reference's
+   ``jax.jit``: after the first call, a call copies its inputs into
+   static buffers and replays the graph, with no Python step. The
+   slices of a full contraction are fixed, so they are selected in the
+   graph as at the first call. ``make_staged_contractor`` splits the
+   direct route into ``num_stages`` graphs, and ``make_traced_slicer``
+   (``slices.py``) selects a slice by a 0-d id on the device. The
+   default stays ``autojit=False`` (eager) for the first three, where
+   the reference defaults to jit; the staged contractors default to
+   ``autojit=True``. On the CPU ``autojit`` runs eagerly. The
+   reference's ``precision`` and ``preferred_element_type`` arguments
+   have no counterpart: the port runs true float32 everywhere
+   (``_device.full_fp32_matmuls``).
 """
 
 import time
@@ -54,10 +62,17 @@ from ..config import get_default
 from ..convert import to_tensors
 from ..utils.misc import prod
 from .bmm_absmax import _bmm_layout, pairwise_bmm_absmax
+from .capture import (
+    STEP_CALLS,
+    capture_call,
+    note_step,
+    run_stages,
+    stage_carries,
+)
 from .grouped import _to_planes, make_grouped_contractor
 from .lowering import SingleStep, extract_contractions
 from .pairwise import apply_pairwise, apply_single
-from .slices import SliceBatch, slice_arrays
+from .slices import SliceBatch, make_traced_slicer, slice_arrays
 
 IMPLEMENTATIONS = (None, "auto", "grouped", "pallas")
 
@@ -100,41 +115,57 @@ def _run_ir_steps(ir, steps, temps, last_use, strip_exponent=False,
                   implementation=None):
     """Run the IR steps ``steps`` (indices, in order) over ``temps`` (id
     -> tensor, freed after its last use). Returns the summed log10
-    exponent of the stripped steps (None if nothing was stripped)."""
+    exponent of the stripped steps (None if nothing was stripped).
+    ``capture.STEP_CALLS`` counts the calls: a replay of captured
+    graphs makes none."""
+    STEP_CALLS["_run_ir_steps"] += 1
     use_pallas = strip_exponent and implementation == "pallas"
     exponent = None
     for si in steps:
-        step = ir.steps[si]
-        if isinstance(step, SingleStep):
-            out = apply_single(temps[step.inp], step.in_legs, step.out_legs)
-            if last_use.get(step.inp) == si:
-                del temps[step.inp]
-        else:
-            x, y = temps[step.l], temps[step.r]
-            if use_pallas and _pallas_step_ok(x, y, step):
-                out, absmax = pairwise_bmm_absmax(
-                    x, y, step.l_legs, step.r_legs, step.out_legs
-                )
-                scale = torch.where(
-                    absmax == 0, torch.ones_like(absmax), absmax
-                ).to(_real_dtype(out.dtype))
-                out = out / scale
-                e = torch.log10(scale)
-            else:
-                out = apply_pairwise(
-                    x, y, step.l_legs, step.r_legs, step.out_legs
-                )
-                if strip_exponent:
-                    out, e = _strip(out)
-            if strip_exponent:
-                exponent = e if exponent is None else exponent + e
-            del x, y  # operands die at their last use below
-            if last_use.get(step.l) == si:
-                del temps[step.l]
-            if last_use.get(step.r) == si:
-                del temps[step.r]
-        temps[step.out] = out
+        try:
+            out, e = _run_ir_step(ir, si, temps, last_use, strip_exponent,
+                                  use_pallas)
+        except Exception as err:
+            note_step(err, f"IR step {si}")
+            raise
+        if e is not None:
+            exponent = e if exponent is None else exponent + e
+        temps[ir.steps[si].out] = out
     return exponent
+
+
+def _run_ir_step(ir, si, temps, last_use, strip_exponent, use_pallas):
+    """One IR step over ``temps``: ``(out, log10 exponent or None)``,
+    its operands freed at their last use."""
+    e = None
+    step = ir.steps[si]
+    if isinstance(step, SingleStep):
+        out = apply_single(temps[step.inp], step.in_legs, step.out_legs)
+        if last_use.get(step.inp) == si:
+            del temps[step.inp]
+    else:
+        x, y = temps[step.l], temps[step.r]
+        if use_pallas and _pallas_step_ok(x, y, step):
+            out, absmax = pairwise_bmm_absmax(
+                x, y, step.l_legs, step.r_legs, step.out_legs
+            )
+            scale = torch.where(
+                absmax == 0, torch.ones_like(absmax), absmax
+            ).to(_real_dtype(out.dtype))
+            out = out / scale
+            e = torch.log10(scale)
+        else:
+            out = apply_pairwise(
+                x, y, step.l_legs, step.r_legs, step.out_legs
+            )
+            if strip_exponent:
+                out, e = _strip(out)
+        del x, y  # operands die at their last use below
+        if last_use.get(step.l) == si:
+            del temps[step.l]
+        if last_use.get(step.r) == si:
+            del temps[step.r]
+    return out, e
 
 
 def _zero_exponent(result):
@@ -346,15 +377,23 @@ def _user_result(res, any_complex):
     return torch.complex(res[0], res[1]) if any_complex else res[0]
 
 
+def _autojit(fn, dev):
+    """``fn(*tensors)`` as one CUDA graph a call on a CUDA ``dev``
+    (``capture.capture_call``); eager elsewhere."""
+    return capture_call([lambda tensors: fn(*tensors)], dev)
+
+
 def make_contractor(
     tree, device="cuda", strip_exponent=False, implementation=None,
-    plane_dtype=torch.float32,
+    plane_dtype=torch.float32, autojit=False,
 ):
     """The *core* (single slice) contraction of ``tree`` on ``device``:
     ``fn(*tensors)`` on one slice's inputs (real or complex tensors on
     ``device``), returning the result, or ``(mantissa, exponent)`` with
     ``strip_exponent``. On the grouped route the inputs are split into
-    ``plane_dtype`` planes on the device and the result joined again."""
+    ``plane_dtype`` planes on the device and the result joined again.
+    ``autojit=True`` captures the call as one CUDA graph on the card
+    (``capture.capture_call``; eager on the CPU)."""
     dev = resolve_device(device)
     pdt = resolve_plane_dtype(plane_dtype)
     ir = extract_contractions(tree)
@@ -362,12 +401,68 @@ def make_contractor(
         tree, ir, dev, strip_exponent, implementation, pdt
     )
     if not plane_io:
-        return core
+        return _autojit(core, dev) if autojit else core
 
     def fn(*arrays):
         res = core(*(_to_planes(a, pdt) for a in arrays))
         return _user_result(res, any(a.is_complex() for a in arrays))
 
+    return _autojit(fn, dev) if autojit else fn
+
+
+def make_staged_contractor(tree, num_stages=2, strip_exponent=False,
+                           autojit=True, device="cuda"):
+    """The core (single slice) contraction of ``tree`` on the direct
+    route as ``num_stages`` stages of about equal step counts (the
+    reference's ``make_staged_contractor``,
+    ``cotengra_tpu/ops/executor.py:452``): ``fn(*tensors)`` as
+    ``make_contractor``'s. The ids live across each boundary are handed
+    on, as the reference's; ``fn.bounds`` and ``fn.carries`` hold them.
+    With ``autojit`` each stage is a CUDA graph on the card, all in one
+    memory pool (``capture.capture_call``); on the CPU the stages run
+    eagerly. ``num_stages <= 1`` (or no step) is ``make_contractor``."""
+    dev = resolve_device(device)
+    ir = extract_contractions(tree)
+    n = len(ir.steps)
+    if n == 0 or num_stages <= 1:
+        return make_contractor(tree, dev, strip_exponent=strip_exponent,
+                               autojit=autojit)
+    num_stages = min(num_stages, n)
+    bounds = [n * i // num_stages for i in range(num_stages + 1)]
+    carries = stage_carries(list(_ir_step_io(ir)), ir.last_use,
+                            ir.final_id, ir.num_inputs, bounds)
+
+    def make_stage(s):
+        keep, last = carries[s + 1], s == num_stages - 1
+
+        def stage(state):
+            if s == 0:
+                state = (dict(enumerate(state)), None)
+            temps, exponent = state
+            e = _run_ir_steps(ir, range(bounds[s], bounds[s + 1]), temps,
+                              ir.last_use, strip_exponent)
+            if e is not None:
+                exponent = e if exponent is None else exponent + e
+            temps = {vid: temps[vid] for vid in keep}
+            if not last:
+                return temps, exponent
+            result = temps[ir.final_id]
+            if not strip_exponent:
+                return result
+            if exponent is None:
+                exponent = _zero_exponent(result)
+            return result, exponent
+
+        return stage
+
+    stages = [make_stage(s) for s in range(num_stages)]
+    if autojit:
+        fn = capture_call(stages, dev)
+    else:
+        def fn(*tensors):
+            return run_stages(stages, tensors)
+
+    fn.stages, fn.bounds, fn.carries = stages, bounds, carries
     return fn
 
 
@@ -385,6 +480,7 @@ def _sum_batch(res):
 def make_full_contractor(
     tree, device="cuda", strip_exponent=False, slice_batch=None,
     implementation=None, plane_dtype=torch.float32, constants=None,
+    autojit=False,
 ):
     """The FULL contraction of ``tree`` on ``device``: ``fn(*tensors)``
     on the raw (unsliced) inputs, summing inner slices in a host loop and
@@ -408,6 +504,11 @@ def make_full_contractor(
     one slice per batch unless ``slice_batch`` says otherwise. A batched
     ``fn`` has the core's step split as ``fn.batch``
     (``slices.SliceBatch``).
+
+    ``autojit=True`` captures the whole call, every slice and the sums,
+    as one CUDA graph on the card (``capture.capture_call``; the folded
+    steps run eagerly first): later calls copy their inputs into its
+    static buffers and replay it. On the CPU it runs eagerly.
     """
     dev = resolve_device(device)
     pdt = resolve_plane_dtype(plane_dtype)
@@ -430,6 +531,9 @@ def make_full_contractor(
                 i: _to_planes(a, pdt) for i, a in constants.items()
             }
     folded = None  # the folded steps' results, made at the first call
+    # the grouped core's digits of each batch, on the device from the
+    # first call on (before a capture: a graph reads them at replay)
+    digits = {}
 
     def fn(*arrays):
         nonlocal folded
@@ -447,12 +551,17 @@ def make_full_contractor(
         if slice_batch is None and not tree.sliced_inds:
             return finish(core(*inputs))
         if slice_batch:
+            def batch(ids):
+                if not plane_io:
+                    return core(inputs, ids, folded)
+                if ids.start not in digits:
+                    digits[ids.start] = core.digits(ids)
+                return core(inputs, ids, folded, digits[ids.start])
+
             def chunk(c):
                 ids = range(c * n_inner, (c + 1) * n_inner)
                 return _sum_slices(
-                    lambda k: _sum_batch(
-                        core(inputs, ids[k:k + slice_batch], folded)
-                    ),
+                    lambda k: _sum_batch(batch(ids[k:k + slice_batch])),
                     range(0, n_inner, slice_batch),
                 )
         else:
@@ -471,9 +580,10 @@ def make_full_contractor(
             return results[0]
         return _stack_chunks(tree, results, ir.output_legs)
 
+    full = _autojit(fn, dev) if autojit else fn
     if slice_batch:
-        fn.batch = core.batch
-    return fn
+        full.batch = core.batch
+    return full
 
 
 def _splice(constants, variables, n):
@@ -515,15 +625,16 @@ def _cached_core(tree, device="cuda", strip_exponent=False,
 
 def _cached_full(tree, device="cuda", strip_exponent=False,
                  slice_batch=None, implementation=None,
-                 plane_dtype=torch.float32):
+                 plane_dtype=torch.float32, autojit=False):
     """``make_full_contractor``, cached on the tree (the reference's
     ``_cached_full``)."""
     dev = resolve_device(device)
     key = ("torch", "full", dev, plane_dtype, strip_exponent,
-           implementation, slice_batch)
+           implementation, slice_batch, autojit)
     return _cached(tree, key, lambda: make_full_contractor(
         tree, dev, strip_exponent=strip_exponent, slice_batch=slice_batch,
         implementation=implementation, plane_dtype=plane_dtype,
+        autojit=autojit,
     ))
 
 
@@ -558,6 +669,7 @@ def _defaults(implementation, slice_batch):
 def contract_tree(
     tree, arrays, device="cuda", plane_dtype=torch.float32,
     strip_exponent=False, implementation=None, slice_batch=None,
+    autojit=False,
 ):
     """Contract ``tree`` over all its slices on ``device``.
 
@@ -568,13 +680,16 @@ def contract_tree(
     route. Returns the result on ``device``, or ``(mantissa, log10
     exponent)`` with ``strip_exponent``. Unset ``implementation`` and
     ``slice_batch`` take ``cotengra_tpu_torch.config``'s defaults. The
-    contractor is planned once per tree and options (``_cached_full``).
+    contractor is planned once per tree and options (``_cached_full``);
+    ``autojit=True`` captures it as one CUDA graph on the card
+    (``make_full_contractor``).
     """
     implementation, slice_batch = _defaults(implementation, slice_batch)
     dev = resolve_device(device)
     fn = _cached_full(
         tree, dev, strip_exponent=strip_exponent, slice_batch=slice_batch,
         implementation=implementation, plane_dtype=plane_dtype,
+        autojit=autojit,
     )
     return fn(*to_tensors(arrays, dev, plane_dtype))
 

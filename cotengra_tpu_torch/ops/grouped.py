@@ -11,20 +11,36 @@ CUDA TensorIterator takes; a block transpose that still keeps more than
 
 What the reference carries only for the TPU and its compiler is gone:
 the (8, 128) tile splitting of block transposes, the one-hot matmul
-transposes, the multipass transposes, optimisation barriers and staged
-jit. Each is named where its replacement stands.
+transposes, the multipass transposes and optimisation barriers. Each is
+named where its replacement stands. Its staged jit has a counterpart:
+``make_grouped_staged_contractor`` captures the plan's stages as CUDA
+graphs (``capture.py``).
 """
 
 import torch
 
 from .._device import resolve_device, resolve_plane_dtype
 from ..utils.misc import prod
-from .gate_chains import run_chain
+from .capture import (
+    STEP_CALLS,
+    Graphs,
+    clone_outputs,
+    load,
+    note_step,
+    run_stages,
+    stage_carries,
+)
+from .gate_chains import _kernel_args, run_chain
 from .grouped_plan import plan_grouped
 from .lowering import extract_contractions, sliced_input_legs
 from .pairwise import apply_pairwise, apply_single
-from .slices import SliceBatch, _flat_ids
-from .windowed import build_w4, exec_window
+from .slices import (
+    SliceBatch,
+    _add_exponents,
+    _ids_to_digits,
+    device_digits,
+)
+from .windowed import build_w4, exec_window, expand_index
 
 # leg labels reserved for the plane axis and a batch's slice axis in
 # the einsum steps
@@ -386,7 +402,9 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
     numel)``, one row per slice; the others hold ``(2 * numel,)`` and
     are shared by every slice. A step with a batched operand gives a
     batched result, and its strip is per slice: the exponent is then a
-    ``(S,)`` vector."""
+    ``(S,)`` vector. ``capture.STEP_CALLS`` counts the calls: a replay
+    of captured graphs makes none."""
+    STEP_CALLS["_exec_steps_split"] += 1
     exponent = None
 
     def store(out_id, flat, shape, si, srcs):
@@ -411,167 +429,180 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
         exponent = e if exponent is None else exponent + e
         return flat / scale
 
-    for si in steps:
-        kind, info = plans[si]
-        if kind == "single":
-            step = info
-            flat = temps[step.inp]
-            lead = (_SLICE,) * (flat.dim() - 1)
-            x2 = flat.view(
-                flat.shape[:-1] + (2,) + tuple(shapes[step.inp])
-            )
-            out = apply_single(
-                x2,
-                lead + (_PLANE,) + tuple(step.in_legs),
-                lead + (_PLANE,) + tuple(step.out_legs),
-            )
-            store(
-                step.out, out.reshape(flat.shape[:-1] + (-1,)),
-                out.shape[len(lead) + 1:], si, (step.inp,),
-            )
-            continue
-
-        if kind == "fallback":
-            step, x_id, y_id, x_order, y_order, x_dims, y_dims = info
-            xf, yf = temps[x_id], temps[y_id]
-            xc = _planes_to_complex(xf, x_dims)
-            yc = _planes_to_complex(yf, y_dims)
-            if xf.dim() == 1 and yf.dim() == 1:
-                out = apply_pairwise(xc, yc, x_order, y_order, step.out_legs)
-                flat = torch.cat(
-                    [out.real.reshape(-1), out.imag.reshape(-1)]
+    si = None
+    try:
+        for si in steps:
+            kind, info = plans[si]
+            if kind == "single":
+                step = info
+                flat = temps[step.inp]
+                lead = (_SLICE,) * (flat.dim() - 1)
+                x2 = flat.view(
+                    flat.shape[:-1] + (2,) + tuple(shapes[step.inp])
                 )
-                shape = out.shape
-            else:
-                # the slice leg: kept on the batched operands, a batch
-                # leg where both have it
-                lx, ly = (_SLICE,) * (xf.dim() - 1), (_SLICE,) * (yf.dim() - 1)
-                out = apply_pairwise(
-                    xc, yc, lx + tuple(x_order), ly + tuple(y_order),
-                    (_SLICE,) + tuple(step.out_legs),
+                out = apply_single(
+                    x2,
+                    lead + (_PLANE,) + tuple(step.in_legs),
+                    lead + (_PLANE,) + tuple(step.out_legs),
                 )
-                S = out.shape[0]
-                flat = torch.cat(
-                    [out.real.reshape(S, -1), out.imag.reshape(S, -1)], dim=1
+                store(
+                    step.out, out.reshape(flat.shape[:-1] + (-1,)),
+                    out.shape[len(lead) + 1:], si, (step.inp,),
                 )
-                shape = out.shape[1:]
-            if strip_exponent:
-                flat = strip(flat)
-            store(step.out, flat, shape, si, (x_id, y_id))
-            continue
+                continue
 
-        if kind == "w2build":
-            # a window step's operator, from its gates alone (see
-            # hoist_window_operators)
-            rec = info.rec
-            ys = []
-            for y_id, y_plan, K, N in rec.gates:
-                yf = _apply_block_plan_split(temps[y_id], y_plan)
-                ys.append(yf.view(yf.shape[:-1] + (2, K, N)))
-            w2 = build_w4(rec.recipe, ys, info.dtype, info.device)
-            store(info.w2_id, w2, (2 * rec.S_in * rec.S_out,), si,
-                  tuple(g[0] for g in rec.gates))
-            continue
+            if kind == "fallback":
+                step, x_id, y_id, x_order, y_order, x_dims, y_dims = info
+                xf, yf = temps[x_id], temps[y_id]
+                xc = _planes_to_complex(xf, x_dims)
+                yc = _planes_to_complex(yf, y_dims)
+                if xf.dim() == 1 and yf.dim() == 1:
+                    out = apply_pairwise(xc, yc, x_order, y_order,
+                                         step.out_legs)
+                    flat = torch.cat(
+                        [out.real.reshape(-1), out.imag.reshape(-1)]
+                    )
+                    shape = out.shape
+                else:
+                    # the slice leg: kept on the batched operands, a batch
+                    # leg where both have it
+                    lx = (_SLICE,) * (xf.dim() - 1)
+                    ly = (_SLICE,) * (yf.dim() - 1)
+                    out = apply_pairwise(
+                        xc, yc, lx + tuple(x_order), ly + tuple(y_order),
+                        (_SLICE,) + tuple(step.out_legs),
+                    )
+                    S = out.shape[0]
+                    flat = torch.cat(
+                        [out.real.reshape(S, -1), out.imag.reshape(S, -1)],
+                        dim=1,
+                    )
+                    shape = out.shape[1:]
+                if strip_exponent:
+                    flat = strip(flat)
+                store(step.out, flat, shape, si, (x_id, y_id))
+                continue
 
-        if kind == "window":
-            rec = info.rec
-            out = exec_window(rec, temps[rec.x_id], temps[info.w2_id])
-            # no strip, as in the reference: window chains are
-            # near-unitary and the surrounding pair steps strip
-            store(rec.out_id, out, rec.out_shape, si,
-                  (rec.x_id, info.w2_id))
-            continue
+            if kind == "w2build":
+                # a window step's operator, from its gates alone (see
+                # hoist_window_operators)
+                rec = info.rec
+                ys = []
+                for y_id, y_plan, K, N in rec.gates:
+                    yf = _apply_block_plan_split(temps[y_id], y_plan)
+                    ys.append(yf.view(yf.shape[:-1] + (2, K, N)))
+                # the index arrays already on the device, where
+                # prepare_device put them (CUDA and meta tensors)
+                on_device = {} if info.index is None else {"index": info.index}
+                w2 = build_w4(rec.recipe, ys, info.dtype, info.device,
+                              **on_device)
+                store(info.w2_id, w2, (2 * rec.S_in * rec.S_out,), si,
+                      tuple(g[0] for g in rec.gates))
+                continue
 
-        if kind == "fusedchain":
-            ch = info
-            xf = _apply_block_plan_split(temps[ch.x_id], ch.x_plan)
-            gk = None
-            for gid, gorder, c_legs, n_legs in ch.gates:
-                gf = temps[gid]
-                lead = (_SLICE,) * (gf.dim() - 1)
-                g2 = apply_single(
-                    _planes_to_complex(gf, shapes[gid]),
-                    lead + tuple(gorder),
-                    lead + tuple(c_legs) + tuple(n_legs),
+            if kind == "window":
+                rec = info.rec
+                out = exec_window(rec, temps[rec.x_id], temps[info.w2_id])
+                # no strip, as in the reference: window chains are
+                # near-unitary and the surrounding pair steps strip
+                store(rec.out_id, out, rec.out_shape, si,
+                      (rec.x_id, info.w2_id))
+                continue
+
+            if kind == "fusedchain":
+                ch = info
+                xf = _apply_block_plan_split(temps[ch.x_id], ch.x_plan)
+                gk = None
+                for gid, gorder, c_legs, n_legs in ch.gates:
+                    gf = temps[gid]
+                    lead = (_SLICE,) * (gf.dim() - 1)
+                    g2 = apply_single(
+                        _planes_to_complex(gf, shapes[gid]),
+                        lead + tuple(gorder),
+                        lead + tuple(c_legs) + tuple(n_legs),
+                    )
+                    dims = g2.shape[len(lead):]
+                    g2 = g2.reshape(g2.shape[:len(lead)] + (
+                        prod(dims[:len(c_legs)]), prod(dims[len(c_legs):])
+                    ))
+                    gk = g2 if gk is None else _kron(gk, g2)
+                # The reference rounds the kron product to float32 even
+                # under float64 planes (cotengra_tpu/ops/grouped.py:
+                # 1649-1650); here it keeps the planes' precision.
+                small_y = (
+                    _split_apply_small_y
+                    if xf.dim() == 1 and gk.dim() == 2
+                    else _split_apply_small_y_batched
                 )
-                dims = g2.shape[len(lead):]
-                g2 = g2.reshape(g2.shape[:len(lead)] + (
-                    prod(dims[:len(c_legs)]), prod(dims[len(c_legs):])
-                ))
-                gk = g2 if gk is None else _kron(gk, g2)
-            # The reference rounds the kron product to float32 even
-            # under float64 planes (cotengra_tpu/ops/grouped.py:
-            # 1649-1650); here it keeps the planes' precision.
-            small_y = (
-                _split_apply_small_y
-                if xf.dim() == 1 and gk.dim() == 2
-                else _split_apply_small_y_batched
-            )
-            out = small_y(xf, ch.x_layout, ch.M, ch.K, ch.N, gk.real,
-                          gk.imag)
-            if strip_exponent:
-                out = strip(out)
-            store(ch.out_id, out, (1, ch.N, ch.M), si,
-                  (ch.x_id, *(g[0] for g in ch.gates)))
-            continue
+                out = small_y(xf, ch.x_layout, ch.M, ch.K, ch.N, gk.real,
+                              gk.imag)
+                if strip_exponent:
+                    out = strip(out)
+                store(ch.out_id, out, (1, ch.N, ch.M), si,
+                      (ch.x_id, *(g[0] for g in ch.gates)))
+                continue
 
-        if kind == "inplace":
-            rec = info
-            ys = []
-            for y_id, y_plan, K, N in rec.ys:
-                yf = _apply_block_plan_split(temps[y_id], y_plan)
-                ys.append(yf.view(yf.shape[:-1] + (2, K, N)))
-            out = run_chain(rec.spec, temps[rec.x_id], ys)
-            # no strip, as in the reference: chains are near-unitary and
-            # the surrounding pair steps strip
-            store(
-                rec.out_id, out, rec.out_shape, si,
-                (rec.x_id, *(y[0] for y in rec.ys)),
-            )
-            continue
+            if kind == "inplace":
+                rec = info
+                ys = []
+                for y_id, y_plan, K, N in rec.ys:
+                    yf = _apply_block_plan_split(temps[y_id], y_plan)
+                    ys.append(yf.view(yf.shape[:-1] + (2, K, N)))
+                out = run_chain(rec.spec, temps[rec.x_id], ys)
+                # no strip, as in the reference: chains are near-unitary and
+                # the surrounding pair steps strip
+                store(
+                    rec.out_id, out, rec.out_shape, si,
+                    (rec.x_id, *(y[0] for y in rec.ys)),
+                )
+                continue
 
-        p = info
-        B, M, K, N = p.B, p.M, p.K, p.N
-        if p.scatter is not None:
-            xf = temps[p.x_id]
+            p = info
+            B, M, K, N = p.B, p.M, p.K, p.N
+            if p.scatter is not None:
+                xf = temps[p.x_id]
+                yf = _apply_block_plan_split(temps[p.y_id], p.y_plan)
+                scattered = (
+                    _split_pair_scattered
+                    if xf.dim() == 1 and yf.dim() == 1
+                    else _split_pair_scattered_batched
+                )
+                out = scattered(xf, yf, p, p.scatter[0], p.scatter[1])
+                if strip_exponent:
+                    out = strip(out)
+                store(p.out_id, out, (B, N, M), si, (p.x_id, p.y_id))
+                continue
+            xf = _apply_block_plan_split(temps[p.x_id], p.x_plan)
             yf = _apply_block_plan_split(temps[p.y_id], p.y_plan)
-            scattered = (
-                _split_pair_scattered
-                if xf.dim() == 1 and yf.dim() == 1
-                else _split_pair_scattered_batched
-            )
-            out = scattered(xf, yf, p, p.scatter[0], p.scatter[1])
+
+            if xf.dim() == 2 or yf.dim() == 2:
+                out = _pair_batched(p, xf, yf)
+            elif p.mode == "bmm":
+                x3 = xf.view(2, B, K, M)
+                y3 = yf.view(2, B, N, K)
+                rr = torch.bmm(y3[0], x3[0])
+                ii = torch.bmm(y3[1], x3[1])
+                ri = torch.bmm(y3[1], x3[0])
+                ir = torch.bmm(y3[0], x3[1])
+                out = torch.cat([(rr - ii).reshape(-1), (ri + ir).reshape(-1)])
+            else:
+                # y stored as (K, N) for mac/matvec, (N, K) for mm
+                if p.mode == "mm":
+                    y2 = yf.view(2, N, K)
+                    ykn_r, ykn_i = y2[0].T, y2[1].T
+                else:
+                    y2 = yf.view(2, K, N)
+                    ykn_r, ykn_i = y2[0], y2[1]
+                out = _split_apply_small_y(
+                    xf, p.x_layout, M, K, N, ykn_r, ykn_i
+                )
             if strip_exponent:
                 out = strip(out)
             store(p.out_id, out, (B, N, M), si, (p.x_id, p.y_id))
-            continue
-        xf = _apply_block_plan_split(temps[p.x_id], p.x_plan)
-        yf = _apply_block_plan_split(temps[p.y_id], p.y_plan)
-
-        if xf.dim() == 2 or yf.dim() == 2:
-            out = _pair_batched(p, xf, yf)
-        elif p.mode == "bmm":
-            x3 = xf.view(2, B, K, M)
-            y3 = yf.view(2, B, N, K)
-            rr = torch.bmm(y3[0], x3[0])
-            ii = torch.bmm(y3[1], x3[1])
-            ri = torch.bmm(y3[1], x3[0])
-            ir = torch.bmm(y3[0], x3[1])
-            out = torch.cat([(rr - ii).reshape(-1), (ri + ir).reshape(-1)])
-        else:
-            # y stored as (K, N) for mac/matvec, (N, K) for mm
-            if p.mode == "mm":
-                y2 = yf.view(2, N, K)
-                ykn_r, ykn_i = y2[0].T, y2[1].T
-            else:
-                y2 = yf.view(2, K, N)
-                ykn_r, ykn_i = y2[0], y2[1]
-            out = _split_apply_small_y(
-                xf, p.x_layout, M, K, N, ykn_r, ykn_i
-            )
-        if strip_exponent:
-            out = strip(out)
-        store(p.out_id, out, (B, N, M), si, (p.x_id, p.y_id))
+    except Exception as err:
+        # the plan step that raised: a refused capture names it
+        note_step(err, f"plan step {si} ({plans[si][0]})")
+        raise
     return exponent
 
 
@@ -598,9 +629,11 @@ def _step_io(plans):
 class _WindowOp:
     """A window step of an executor plan and the id of its operator,
     built by a ``"w2build"`` step of its own (``device`` and ``dtype``
-    place a rotation's operator, which reads no gate)."""
+    place a rotation's operator, which reads no gate; ``index`` holds
+    the build's index arrays on the device, once ``prepare_device``
+    has copied them there)."""
 
-    __slots__ = ("rec", "w2_id", "device", "dtype")
+    __slots__ = ("rec", "w2_id", "device", "dtype", "index")
 
 
 def hoist_window_operators(plans, final_id, num_inputs, device=None,
@@ -633,7 +666,7 @@ def hoist_window_operators(plans, final_id, num_inputs, device=None,
         if kind == "window":
             op = _WindowOp()
             op.rec, op.w2_id = info, next_id
-            op.device, op.dtype = device, dtype
+            op.device, op.dtype, op.index = device, dtype, None
             next_id += 1
             out.append(("w2build", op))
             out.append(("window", op))
@@ -752,6 +785,246 @@ def auto_slice_batch_mode(device, slice_batch, slice_bytes, raw_bytes,
     return "vmap"
 
 
+def prepare_device(plans, device):
+    """Copy what the plan's steps read from host tables to ``device``,
+    once, at plan time: the gate-chain kernel's index tables
+    (``gate_chains._kernel_args``, cached on each chain) and the window
+    builds' index arrays (``windowed.expand_index``). A CUDA graph
+    capture refuses copies from pageable host memory, so none may be
+    left for the first call. CPU steps read neither."""
+    if device.type == "cpu":
+        return
+    for kind, info in plans:
+        if kind == "inplace":
+            _kernel_args(info.spec, device)
+        elif kind == "w2build":
+            info.index = expand_index(info.rec.recipe, device)
+
+
+def stage_bounds(n_steps, stage_size):
+    """Stage bounds over ``n_steps`` plan steps: ``range(0, n,
+    stage_size)`` and ``n``, as the reference's (one stage for a plan
+    without steps)."""
+    if n_steps == 0:
+        return [0, 0]
+    return list(range(0, n_steps, max(1, stage_size))) + [n_steps]
+
+
+def _flat_copy(view):
+    # a selected view is strided: one explicit copy makes it the
+    # contiguous flat planes that the steps and the chain kernel take
+    return view.contiguous().view(-1)
+
+
+class _StagedProgram:
+    """A grouped contraction of ``tree``, planned once, as stages of plan
+    steps: functions from a state to the next, which ``capture.Graphs``
+    captures as one CUDA graph each and ``capture.run_stages`` runs
+    eagerly. ``make_grouped_contractor`` runs its plan as one stage,
+    ``make_grouped_staged_contractor`` as stages of ``stage_size`` steps.
+
+    The plan is ``plan_grouped``'s, window operators hoisted
+    (``hoist_window_operators``), with its tables on the device
+    (``prepare_device``). ``bounds`` and ``carries`` are the reference's
+    stage bounds and the ids each stage hands on (``stage_bounds``,
+    ``capture.stage_carries``).
+
+    The first stage takes ``(planes, digits, folded)``: the plane stacks
+    (raw under a batch), the ``(S, ncols)`` int64 slice digits on the
+    device (None without a batch) and the folded constants
+    (``SliceBatch.fold``'s ``(temps, exponent)``, or None). It selects
+    the slice-invariant inputs by their projected indices and gathers
+    each varying input for every slice by the device digits
+    (``SliceBatch.gather_each``: never a host int, so that a graph
+    replays whatever digits its buffer holds), and writes to none of
+    its arguments. Each stage runs the plan steps in its bounds and
+    keeps only the ids carried across its end; the folded ids stay
+    outside, read by every stage. Under ``"vmap"`` one dict holds every
+    id, a batch's rows where a sliced index reaches it; under ``"scan"``
+    the invariant ids live in one dict, run once, and each slice's in
+    its own, run slice after slice inside the stage (every slice's
+    varying inputs are gathered at the start). The last stage returns
+    the output planes, and the exponent under ``strip_exponent``."""
+
+    def __init__(self, tree, device, plane_dtype, gate_mode, fuse_gates,
+                 strip_exponent, slice_batch, slice_batch_mode, constants,
+                 stage_size=None):
+        if slice_batch_mode not in SLICE_BATCH_MODES:
+            raise ValueError(
+                f"slice_batch_mode must be one of {SLICE_BATCH_MODES}, got "
+                f"{slice_batch_mode!r}"
+            )
+        if gate_mode == "auto":
+            gate_mode = "inplace"
+        self.dev, self.pdt, self.gate_mode = device, plane_dtype, gate_mode
+        self.strip = strip_exponent
+        ir = extract_contractions(tree)
+        input_orders = [sliced_input_legs(tree, i) for i in range(tree.N)]
+        plans, _, self.out_plan, self.out_shape, _ = plan_grouped(
+            ir, tree.size_dict, input_orders, gate_mode=gate_mode,
+            fuse_gates=fuse_gates,
+        )
+        self.plans, self.last_use = hoist_window_operators(
+            plans, ir.final_id, ir.num_inputs, device, plane_dtype
+        )
+        prepare_device(self.plans, device)
+        self.final_id = ir.final_id
+        step_io = list(_step_io(self.plans))
+        in_shapes = [
+            tuple(tree.size_dict[ix] for ix in order) for order in input_orders
+        ]
+        # every call stores the same shape under an id, so one map
+        # serves them all, the folded steps' ids included
+        self.shapes = dict(enumerate(in_shapes))
+        n = len(self.plans)
+        self.bounds = stage_bounds(n, n if stage_size is None else stage_size)
+        self.carries = stage_carries(step_io, self.last_use, ir.final_id,
+                                     ir.num_inputs, self.bounds)
+        self.batch = self.mode = None
+        self.raw_shapes = in_shapes
+        if slice_batch:
+            self.batch = SliceBatch(tree, step_io, self.last_use, constants)
+            self.raw_shapes = tree.get_shapes()
+            self.mode = slice_batch_mode
+            if self.mode == "auto":
+                itemsize = torch.empty((), dtype=plane_dtype).element_size()
+                self.mode = auto_slice_batch_mode(
+                    device, slice_batch,
+                    slice_peak_bytes(self.plans, in_shapes, self.last_use,
+                                     tree.size_dict, itemsize),
+                    2 * itemsize * sum(prod(s) for s in self.raw_shapes),
+                    torch.cuda.get_device_properties(device).total_memory
+                    if device.type == "cuda" else 0,
+                )
+        last = len(self.bounds) - 2
+        self.stages = [
+            self._stage(k, self.bounds[k], self.bounds[k + 1],
+                        set(self.carries[k + 1]), k == last)
+            for k in range(last + 1)
+        ]
+
+    def check(self, planes):
+        """Raise unless ``planes`` are the plane stacks the program
+        takes: one per input, ``(2, *shape)``, of its dtype and
+        device."""
+        shapes = self.raw_shapes
+        if len(planes) != len(shapes):
+            raise ValueError(
+                f"expected {len(shapes)} inputs, got {len(planes)}"
+            )
+        for i, (a, shape) in enumerate(zip(planes, shapes)):
+            if a.device != self.dev or a.dtype != self.pdt:
+                raise ValueError(
+                    f"input {i} is {a.dtype} on {a.device}; the "
+                    f"contractor runs {self.pdt} on {self.dev}"
+                )
+            if tuple(a.shape) != (2,) + tuple(shape):
+                raise ValueError(
+                    f"input {i} has shape {tuple(a.shape)}, expected "
+                    f"{(2,) + tuple(shape)}"
+                )
+
+    def digits(self, slice_ids):
+        """The host digit matrix of ``slice_ids``, decoded exactly
+        (``slices._ids_to_digits``) after the batch's checks."""
+        return _ids_to_digits(self.batch._ids(slice_ids), self.batch.meta)
+
+    def fold(self, planes):
+        """``SliceBatch.fold`` over the raw ``planes``."""
+        return self.batch.fold(planes, self._run, _flat_copy, axis_offset=1)
+
+    def _run(self, steps, temps, last_use):
+        if not steps:
+            return None
+        return _exec_steps_split(self.plans, steps, temps, self.shapes,
+                                 last_use, self.strip)
+
+    def _start(self, planes, digits, folded):
+        state = {"folded": {} if folded is None else folded[0],
+                 "shared": {}, "e": None if folded is None else folded[1]}
+        batch = self.batch
+        if batch is None:
+            state["shared"] = {i: a.reshape(-1) for i, a in enumerate(planes)}
+            return state
+        S = state["S"] = digits.shape[0]
+        state["shared"] = batch.select_once(planes, _flat_copy, 1)
+        if self.mode == "vmap":
+            state["shared"].update(batch.gather_each(planes, digits, 1))
+            return state
+        state["each"] = [
+            {i: t.view(-1) for i, t in
+             batch.gather_each(planes, digits[b:b + 1], 1).items()}
+            for b in range(S)
+        ]
+        state["e_each"] = [None] * S
+        return state
+
+    def _stage(self, k, lo, hi, keep, last):
+        batch = self.batch
+        if batch is None:
+            steps, once, each = range(lo, hi), (), ()
+        else:
+            fold = set(batch.steps_fold)
+            steps = [si for si in range(lo, hi) if si not in fold]
+            once = [si for si in batch.steps_once if lo <= si < hi]
+            each = [si for si in batch.steps_each if lo <= si < hi]
+
+        def stage(state):
+            if k == 0:
+                state = self._start(*state)
+            folded = state["folded"]
+            temps = {**folded, **state["shared"]}
+            if "each" not in state:
+                e = self._run(steps, temps, self.last_use)
+            else:
+                e = self._run(once, temps, batch.last_use_once)
+                for b, own in enumerate(state["each"]):
+                    mine = {**temps, **own}
+                    state["e_each"][b] = _add_exponents(
+                        state["e_each"][b],
+                        self._run(each, mine, self.last_use),
+                    )
+                    state["each"][b] = {
+                        vid: t for vid, t in mine.items()
+                        if vid in keep and vid not in temps
+                    }
+            state["e"] = _add_exponents(state["e"], e)
+            state["shared"] = {
+                vid: t for vid, t in temps.items()
+                if vid in keep and vid not in folded
+            }
+            return self._finish(state) if last else state
+
+        return stage
+
+    def _output(self, temps):
+        flat = _apply_block_plan_split(temps[self.final_id], self.out_plan)
+        return flat.view(_lead(flat) + (2,) + tuple(self.out_shape))
+
+    def _zero(self):
+        return torch.zeros((), dtype=self.pdt, device=self.dev)
+
+    def _finish(self, state):
+        temps = {**state["folded"], **state["shared"]}
+        if "each" in state:
+            outs, exps = [], []
+            for own, e in zip(state["each"], state["e_each"]):
+                outs.append(self._output({**temps, **own}))
+                e = _add_exponents(state["e"], e)
+                exps.append(self._zero() if e is None else e)
+            res, e = torch.stack(outs), torch.stack(exps)
+        else:
+            res, e = self._output(temps), state["e"]
+            e = self._zero() if e is None else e
+            if self.batch is not None:
+                # an output that no sliced index reaches is every slice's
+                S = state["S"]
+                res = res.expand((S,) + tuple(
+                    res.shape[-1 - len(self.out_shape):]))
+                e = e.expand(S)
+        return (res, e) if self.strip else res
+
+
 def make_grouped_contractor(
     tree, device="cuda", plane_dtype=torch.float32, gate_mode="auto",
     strip_exponent=False, slice_batch=None, slice_batch_mode="auto",
@@ -773,12 +1046,15 @@ def make_grouped_contractor(
     them as a rule, though any number runs.
     It returns the ``(len(slice_ids), 2, *out_shape)`` per-slice planes,
     and a ``(len(slice_ids),)`` exponent vector under
-    ``strip_exponent``; the caller sums them. The steps that no sliced
-    index reaches run once per call. ``slice_batch_mode`` says how the
-    others run:
+    ``strip_exponent``; the caller sums them. The ids are decoded on the
+    host and their digits copied to the device once a call
+    (``slices.device_digits``), or not at all where the caller passes
+    ``digits=fn.digits(slice_ids)``, made once for ids that come again.
+    The steps that no sliced index reaches run once per call.
+    ``slice_batch_mode`` says how the others run:
 
-    - ``"scan"``: once per slice, on views selected from the raw planes
-      (one slice's memory at a time);
+    - ``"scan"``: once per slice, on each slice's inputs gathered from
+      the raw planes (one slice's intermediates at a time);
     - ``"vmap"``: once per call for all the slices together, each
       varying input gathered for the batch (``slices.gather_input``):
       B times one slice's memory, and B times fewer step calls and
@@ -811,131 +1087,167 @@ def make_grouped_contractor(
     of the gates' kron product). ``"window"`` and ``fuse_gates`` are
     opt-in, as in the reference; ``PERF.md`` section 6 has their times
     on the card. ``fn.plans`` is the executor's plan.
-    There is no staging: it worked around the TPU compiler.
+
+    The call runs the plan as the one stage of a ``_StagedProgram``;
+    ``make_grouped_staged_contractor`` runs the same program in stages,
+    as captured CUDA graphs.
+    """
+    dev = resolve_device(device)
+    prog = _StagedProgram(
+        tree, dev, resolve_plane_dtype(plane_dtype), gate_mode, fuse_gates,
+        strip_exponent, slice_batch, slice_batch_mode, constants,
+    )
+    if slice_batch:
+        def fn(planes, slice_ids, folded=None, digits=None):
+            prog.check(planes)
+            if digits is None:
+                digits = device_digits(prog.digits(slice_ids), dev)
+            if folded is None:
+                folded = prog.fold(planes)
+            return run_stages(prog.stages, (planes, digits, folded))
+
+        def fold(planes):
+            prog.check(planes)
+            return prog.fold(planes)
+
+        fn.fold = fold
+        fn.digits = lambda slice_ids: device_digits(
+            prog.digits(slice_ids), dev
+        )
+        fn.mode = prog.mode
+        fn.batch = prog.batch
+    else:
+        def fn(*planes):
+            prog.check(planes)
+            return run_stages(prog.stages, (planes, None, None))
+
+    fn.plans = prog.plans
+    return fn
+
+
+# -- the staged contractor: the plan as CUDA graphs ---------------------------
+
+
+def make_grouped_staged_contractor(
+    tree, stage_size=12, strip_exponent=False, autojit=True,
+    fuse_gates=False, plane_dtype=torch.float32, slice_batch=None,
+    slice_batch_mode="auto", gate_mode="auto", device="cuda",
+    constants=None,
+):
+    """``make_grouped_contractor``'s plan run as stages of about
+    ``stage_size`` steps (the reference's ``make_grouped_staged_contractor``,
+    ``cotengra_tpu/ops/grouped.py:2072``, split-complex with plane I/O).
+
+    ``autojit=True`` on a CUDA device captures each stage as a CUDA
+    graph (``capture.Graphs``), all in one memory pool, the ids that
+    cross a stage boundary at fixed addresses: at the first call with a
+    new number of slice ids (or at ``fn.precompile``), after one eager
+    warm-up; every call then copies its planes into the static input
+    buffers (one ``torch._foreach_copy_``; none for the buffers
+    ``fn.inputs`` themselves), its slice digits into a static device
+    buffer (decoded on the host, exactly, ``slices._ids_to_digits``;
+    one pinned, non-blocking copy) and replays one graph per stage: one
+    dispatch a stage, as the reference's jitted stages, and no Python
+    step (``capture.STEP_CALLS`` stays put). The result is a copy
+    of the graphs' outputs. A stage that cannot be captured raises
+    ``capture.CaptureError`` naming the plan step; nothing reruns
+    eagerly. On the CPU, or with ``autojit=False``, the same stages run
+    eagerly.
+
+    Arguments and results are ``make_grouped_contractor``'s:
+    ``fn(*planes)``, or ``fn(planes, slice_ids)`` under ``slice_batch``,
+    whose ``"scan"`` runs each slice's steps one slice after another
+    inside each stage and ``"vmap"`` all of them at once. The steps no
+    sliced index reaches run once a call in both. With ``constants``
+    (input positions, under ``slice_batch``), the steps only they reach
+    are folded once, eagerly, at the first call, and the graphs read
+    the folded tensors.
+
+    ``fn.precompile(planes, slice_ids)`` (``fn.precompile(*planes)``)
+    captures every stage without a real call and returns the number of
+    graphs (of stages on the CPU); like the reference's, it returns
+    None under ``gate_mode="window"`` (captured at the first call) or
+    without ``autojit``. ``fn.bounds`` and ``fn.carries`` are the
+    stages' bounds and carried ids, ``fn.stages`` the stage functions,
+    ``fn.graphs`` the captured ``Graphs`` by slice count.
     """
     dev = resolve_device(device)
     pdt = resolve_plane_dtype(plane_dtype)
-    if gate_mode == "auto":
-        gate_mode = "inplace"
-    if slice_batch_mode not in SLICE_BATCH_MODES:
-        raise ValueError(
-            f"slice_batch_mode must be one of {SLICE_BATCH_MODES}, got "
-            f"{slice_batch_mode!r}"
-        )
-    ir = extract_contractions(tree)
-    input_orders = [sliced_input_legs(tree, i) for i in range(tree.N)]
-    plans, _, out_plan, out_shape, _ = plan_grouped(
-        ir, tree.size_dict, input_orders, gate_mode=gate_mode,
-        fuse_gates=fuse_gates,
+    prog = _StagedProgram(tree, dev, pdt, gate_mode, fuse_gates,
+                          strip_exponent, slice_batch, slice_batch_mode,
+                          constants, stage_size)
+    batch = prog.batch
+    read = list(range(tree.N)) if batch is None else sorted(
+        batch.inputs_once + batch.inputs_each
     )
-    plans, last_use = hoist_window_operators(
-        plans, ir.final_id, ir.num_inputs, dev, pdt
-    )
-    sizes = tree.size_dict
-    in_shapes = [tuple(sizes[ix] for ix in order) for order in input_orders]
+    captured = autojit and dev.type == "cuda"
+    inputs = [
+        torch.zeros((2,) + tuple(s), dtype=pdt, device=dev)
+        for s in prog.raw_shapes
+    ] if captured else None
+    graphs, digit_bufs = {}, {}
+    folded = []  # the folded constants, made at the first call
 
-    def check(planes, shapes):
-        if len(planes) != len(shapes):
-            raise ValueError(
-                f"expected {len(shapes)} inputs, got {len(planes)}"
+    def fold(planes):
+        if batch is None:
+            return None
+        if not folded:
+            folded.append(prog.fold(planes))
+        return folded[0]
+
+    def arguments(planes, slice_ids):
+        prog.check(planes)
+        return None if batch is None else prog.digits(slice_ids)
+
+    def graphs_for(planes, digits):
+        """The graphs for calls of this many slices, with this call's
+        planes and digits loaded into their buffers."""
+        load([inputs[i] for i in read], [planes[i] for i in read])
+        S = None if digits is None else len(digits)
+        if S is not None:
+            if S not in digit_bufs:
+                digit_bufs[S] = torch.zeros(digits.shape, dtype=torch.int64,
+                                            device=dev)
+            if digits.size:
+                digit_bufs[S].copy_(torch.from_numpy(digits).pin_memory(),
+                                    non_blocking=True)
+        g = graphs.get(S)
+        if g is None:
+            g = graphs[S] = Graphs(
+                prog.stages, (inputs, digit_bufs.get(S), fold(planes)), dev,
             )
-        for i, (a, shape) in enumerate(zip(planes, shapes)):
-            if a.device != dev or a.dtype != pdt:
-                raise ValueError(
-                    f"input {i} is {a.dtype} on {a.device}; the "
-                    f"contractor runs {pdt} on {dev}"
-                )
-            if tuple(a.shape) != (2,) + tuple(shape):
-                raise ValueError(
-                    f"input {i} has shape {tuple(a.shape)}, expected "
-                    f"{(2,) + tuple(shape)}"
-                )
+        return g
 
-    def finish(temps):
-        flat = _apply_block_plan_split(temps[ir.final_id], out_plan)
-        return flat.view(_lead(flat) + (2,) + tuple(out_shape))
+    def call(planes, slice_ids=None):
+        digits = arguments(planes, slice_ids)
+        if not captured:
+            if digits is not None:
+                digits = device_digits(digits, dev)
+            return run_stages(prog.stages, (planes, digits, fold(planes)))
+        return clone_outputs(graphs_for(planes, digits).replay())
 
-    def zero():
-        return torch.zeros((), dtype=pdt, device=dev)
+    def precompile(planes, slice_ids=None):
+        if not autojit or prog.gate_mode == "window":
+            return None
+        digits = arguments(planes, slice_ids)
+        if not captured:
+            return len(prog.stages)
+        return len(graphs_for(planes, digits).graphs)
 
     if slice_batch:
-        batch = SliceBatch(tree, list(_step_io(plans)), last_use, constants)
-        # every call stores the same shape under an id, so one map
-        # serves them all, the folded steps' ids included
-        shapes = dict(enumerate(in_shapes))
-        mode = slice_batch_mode
-        if mode == "auto":
-            itemsize = torch.empty((), dtype=pdt).element_size()
-            mode = auto_slice_batch_mode(
-                dev, slice_batch,
-                slice_peak_bytes(plans, in_shapes, last_use, sizes,
-                                 itemsize),
-                2 * itemsize * sum(prod(s) for s in tree.get_shapes()),
-                torch.cuda.get_device_properties(dev).total_memory
-                if dev.type == "cuda" else 0,
-            )
+        fn = call
+        fn.precompile = precompile
+    else:
+        def fn(*planes):
+            return call(planes)
 
-        def run_steps(steps, temps, lu):
-            return _exec_steps_split(
-                plans, steps, temps, shapes, lu, strip_exponent
-            )
-
-        def prepare(view):
-            # a selected view is strided: one explicit copy makes it the
-            # contiguous flat planes that the steps and the chain kernel
-            # take
-            return view.contiguous().view(-1)
-
-        def fn_scan(planes, slice_ids, folded=None):
-            check(planes, tree.get_shapes())
-            outs, exps = [], []
-            for temps, e in batch.run(
-                planes, slice_ids, run_steps, prepare, axis_offset=1,
-                folded=folded,
-            ):
-                outs.append(finish(temps))
-                exps.append(zero() if e is None else e)
-            res = torch.stack(outs)
-            return (res, torch.stack(exps)) if strip_exponent else res
-
-        def fn_vmap(planes, slice_ids, folded=None):
-            check(planes, tree.get_shapes())
-            ids = _flat_ids(slice_ids)
-            temps, e = batch.run_batched(
-                planes, ids, run_steps, prepare, axis_offset=1,
-                folded=folded,
-            )
-            res = finish(temps)
-            # an output that no sliced index reaches is every slice's
-            res = res.expand((len(ids),) + tuple(res.shape[-1 - len(
-                out_shape):]))
-            if not strip_exponent:
-                return res
-            return res, (zero() if e is None else e).expand(len(ids))
-
-        def fold(planes):
-            check(planes, tree.get_shapes())
-            return batch.fold(planes, run_steps, prepare, axis_offset=1)
-
-        fn = fn_vmap if mode == "vmap" else fn_scan
-        fn.mode = mode
-        fn.plans = plans
-        fn.batch = batch
-        fn.fold = fold
-        return fn
-
-    def fn(*planes):
-        check(planes, in_shapes)
-        temps = {i: a.reshape(-1) for i, a in enumerate(planes)}
-        shapes = dict(enumerate(in_shapes))
-        exponent = _exec_steps_split(
-            plans, range(len(plans)), temps, shapes, last_use,
-            strip_exponent,
-        )
-        planes = finish(temps)
-        if not strip_exponent:
-            return planes
-        return planes, zero() if exponent is None else exponent
-
-    fn.plans = plans
+        fn.precompile = lambda *planes: precompile(planes)
+    fn.mode = prog.mode
+    fn.plans = prog.plans
+    fn.batch = batch
+    fn.bounds = prog.bounds
+    fn.carries = prog.carries
+    fn.stages = prog.stages
+    fn.graphs = graphs
+    fn.inputs = inputs
     return fn

@@ -7,11 +7,14 @@ The counterparts of the reference's ``_sliced_axes_per_input`` and
 ``_ids_to_digits`` and ``_select_input`` (``cotengra_tpu/ops/grouped.py``)
 and of the varying-id propagation of its batched call, which also
 splits off the steps that only an expression's constants reach (the
-folding that the reference's jit does). Selection is eager: in
-``"scan"`` mode ``Tensor.select`` views on the inputs' device, one
-slice at a time; in ``"vmap"`` mode one gather per varying input of
-the whole batch's digit rows (``gather_input``), where the reference
-gathered a batch inside jit.
+folding that the reference's jit does). The direct route's host ids
+select views (``Tensor.select``), one slice at a time. The grouped
+route selects on the device, as the reference gathered a batch inside
+jit: the host decodes the ids (exactly, ``_ids_to_digits``) and copies
+the digit matrix to the device once (``device_digits``), and each
+varying input is one gather by it for the batch (``gather_input``),
+which a CUDA graph replays for whatever digits the buffer then holds;
+``make_traced_slicer`` selects by a 0-d id on the device.
 """
 
 import numpy as np
@@ -117,29 +120,68 @@ def _select_input(a, axes, meta, digits, axis_offset=0):
     return a
 
 
+def device_digits(digits, device):
+    """``_ids_to_digits``'s matrix as an int64 tensor on ``device``: one
+    copy, from pinned memory and non-blocking on a CUDA device."""
+    t = torch.from_numpy(np.ascontiguousarray(digits, dtype=np.int64))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def gather_input(a, axes, meta, digits, axis_offset=0):
     """The ``(S, *rest)`` stack of raw input ``a`` for the ``S`` rows of
-    slice-id ``digits`` (see ``_ids_to_digits``), by one gather on its
-    device: projected indices take their fixed value, the others each
-    row's digit; the remaining axes keep their order (as
-    ``_select_input`` leaves them). ``axes`` are its sliced (axis, ind)
-    pairs; ``axis_offset=1`` addresses plane stacks."""
+    slice-id ``digits``, by one gather on its device: projected indices
+    take their fixed value, the others each row's digit; the remaining
+    axes keep their order (as ``_select_input`` leaves them). ``axes``
+    are its sliced (axis, ind) pairs; ``axis_offset=1`` addresses plane
+    stacks. ``digits`` is an ``(S, ncols)`` int64 tensor on ``a``'s
+    device, or ``_ids_to_digits``'s numpy rows, copied there first
+    (``device_digits``)."""
+    if not isinstance(digits, torch.Tensor):
+        digits = device_digits(digits, a.device)
     cols = _digit_columns(meta)
     sliced = sorted(ax + axis_offset for ax, _ in axes)
     index = []
     for ax, ix in sorted(axes):
         project = meta[ix][2]
-        if project is None:
-            index.append(torch.as_tensor(
-                digits[:, cols.index(ix)], dtype=torch.int64,
-                device=a.device,
-            ))
-        else:
-            index.append(project)
+        index.append(
+            digits[:, cols.index(ix)] if project is None else project
+        )
     rest = [d for d in range(a.dim()) if d not in sliced]
     # the sliced axes in front, so that the batch axis of the advanced
     # index lands first
     return a.permute(sliced + rest)[tuple(index)]
+
+
+def make_traced_slicer(tree):
+    """``slicer(arrays, sid)``: the inputs of slice ``sid``, a 0-d int64
+    tensor on the arrays' device (the reference's ``make_traced_slicer``,
+    ``cotengra_tpu/ops/executor.py:240``). Each digit is taken there,
+    ``(sid // stride) % size``, and its axis selected by
+    ``index_select``: no host sync and no copy from the host, so that a
+    CUDA graph holding the call reads whatever id the tensor holds at
+    each replay. Projected indices take their fixed value. The flat id
+    must fit int64 (host ids, ``_ids_to_digits``, need not)."""
+    meta = _slice_meta(tree)
+    per_input = _sliced_axes_per_input(tree)
+
+    def slicer(arrays, sid):
+        out = []
+        for arr, axes in zip(arrays, per_input):
+            for ax, ix in axes:
+                stride, size, project = meta[ix]
+                if project is not None:
+                    arr = arr.select(ax, project)
+                else:
+                    digit = torch.remainder(
+                        torch.div(sid, stride, rounding_mode="floor"), size
+                    )
+                    arr = arr.index_select(ax, digit.reshape(1)).squeeze(ax)
+            out.append(arr)
+        return out
+
+    return slicer
 
 
 def _reached(ids, step_io):
@@ -237,6 +279,24 @@ class SliceBatch:
             arrays[i], self.axes[i], self.meta, digits, axis_offset
         ))
 
+    def select_once(self, arrays, prepare, axis_offset=0):
+        """{input: its prepared view} of the slice-invariant inputs,
+        selected at their projected indices."""
+        return {
+            i: self._select(arrays, i, prepare, axis_offset)
+            for i in self.inputs_once
+        }
+
+    def gather_each(self, arrays, digits, axis_offset=0):
+        """{input: ``(S, numel)``} of the varying inputs, each gathered
+        for the ``S`` rows of the device ``digits`` (``gather_input``)."""
+        return {
+            i: gather_input(
+                arrays[i], self.axes[i], self.meta, digits, axis_offset
+            ).reshape(digits.shape[0], -1)
+            for i in self.inputs_each
+        }
+
     def fold(self, arrays, run_steps, prepare, axis_offset=0):
         """Run the folded steps once over the constant inputs of
         ``arrays`` (the others are not read). Returns ``(temps,
@@ -266,8 +326,7 @@ class SliceBatch:
         if folded is None:
             folded = self.fold(arrays, run_steps, prepare, axis_offset)
         base = dict(folded[0])
-        for i in self.inputs_once:
-            base[i] = self._select(arrays, i, prepare, axis_offset)
+        base.update(self.select_once(arrays, prepare, axis_offset))
         return base, _add_exponents(
             folded[1], run_steps(self.steps_once, base, self.last_use_once)
         )
@@ -299,23 +358,3 @@ class SliceBatch:
             e = run_steps(self.steps_each, temps, self.last_use)
             yield temps, _add_exponents(e_once, e)
             del temps
-
-    def run_batched(self, arrays, slice_ids, run_steps, prepare,
-                    axis_offset=0, folded=None):
-        """``(temps, exponent)`` of all ``slice_ids`` at once
-        (``"vmap"``): the invariant steps run once, as in ``run``; then
-        each varying input is gathered for the whole batch
-        (``gather_input``: ``(S, *shape)``, made ``(S, 2 * numel)`` by
-        ``prepare``) and the per-slice steps run once over the batch.
-        The ids they make hold a row per slice; the exponent is a
-        ``(S,)`` vector where a batched step stripped."""
-        digits = _ids_to_digits(self._ids(slice_ids), self.meta)
-        temps, e_once = self._once(
-            arrays, run_steps, prepare, axis_offset, folded
-        )
-        for i in self.inputs_each:
-            temps[i] = gather_input(
-                arrays[i], self.axes[i], self.meta, digits, axis_offset
-            ).reshape(len(digits), -1)
-        e = run_steps(self.steps_each, temps, self.last_use)
-        return temps, _add_exponents(e_once, e)

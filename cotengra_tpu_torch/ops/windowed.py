@@ -224,7 +224,22 @@ def _index_arrays(axes, dims, j_axes, rest_axes, sizes):
     return jv.astype(np.int32), rv.astype(np.int32)
 
 
-def build_w4(recipe, ys, dtype, device=None):
+EXPAND_INDEX = ("rest_in", "rest_out", "idx_in", "idx_out")
+
+
+def expand_index(recipe, device):
+    """The index arrays of ``recipe["expand"]`` as tensors on
+    ``device``, for ``build_w4(..., index=)``: copied there once, ahead
+    of a CUDA graph capture, which refuses copies from pageable host
+    memory."""
+    ex = recipe["expand"]
+    return {
+        name: torch.as_tensor(ex[name], device=device)
+        for name in EXPAND_INDEX if name in ex
+    }
+
+
+def build_w4(recipe, ys, dtype, device=None, index=None):
     """Build the block-embedded window operator.
 
     ``ys``: per-gate ``(2, K, N)`` plane tensors (K enumerates the
@@ -233,11 +248,14 @@ def build_w4(recipe, ys, dtype, device=None):
     batch). Returns ``W2 (2 * S_out, 2 * S_in)`` of ``dtype`` (``(S, 2 *
     S_out, 2 * S_in)`` where a gate has the slice dim): ``[[Wr^T,
     -Wi^T], [Wi^T, Wr^T]]``, the real form of the complex ``W (S_in,
-    S_out)``. A rotation (no gates) builds on ``device``.
+    S_out)``. A rotation (no gates) builds on ``device``. ``index``
+    (``expand_index``) holds the expansion's index arrays already on
+    the device; without it they are copied there at each build.
     """
     # compose in float64 under float64 planes, else in float32: the
     # operator is small, so full precision here costs nothing
     cdt = torch.float64 if dtype == torch.float64 else torch.float32
+    index_on_device = index
     jr = ji = None
     for (j_sub, y_sub, out_sub, k_dims, n_dims), y in zip(
         recipe["apply"], ys
@@ -258,6 +276,8 @@ def build_w4(recipe, ys, dtype, device=None):
     ex = recipe["expand"]
 
     def index(name):
+        if index_on_device is not None:
+            return index_on_device[name]
         return torch.as_tensor(ex[name], device=device)
 
     rest_in, rest_out = index("rest_in"), index("rest_out")

@@ -610,3 +610,265 @@ def test_window_contractor_on_the_card(cuda, mode, fuse):
             out[dev.type] = res.sum(0).cpu().numpy()
         scale = np.abs(out["cpu"]).max()
         assert np.abs(out["cuda"] - out["cpu"]).max() <= rtol * scale
+
+
+# -- captured CUDA graphs (the staged contractors, autojit) -------------------
+
+_T27 = {}
+
+
+def _t27(cuda):
+    """The committed Sycamore-53 m=10 t27 tree (4 slices, 13 chains a
+    slice) and its inputs as float32 planes on the card."""
+    if not _T27:
+        from pathlib import Path
+
+        import cotengra_tpu_torch as ctt
+
+        inputs, output, _, _, arrays = ctt.rand_circuit_tn(53, 10, seed=42)
+        inputs, arrays = ctt.absorb_simple_tensors(
+            inputs, arrays, output, max_rank=2, max_absorb_size=2**12
+        )
+        size_dict = {
+            ix: int(d) for t, a in zip(inputs, arrays)
+            for ix, d in zip(t, a.shape)
+        }
+        plan = Path(__file__).resolve().parent.parent / "plans" / (
+            "sycamore53_m10_t27.json"
+        )
+        _T27["tree"] = ctt.load_tree(str(plan), inputs, output, size_dict)
+        _T27["arrays"] = arrays
+    import cotengra_tpu_torch as ctt
+
+    planes = ctt.to_plane_tensors(_T27["arrays"], cuda, torch.float32)
+    return _T27["tree"], planes
+
+
+def _equal(a, b):
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def _same_call(got, want):
+    """Equal planes bit for bit; stripped, equal mantissas and exponents
+    within 1e-6 relative: the staged steps add the float32 log10
+    exponents of ~150 steps in plan order, the eager batch adds the
+    slice-invariant steps' first."""
+    if not isinstance(want, tuple):
+        return torch.equal(got, want)
+    e_got, e_want = got[1].double(), want[1].double()
+    scale = max(1.0, e_want.abs().max().item())
+    return torch.equal(got[0], want[0]) and bool(
+        ((e_got - e_want).abs() <= 1e-6 * scale).all()
+    )
+
+
+@pytest.mark.parametrize("strip", [False, True])
+@pytest.mark.parametrize("mode", ["scan", "vmap"])
+def test_staged_replays_equal_the_eager_contractor(cuda, mode, strip):
+    """The staged contractor's replays give the eager contractor's
+    per-slice planes bit for bit: the same kernels on the same inputs in
+    the same order (stripped: ``_same_call``). Its replays follow the
+    slice ids
+    of each call (0..3, then 3, 2, 1, 0, then 1, 1, 1, 1): a slice read
+    on the host at capture would repeat. A replayed call makes no
+    Python step call and replays one graph per stage."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.ops.capture import STEP_CALLS
+    from cotengra_tpu_torch.ops.grouped import (
+        make_grouped_staged_contractor,
+    )
+
+    tree, planes = _t27(cuda)
+    fn = make_grouped_staged_contractor(
+        tree, stage_size=12, device=cuda, slice_batch=4,
+        slice_batch_mode=mode, strip_exponent=strip,
+    )
+    eager = ctt.make_grouped_contractor(
+        tree, cuda, torch.float32, slice_batch=4, slice_batch_mode=mode,
+        strip_exponent=strip,
+    )
+    assert fn.precompile(planes, [0, 1, 2, 3]) == len(fn.bounds) - 1
+    for ids in ([0, 1, 2, 3], [3, 2, 1, 0], [1, 1, 1, 1]):
+        steps = sum(STEP_CALLS.values())
+        replays = fn.graphs[4].replays
+        got = fn(planes, ids)
+        assert sum(STEP_CALLS.values()) == steps
+        assert fn.graphs[4].replays - replays == len(fn.bounds) - 1
+        assert _same_call(got, eager(planes, ids))
+    # the static input buffers themselves: no copy
+    for buf, p in zip(fn.inputs, planes):
+        buf.copy_(p)
+    assert _same_call(fn(fn.inputs, [2, 0, 1, 3]),
+                      eager(planes, [2, 0, 1, 3]))
+
+
+def test_whole_call_graphs_equal_eager(cuda):
+    """``autojit=True``: the stripped 4x4 bond-16 lattice through the
+    kernel route as one graph (``make_full_contractor``,
+    ``contract_tree``), the direct route's ``make_staged_contractor`` in
+    3 stages, equal to eager bit for bit, on new inputs too."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.ops.executor import make_staged_contractor
+
+    inputs, output, shapes, size_dict = ctt.lattice_equation([4, 4],
+                                                             d_min=16)
+    tree = ctt.array_contract_tree(inputs, output, size_dict=size_dict,
+                                   optimize="greedy")
+    tree.slice_(target_slices=4)
+    rng = np.random.default_rng(7)
+    kw = dict(strip_exponent=True, implementation="pallas")
+    fn = ctt.make_full_contractor(tree, cuda, autojit=True, **kw)
+    eager = ctt.make_full_contractor(tree, cuda, **kw)
+    staged = make_staged_contractor(tree, num_stages=3, device=cuda,
+                                    strip_exponent=True)
+    core = ctt.make_contractor(tree, cuda, strip_exponent=True)
+    for _ in range(2):
+        arrays = [rng.uniform(size=s).astype(np.float32) for s in shapes]
+        tensors = ctt.to_tensors(arrays, cuda, torch.float32)
+        before = bmm_absmax_cuda.launches
+        assert _equal(fn(*tensors), eager(*tensors))
+        assert bmm_absmax_cuda.launches > before  # eager's; replays tick none
+        assert _equal(
+            ctt.contract_tree(tree, arrays, autojit=True, **kw),
+            eager(*tensors),
+        )
+        one = ctt.slice_arrays(tree, tensors, 1)
+        assert _equal(staged(*one), core(*one))
+    assert len(staged.graphs) == 1
+
+
+def test_full_contractor_batches_in_one_graph(cuda):
+    """``make_full_contractor(..., slice_batch=4, autojit=True)`` on t27
+    (the grouped route, ``"vmap"`` on the card): the batch's digits are
+    copied to the card at the first call (the warm-up, before the
+    capture) and its inputs gathered by them inside the one graph;
+    equal to eager bit for bit."""
+    import cotengra_tpu_torch as ctt
+
+    tree, _ = _t27(cuda)
+    tensors = ctt.to_tensors(_T27["arrays"], cuda, torch.float32)
+    fn = ctt.make_full_contractor(tree, cuda, slice_batch=4, autojit=True)
+    eager = ctt.make_full_contractor(tree, cuda, slice_batch=4)
+    for _ in range(2):
+        assert torch.equal(fn(*tensors), eager(*tensors))
+    (captured, _), = fn.graphs.values()
+    assert captured.replays == 2 and len(captured.graphs) == 1
+
+
+def test_gather_input_on_the_card(cuda):
+    """``gather_input`` on the card: host digits (copied once, pinned and
+    non-blocking) and the same digits on the card gather the views that
+    ``_select_input`` takes row by row, on the t27 planes."""
+    import numpy as np
+
+    from cotengra_tpu_torch.ops import slices
+
+    tree, planes = _t27(cuda)
+    meta = slices._slice_meta(tree)
+    axes = slices._sliced_axes_per_input(tree)
+    digits = slices._ids_to_digits([3, 0, 2, 2], meta)
+    on_card = slices.device_digits(digits, cuda)
+    assert on_card.device == cuda and np.array_equal(on_card.cpu(), digits)
+    varying = [i for i, a in enumerate(axes)
+               if any(meta[ix][2] is None for _, ix in a)]
+    assert varying
+    for i in varying:
+        host = slices.gather_input(planes[i], axes[i], meta, digits, 1)
+        assert torch.equal(
+            host, slices.gather_input(planes[i], axes[i], meta, on_card, 1)
+        )
+        for r, row in enumerate(digits):
+            assert torch.equal(
+                host[r], slices._select_input(planes[i], axes[i], meta, row, 1)
+            )
+
+
+def test_staged_window_on_the_card(cuda):
+    """``gate_mode="window"`` through the staged contractor (its index
+    arrays copied to the card at plan time) equals the eager window
+    contractor bit for bit; ``precompile`` returns None, as the
+    reference's, and the first call captures."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.ops.grouped import (
+        make_grouped_staged_contractor,
+    )
+
+    tree, arrays = _gate_chain_tree()
+    planes = ctt.to_plane_tensors(arrays, cuda, torch.float32)
+    for mode in ("scan", "vmap"):
+        fn = make_grouped_staged_contractor(
+            tree, stage_size=4, device=cuda, slice_batch=4,
+            slice_batch_mode=mode, gate_mode="window",
+        )
+        eager = ctt.make_grouped_contractor(
+            tree, cuda, torch.float32, slice_batch=4, slice_batch_mode=mode,
+            gate_mode="window",
+        )
+        assert fn.precompile(planes, range(4)) is None and not fn.graphs
+        for ids in ([0, 1, 2, 3], [3, 3, 0, 1]):
+            assert _equal(fn(planes, ids), eager(planes, ids))
+        assert fn.graphs
+
+
+def test_traced_slicer_in_a_graph(cuda):
+    """``make_traced_slicer`` captured in a CUDA graph: each replay reads
+    the id the 0-d tensor then holds (the host's slicing of that id)."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.ops.executor import make_traced_slicer
+
+    tree, planes = _t27(cuda)
+    tensors = [p[0].contiguous() for p in planes]
+    slicer = make_traced_slicer(tree)
+    sid = torch.zeros((), dtype=torch.int64, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        slicer(tensors, sid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = slicer(tensors, sid)
+    for i in (3, 1, 2, 0):
+        sid.fill_(i)
+        graph.replay()
+        for got, want in zip(out, ctt.slice_arrays(tree, tensors, i)):
+            assert torch.equal(got, want)
+
+
+def test_a_capture_that_fails_raises(cuda, monkeypatch):
+    """A step that syncs with the host (``.item()``) cannot be captured:
+    the staged contractor and ``autojit`` raise ``CaptureError`` naming
+    the step, and nothing reruns eagerly. (A failed capture leaves
+    torch's CUDA generator in capture mode: the inputs are drawn
+    first.)"""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.ops import executor, grouped
+    from cotengra_tpu_torch.ops.capture import CaptureError
+
+    tree, planes = _t27(cuda)
+    inputs, output, shapes, size_dict = ctt.lattice_equation([3, 3],
+                                                             d_min=4)
+    small = ctt.array_contract_tree(inputs, output, size_dict=size_dict,
+                                    optimize="greedy")
+    tensors = [torch.rand(s, device=cuda) for s in shapes]
+    real = grouped.apply_pairwise
+
+    def syncing(x, *args):
+        out = real(x, *args)
+        out.abs().max().item()
+        return out
+
+    monkeypatch.setattr(grouped, "apply_pairwise", syncing)
+    fn = grouped.make_grouped_staged_contractor(
+        tree, device=cuda, slice_batch=4, slice_batch_mode="vmap",
+    )
+    with pytest.raises(CaptureError, match="plan step"):
+        fn(planes, range(4))
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+
+    monkeypatch.setattr(executor, "apply_pairwise", syncing)
+    full = ctt.make_full_contractor(small, cuda, autojit=True)
+    with pytest.raises(CaptureError, match="IR step"):
+        full(*tensors)

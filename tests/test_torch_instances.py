@@ -256,12 +256,7 @@ PORT_METHOD = {
 # Module-level public names of the reference that the port leaves out, by
 # module (relative to the package), with the reason.
 NAMES_LEFT_OUT = {
-    "ops/executor.py": {
-        "make_staged_contractor": "A9: the staged jit is dropped",
-        "make_traced_slicer": "A9: slice ids are host ints, not traced",
-    },
     "ops/grouped.py": {
-        "make_grouped_staged_contractor": "A9: the staged jit is dropped",
         "to_plane_array": "A9: the port has it in convert.py",
     },
     "ops/pairwise.py": {
