@@ -23,6 +23,7 @@ of 4 (TMA's 16-byte row stride).
 
 import torch
 
+from .. import tracing
 from ..utils.misc import prod
 
 # the kernel's tile (csrc/bmm_absmax.cu: BM, BN, BK) and the grid limit
@@ -84,9 +85,13 @@ def bmm_absmax_cuda(x, y):
     itself (one transposing copy). K is zero-padded to a multiple of 4
     (at least 4) for TMA, which leaves the product exact. Returns ``(out,
     absmax)``, absmax a 0-d float32 tensor on the device.
-    ``bmm_absmax_cuda.launches`` counts the calls."""
+    ``bmm_absmax_cuda.launches`` counts the calls; each is a
+    ``kernel.launch`` span (``tracing``)."""
     from ._build import load_library
 
+    if tracing.ON:
+        tracing.begin()
+        shapes = (tuple(x.shape), tuple(y.shape))
     if x.dtype != torch.float32 or y.dtype != torch.float32:
         raise ValueError(
             f"bmm_absmax kernel takes float32, got {x.dtype} and {y.dtype}"
@@ -132,6 +137,8 @@ def bmm_absmax_cuda(x, y):
     )
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    if tracing.ON:
+        launched = tracing.now()
     rc = lib.ctg_bmm_absmax_f32(
         x.data_ptr(), yt.data_ptr(), out.data_ptr(), absmax.data_ptr(),
         ws.data_ptr(), B, M, kp, N, splits, k_chunk, stream,
@@ -139,6 +146,11 @@ def bmm_absmax_cuda(x, y):
     if rc != 0:
         raise RuntimeError(f"bmm_absmax kernel launch failed: error {rc}")
     bmm_absmax_cuda.launches += 1
+    if tracing.ON:
+        tracing.end(
+            "kernel.launch", "bmm_absmax", bmm_absmax_cuda.launches - 1, shapes,
+            launched,
+        )
     return out, absmax
 
 

@@ -24,15 +24,11 @@ failed: draw no random numbers on the card after a ``CaptureError``.)
 On the CPU (and on ``meta`` tensors) the same stages run eagerly.
 """
 
-import collections
 import time
 
 import torch
 
-# Python step calls of the executors, by function
-# (``grouped._exec_steps_split``, ``executor._run_ir_steps``): a replay
-# of captured graphs makes none.
-STEP_CALLS = collections.Counter()
+from ..tracing import STEP_CALLS  # noqa: F401 (read here by tests)
 
 
 class CaptureError(RuntimeError):

@@ -57,13 +57,14 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
 from .._device import resolve_device, resolve_plane_dtype
 from ..config import get_default
 from ..convert import to_tensors
+from ..tracing import STEP_CALLS
 from ..utils.misc import prod
 from .bmm_absmax import _bmm_layout, pairwise_bmm_absmax
 from .capture import (
-    STEP_CALLS,
     capture_call,
     note_step,
     run_stages,
@@ -116,9 +117,11 @@ def _run_ir_steps(ir, steps, temps, last_use, strip_exponent=False,
     """Run the IR steps ``steps`` (indices, in order) over ``temps`` (id
     -> tensor, freed after its last use). Returns the summed log10
     exponent of the stripped steps (None if nothing was stripped).
-    ``capture.STEP_CALLS`` counts the calls: a replay of captured
+    ``tracing.STEP_CALLS`` counts the calls: a replay of captured
     graphs makes none."""
     STEP_CALLS["_run_ir_steps"] += 1
+    if tracing.ON:
+        tracing.begin()
     use_pallas = strip_exponent and implementation == "pallas"
     exponent = None
     for si in steps:
@@ -131,21 +134,27 @@ def _run_ir_steps(ir, steps, temps, last_use, strip_exponent=False,
         if e is not None:
             exponent = e if exponent is None else exponent + e
         temps[ir.steps[si].out] = out
+    if tracing.ON:
+        tracing.end("executor.steps", len(steps))
     return exponent
 
 
 def _run_ir_step(ir, si, temps, last_use, strip_exponent, use_pallas):
     """One IR step over ``temps``: ``(out, log10 exponent or None)``,
     its operands freed at their last use."""
+    if tracing.ON:
+        tracing.begin()
     e = None
     step = ir.steps[si]
     if isinstance(step, SingleStep):
+        kind = "single"
         out = apply_single(temps[step.inp], step.in_legs, step.out_legs)
         if last_use.get(step.inp) == si:
             del temps[step.inp]
     else:
         x, y = temps[step.l], temps[step.r]
         if use_pallas and _pallas_step_ok(x, y, step):
+            kind = "bmm_absmax"
             out, absmax = pairwise_bmm_absmax(
                 x, y, step.l_legs, step.r_legs, step.out_legs
             )
@@ -155,6 +164,7 @@ def _run_ir_step(ir, si, temps, last_use, strip_exponent, use_pallas):
             out = out / scale
             e = torch.log10(scale)
         else:
+            kind = "pair"
             out = apply_pairwise(
                 x, y, step.l_legs, step.r_legs, step.out_legs
             )
@@ -165,6 +175,8 @@ def _run_ir_step(ir, si, temps, last_use, strip_exponent, use_pallas):
             del temps[step.l]
         if last_use.get(step.r) == si:
             del temps[step.r]
+    if tracing.ON:
+        tracing.end("executor.step", si, kind)
     return out, e
 
 
@@ -580,7 +592,9 @@ def make_full_contractor(
             return results[0]
         return _stack_chunks(tree, results, ir.output_legs)
 
-    full = _autojit(fn, dev) if autojit else fn
+    full = tracing.entry("full", tree.multiplicity)(
+        _autojit(fn, dev) if autojit else fn
+    )
     if slice_batch:
         full.batch = core.batch
     return full
@@ -638,6 +652,7 @@ def _cached_full(tree, device="cuda", strip_exponent=False,
     ))
 
 
+@tracing.entry("core", 1)
 def contract_core(tree, arrays, device="cuda", plane_dtype=torch.float32,
                   **kwargs):
     """Contract ``arrays`` (one slice, already sliced if applicable) on
@@ -649,6 +664,7 @@ def contract_core(tree, arrays, device="cuda", plane_dtype=torch.float32,
     return fn(*to_tensors(arrays, dev, plane_dtype))
 
 
+@tracing.entry("slice", 1)
 def contract_slice(tree, arrays, i, device="cuda", **kwargs):
     """Slice the full input arrays for slice ``i`` and contract."""
     return contract_core(
@@ -666,6 +682,7 @@ def _defaults(implementation, slice_batch):
     return implementation, slice_batch
 
 
+@tracing.entry("tree", lambda tree, *args, **kwargs: tree.multiplicity)
 def contract_tree(
     tree, arrays, device="cuda", plane_dtype=torch.float32,
     strip_exponent=False, implementation=None, slice_batch=None,

@@ -31,6 +31,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..utils.misc import prod
 
 # -- planning limits ----------------------------------------------------------
@@ -897,9 +898,14 @@ def run_chain_cuda(spec, x_flat, ys):
     ``chain_tile_plan(spec)`` on CUDA float32 planes, for one slice or
     for a whole batch (:func:`run_chain`'s batched forms: one launch per
     pass either way, a gate read by slice through its slice stride).
-    ``run_chain_cuda.launches`` counts the launches."""
+    ``run_chain_cuda.launches`` counts the launches. Each pass is a
+    ``kernel.launch`` span (``tracing``); the first takes in the checks
+    before it."""
     from ._build import load_library
 
+    if tracing.ON:
+        tracing.begin()
+    x_in = x_flat
     if x_flat.device.type != "cuda":
         raise ValueError("run_chain_cuda needs a CUDA tensor")
     if x_flat.dtype != torch.float32 or x_flat.dim() not in (1, 2):
@@ -933,6 +939,8 @@ def run_chain_cuda(spec, x_flat, ys):
     lib = load_library()
     stream = torch.cuda.current_stream(x_flat.device).cuda_stream
     for ps, meta, tables in _kernel_args(spec, x_flat.device):
+        if tracing.ON and x_flat is not x_in:
+            tracing.begin()
         meta = list(meta)
         first, stop = ps.gates
         for j, y in enumerate(ys[first:stop]):
@@ -951,6 +959,8 @@ def run_chain_cuda(spec, x_flat, ys):
                 out.stride(0),
             ]
         meta = (ctypes.c_int64 * len(meta))(*meta)
+        if tracing.ON:
+            launched = tracing.now()
         rc = lib.ctg_gate_chain_f32(
             x_flat.data_ptr(), out.data_ptr(), tables.data_ptr(), meta,
             len(meta), stream,
@@ -960,6 +970,12 @@ def run_chain_cuda(spec, x_flat, ys):
                 f"gate-chain kernel launch failed: CUDA error {rc}"
             )
         run_chain_cuda.launches += 1
+        if tracing.ON:
+            tracing.end(
+                "kernel.launch", "gate_chain", run_chain_cuda.launches - 1,
+                (tuple(x_flat.shape), tuple(out.shape),
+                 [tuple(y.shape) for y in ys[first:stop]]), launched,
+            )
         x_flat = out
     return x_flat
 

@@ -19,10 +19,11 @@ graphs (``capture.py``).
 
 import torch
 
+from .. import tracing
 from .._device import resolve_device, resolve_plane_dtype
+from ..tracing import STEP_CALLS
 from ..utils.misc import prod
 from .capture import (
-    STEP_CALLS,
     Graphs,
     clone_outputs,
     load,
@@ -37,6 +38,7 @@ from .pairwise import apply_pairwise, apply_single
 from .slices import (
     SliceBatch,
     _add_exponents,
+    _flat_ids,
     _ids_to_digits,
     device_digits,
 )
@@ -402,9 +404,11 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
     numel)``, one row per slice; the others hold ``(2 * numel,)`` and
     are shared by every slice. A step with a batched operand gives a
     batched result, and its strip is per slice: the exponent is then a
-    ``(S,)`` vector. ``capture.STEP_CALLS`` counts the calls: a replay
+    ``(S,)`` vector. ``tracing.STEP_CALLS`` counts the calls: a replay
     of captured graphs makes none."""
     STEP_CALLS["_exec_steps_split"] += 1
+    if tracing.ON:
+        tracing.begin()
     exponent = None
 
     def store(out_id, flat, shape, si, srcs):
@@ -413,6 +417,8 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
         for vid in srcs:
             if last_use.get(vid) == si:
                 temps.pop(vid, None)
+        if tracing.ON:  # every step ends here
+            tracing.end("executor.step", si, plans[si][0])
 
     def strip(flat):
         # max over both planes, as the reference: max(|re|, |im|), not
@@ -432,6 +438,8 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
     si = None
     try:
         for si in steps:
+            if tracing.ON:
+                tracing.begin()
             kind, info = plans[si]
             if kind == "single":
                 step = info
@@ -603,6 +611,8 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
         # the plan step that raised: a refused capture names it
         note_step(err, f"plan step {si} ({plans[si][0]})")
         raise
+    if tracing.ON:
+        tracing.end("executor.steps", len(steps))
     return exponent
 
 
@@ -927,7 +937,12 @@ class _StagedProgram:
     def digits(self, slice_ids):
         """The host digit matrix of ``slice_ids``, decoded exactly
         (``slices._ids_to_digits``) after the batch's checks."""
-        return _ids_to_digits(self.batch._ids(slice_ids), self.batch.meta)
+        if tracing.ON:
+            tracing.begin()
+        digits = _ids_to_digits(self.batch._ids(slice_ids), self.batch.meta)
+        if tracing.ON:
+            tracing.end("slices.select", 0)
+        return digits
 
     def fold(self, planes):
         """``SliceBatch.fold`` over the raw ``planes``."""
@@ -1025,6 +1040,10 @@ class _StagedProgram:
         return (res, e) if self.strip else res
 
 
+def _count_ids(planes, slice_ids, *args, **kwargs):
+    return len(_flat_ids(slice_ids))
+
+
 def make_grouped_contractor(
     tree, device="cuda", plane_dtype=torch.float32, gate_mode="auto",
     strip_exponent=False, slice_batch=None, slice_batch_mode="auto",
@@ -1098,6 +1117,7 @@ def make_grouped_contractor(
         strip_exponent, slice_batch, slice_batch_mode, constants,
     )
     if slice_batch:
+        @tracing.entry("grouped", _count_ids)
         def fn(planes, slice_ids, folded=None, digits=None):
             prog.check(planes)
             if digits is None:
@@ -1117,6 +1137,7 @@ def make_grouped_contractor(
         fn.mode = prog.mode
         fn.batch = prog.batch
     else:
+        @tracing.entry("grouped", 1)
         def fn(*planes):
             prog.check(planes)
             return run_stages(prog.stages, (planes, None, None))

@@ -20,6 +20,7 @@ which a CUDA graph replays for whatever digits the buffer then holds;
 import numpy as np
 import torch
 
+from .. import tracing
 from ..tree import get_slice_strides
 
 
@@ -46,15 +47,20 @@ def slice_arrays(tree, arrays, i, axis_offset=0):
     views on their device); ``axis_offset=1`` addresses plane stacks,
     whose leading axis is the plane.
     """
+    if tracing.ON:
+        tracing.begin()
     key = tree.slice_key(i)
+    per_input = _sliced_axes_per_input(tree)
     out = []
-    for arr, axes in zip(arrays, _sliced_axes_per_input(tree)):
+    for arr, axes in zip(arrays, per_input):
         for ax, ix in axes:
             if isinstance(arr, torch.Tensor):
                 arr = arr.select(ax + axis_offset, key[ix])
             else:
                 arr = np.take(arr, key[ix], axis=ax + axis_offset)
         out.append(arr)
+    if tracing.ON:
+        tracing.end("slices.select", sum(1 for axes in per_input if axes))
     return out
 
 
@@ -123,10 +129,16 @@ def _select_input(a, axes, meta, digits, axis_offset=0):
 def device_digits(digits, device):
     """``_ids_to_digits``'s matrix as an int64 tensor on ``device``: one
     copy, from pinned memory and non-blocking on a CUDA device."""
+    if tracing.ON:
+        tracing.begin()
     t = torch.from_numpy(np.ascontiguousarray(digits, dtype=np.int64))
     if torch.device(device).type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+        out = t.pin_memory().to(device, non_blocking=True)
+    else:
+        out = t.to(device)
+    if tracing.ON:
+        tracing.end("inputs.upload", 1, t.nbytes)
+    return out
 
 
 def gather_input(a, axes, meta, digits, axis_offset=0):
@@ -282,20 +294,30 @@ class SliceBatch:
     def select_once(self, arrays, prepare, axis_offset=0):
         """{input: its prepared view} of the slice-invariant inputs,
         selected at their projected indices."""
-        return {
+        if tracing.ON:
+            tracing.begin()
+        out = {
             i: self._select(arrays, i, prepare, axis_offset)
             for i in self.inputs_once
         }
+        if tracing.ON:
+            tracing.end("slices.select", len(out))
+        return out
 
     def gather_each(self, arrays, digits, axis_offset=0):
         """{input: ``(S, numel)``} of the varying inputs, each gathered
         for the ``S`` rows of the device ``digits`` (``gather_input``)."""
-        return {
+        if tracing.ON:
+            tracing.begin()
+        out = {
             i: gather_input(
                 arrays[i], self.axes[i], self.meta, digits, axis_offset
             ).reshape(digits.shape[0], -1)
             for i in self.inputs_each
         }
+        if tracing.ON:
+            tracing.end("slices.select", len(out))
+        return out
 
     def fold(self, arrays, run_steps, prepare, axis_offset=0):
         """Run the folded steps once over the constant inputs of
@@ -352,9 +374,13 @@ class SliceBatch:
             arrays, run_steps, prepare, axis_offset, folded
         )
         for row in digits:
+            if tracing.ON:
+                tracing.begin()
             temps = dict(base)
             for i in self.inputs_each:
                 temps[i] = self._select(arrays, i, prepare, axis_offset, row)
+            if tracing.ON:
+                tracing.end("slices.select", len(self.inputs_each))
             e = run_steps(self.steps_each, temps, self.last_use)
             yield temps, _add_exponents(e_once, e)
             del temps

@@ -872,3 +872,55 @@ def test_a_capture_that_fails_raises(cuda, monkeypatch):
     full = ctt.make_full_contractor(small, cuda, autojit=True)
     with pytest.raises(CaptureError, match="IR step"):
         full(*tensors)
+
+
+@pytest.mark.parametrize("mode", ["scan", "vmap"])
+def test_launch_spans_match_the_wrappers(cuda, mode):
+    """One ``kernel.launch`` span per launch that each wrapper counts,
+    numbered as it counts them, with the operand shapes that the
+    benchmark's ``Recorder`` logs for the same calls (a chain's passes
+    composed: the first pass's x, the last's out, every pass's gates)."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch import tracing
+    from test_torch_tracing import _gate_tree, _stripped_tree
+    from tnbench.trace import Recorder
+
+    tree, arrays = _gate_tree()
+    planes = ctt.to_plane_tensors(arrays, cuda)
+    fn = ctt.make_grouped_contractor(tree, cuda, slice_batch=4,
+                                     slice_batch_mode=mode)
+    stripped, sarrays = _stripped_tree()
+    calls = [
+        lambda: fn(planes, [0, 1, 2, 3]),
+        lambda: ctt.contract_tree(stripped, sarrays, device=cuda,
+                                  strip_exponent=True,
+                                  implementation="pallas"),
+    ]
+    for call in calls:  # warm: the kernels' build and tables
+        call()
+    rec = Recorder()
+    with rec, tracing.record():
+        before = rec.launches()
+        for call in calls:
+            call()
+        after = rec.launches()
+    torch.cuda.synchronize()
+    launches = [r for r in tracing.records() if r.name == "kernel.launch"]
+    for kernel in ("gate_chain", "bmm_absmax"):
+        mine = [r for r in launches if r.attrs["kernel"] == kernel]
+        assert after[kernel] > before[kernel]
+        assert [r.attrs["seq"] for r in mine] == list(
+            range(before[kernel], after[kernel])
+        )
+    chains = {}
+    for r in launches:
+        if r.attrs["kernel"] == "gate_chain":
+            chains.setdefault(r.parent, []).append(r.attrs["shapes"])
+    composed = [
+        (passes[0][0], passes[-1][1], [g for p in passes for g in p[2]])
+        for passes in chains.values()
+    ]
+    assert composed == rec.log["gate_chain"]
+    assert [
+        r.attrs["shapes"] for r in launches if r.attrs["kernel"] == "bmm_absmax"
+    ] == rec.log["bmm_absmax"]
