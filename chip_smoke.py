@@ -64,7 +64,7 @@ Run from the root of a checkout. Phases:
    the Sycamore-53 m=20 t28 plan (``plans/sycamore53_m20_t28.json``) at
    full size, float32 inputs made on the card from a seeded
    ``torch.Generator``, at phase 3's limit; each chain's launches equal
-   its passes of ``chain_tile_plan`` (40 passes in all, two chains of
+   its passes of ``chain_tile_plan`` (39 passes in all, one chain of
    two); kernel, plain and library times and the bound per chain, as in
    phase 3;
 11. the m=20 main path: one batched call of slice ids 0..15
@@ -392,7 +392,7 @@ LATTICE = "lattice7x7_d16_s16"
 T27 = "sycamore53_m10_t27"
 M20 = "sycamore53_m20_t28"
 M20_SLICES = 16     # the sidecar's largest partial sum
-M20_PASSES = 40     # chain_tile_plan's passes over the 38 chains of M20
+M20_PASSES = 39     # chain_tile_plan's passes over the 38 chains of M20
 SEED = 1234
 PROFILE_WALL_PASSES = 5
 # 4 slices in one batched call through the front end (phase 13), whose
@@ -925,7 +925,7 @@ def phase_chains(dev):
 def phase_chains_m20(dev):
     """Every chain of the m20-t28 plan, kernel vs plain at full size,
     with the library call's time and the bound; the plan's passes
-    checked (40 in all, two chains of two)."""
+    checked (39 in all, one chain of two)."""
     tree, _, _ = _load_instance(M20)
     recs = _chain_recs(tree)
     gen = torch.Generator(device=dev)
@@ -935,10 +935,10 @@ def phase_chains_m20(dev):
         lambda spec, kn: _chain_inputs_on_card(gen, spec, kn, dev),
     )
     passes = [r[5] for r in rows]
-    if sum(passes) != M20_PASSES or sorted(passes)[-3:] != [1, 2, 2]:
+    if sum(passes) != M20_PASSES or sorted(passes)[-2:] != [1, 2]:
         raise AssertionError(
             f"m20 chains: passes {passes}, expected {M20_PASSES} in all "
-            "with two chains of two"
+            "with one chain of two"
         )
     return rows
 

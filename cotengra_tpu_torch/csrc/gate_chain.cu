@@ -14,42 +14,66 @@
 // out's innermost untouched legs until it covers 32 contiguous floats
 // of both (one 128-byte line per warp access); the remaining untouched
 // legs are the batch. The host (ops/gate_chains.py::chain_tile_plan)
-// cuts the chain into passes (the whole chain on the m=10 plans), lays
-// each tile out in x's leg order of the moment (the order changes from
-// gate to gate, as x's does) and hands over index tables: the x offset
-// of each input tile position (gather) and, per gate, the offsets of
-// y's K and N legs and of the tile's other legs in the tiles before and
-// after it - for the pass's last gate, after it means in out. Each index
+// cuts the chain into passes, lays each tile out in x's leg order of the
+// moment (the order changes from gate to gate, as x's does), cuts each
+// pass's gates into groups and hands over index tables: the x offset of
+// each input tile position (gather) and, per group, the offsets of the
+// tile's legs that the group leaves alone, in the tiles before and after
+// it - for the pass's last group, after it means in out. Each index
 // space is stored as two short tables, offset(i) = hi[i / L] + lo[i % L].
 //
-// What bounds it on an H100: bytes. Per batch element a gate does
-// 8*K*N flops on 8*(K+N) bytes of x and out, at most 8 flop/B on the
-// m=10 plans, below the ~20 flop/B where the card's fp32 units would
-// limit instead; so nothing here spends effort on tensor cores (whose
+// Register groups. A group is a run of consecutive gates whose legs,
+// with every leg made and contracted between them, take at most
+// MAX_REG_BITS bits a thread at once. Each thread takes one position of
+// the legs the group leaves, for one batch element, computes its offsets
+// once, loads the group's 2^B values (B <= 4, one bit a slot) into
+// registers, applies every gate of the group there and stores the
+// results once: one shared-memory round trip and one __syncthreads() a
+// group, not a gate. The host lays the slots out so that each gate finds
+// its contracted bits in consecutive slots p..p+kb-1 (its y rows and
+// columns permuted to that order as the block loads y) and leaves its
+// new bits in p..p+nb-1, so every register index is known at compile
+// time (reg_gate<B, kb, nb, p>). A gate whose legs take more than four
+// bits, whose contracted and created bits differ by more than one, or
+// whose legs are not powers of two, runs alone item by item
+// (apply_gate): a work item is one position of its other legs and up
+// to 8 of its outputs.
+//
+// What bounds it on an H100: neither bytes nor flops alone. On the
+// m=20 plan every chain does at most 12 flop/B (most 4-8), below the
+// ~20 flop/B where the card's fp32 units would limit; summed over a
+// slice the chains need 9.2 ms at the HBM rate and 2.8 ms of fp32 FMAs
+// at 67 TFLOP/s. So nothing here spends effort on tensor cores (whose
 // TF32 would also cost accuracy, and wgmma wants 64-row tiles that a
-// K, N <= 32 gate does not fill) and everything on moving each byte of x
-// and out once. Persistent blocks (one or two per SM) walk over batch
-// tiles: a batch tile is batch_tile batch elements x the whole tile of
-// legs. Its x planes are gathered into shared memory with cp.async in a
-// ring of up to 4 batch tiles (the host picks the depth that keeps the
-// most bytes in flight), while the block computes an earlier one. The
-// pass's gates run from buffer to buffer in shared memory, a
-// __syncthreads() between gates; the last gate writes its outputs
-// straight to out, in the output's leg order, so stores overlap the
-// arithmetic and no final shared-memory round trip is made. Neighbouring
-// threads take neighbouring tile positions, which the tile's innermost
-// 32 floats make neighbouring addresses in x and out. TMA does not fit:
-// a tile's legs are scattered through x with up to ~21 distinct strides,
-// which no 5-D box describes, and a gather of 128-byte runs is what
-// cp.async does well.
+// K, N <= 32 gate does not fill). Register groups take the instructions
+// around the FMAs out of the gate loop (per output item three divisions,
+// six table reads and a round trip through shared memory per gate
+// before); what is left is the gather's 4-byte cp.async and per-element
+// index maths, and FMAs that overlap the memory traffic only as far as
+// a block's warps allow (PERF.md). Persistent blocks (one or two per SM)
+// walk over batch tiles: a batch tile is batch_tile batch elements x the
+// whole tile of legs. Its x planes are gathered into shared memory with
+// cp.async in a ring of up to 4 batch tiles (the host picks the depth
+// that keeps the most bytes in flight), while the block computes an
+// earlier one. The groups run from buffer to buffer in shared memory;
+// the last group writes its outputs straight to out, in the output's
+// leg order, so stores overlap the arithmetic. Neighbouring threads
+// take neighbouring tile positions, which the tile's innermost 32 floats
+// make neighbouring addresses in x and out. TMA does not fit: a tile's
+// legs are scattered through x with up to ~21 distinct strides, which no
+// 5-D box describes, and a gather of 128-byte runs is what cp.async does
+// well.
 //
 // Shared memory per block (the host's _pass_smem_bytes counts the same):
 // every gate's y (K*N complex each, at most 8 x 512), the ring slots of
-// the input tile and up to two work buffers of the largest intermediate
-// tile (complex pairs, per batch element), the batch offsets (int64,
-// x and out, ring depth + 2 tiles) and the int32 index tables; at most
-// 227 KB (requested above 48 KB with cudaFuncSetAttribute). Blocks of
-// 256 threads where two share an SM, else 512.
+// the input tile and the work buffers of the tiles between groups
+// (complex pairs, per batch element): one, which takes every other such
+// tile while the ring slot of the tile, free once the first group has
+// read it, takes the rest, where the slot holds them; else two. Then the
+// batch offsets (int64, x and out, ring depth + 2 tiles) and the int32
+// index tables; at most 227 KB (requested above 48 KB with
+// cudaFuncSetAttribute). Blocks of 256 threads where two share an SM,
+// else 512.
 //
 // Index arithmetic: HBM offsets are 64-bit (the m=20 plans reach 2^30
 // plane elements); counters are 32-bit, divided by precomputed
@@ -78,8 +102,10 @@
 #define MAX_THREADS 512
 #define MAX_STAGES 4
 #define SMEM_LIMIT 232448
-#define META_HEAD 15
-#define META_GATE 13
+#define MAX_REG_BITS 4
+#define META_HEAD 17
+#define META_GATE 11
+#define META_GROUP (12 + 2 * MAX_REG_BITS)
 #define MAX_SLICES 65535
 
 // n / d for 0 <= n < 2^32 and 1 <= d < 2^31 by one multiply-high
@@ -110,14 +136,25 @@ struct ChainGate {
   const float* y;            // (2, K, N) on the device
   int64_t y_slice;           // floats from one slice's y to the next's
   int K, N, tin, tout;       // tile sizes before and after the gate
-  int koff, noff;            // table positions: y's K and N legs
-  int oin_hi, oin_lo, oout_hi, oout_lo;  // the tile's other legs
+  int koff, noff;            // table positions: y's K and N legs, or in a
+                             // register group perm_k and perm_n
+  int kb, nb, p;             // register group: the gate's field
+  int reg;                   // 1 in a register group
   int yoff;                  // this gate's y (float2) in shared memory
-  FastDiv O, L;              // other-leg count tin / K; len(lo)
+};
+
+// gates first..stop-1 of the pass between two trips through shared
+// memory: in registers (slots >= 0) or one gate item by item (slots -1)
+struct ChainGroup {
+  int slots, first, stop, tin, tout;  // tile sizes before and after it
+  int oin_hi, oin_lo, oout_hi, oout_lo;  // the tile's legs it leaves
+  int empty_in, empty_out;   // slots empty before and after, as bits
+  int sin[MAX_REG_BITS], sout[MAX_REG_BITS];  // each slot's stride
+  FastDiv O, L;              // positions of the legs it leaves; len(lo)
 };
 
 struct PassArgs {
-  int ngates, E, S, nb, twork, nwork, table_len, kn_len;
+  int ngates, ngroups, E, S, nb, twork, nwork, table_len, kn_len;
   int g_hi, g_lo;
   int64_t n_tiles, in_plane, out_plane;
   int64_t x_slice, out_slice;  // floats between slices (0: shared x)
@@ -126,6 +163,7 @@ struct PassArgs {
   FastDiv b_size[MAX_BATCH_DIMS];
   int64_t b_in[MAX_BATCH_DIMS], b_out[MAX_BATCH_DIMS];
   ChainGate g[MAX_PASS_GATES];
+  ChainGroup grp[MAX_PASS_GATES];
 };
 
 __device__ __forceinline__ void cp_async4(float* smem_dst, const float* src) {
@@ -194,31 +232,33 @@ __device__ void issue_load(const PassArgs& a, const float* __restrict__ x,
   }
 }
 
-// one gate from src to dst inside shared memory (complex pairs) or, for
-// the pass's last gate (TO_OUT), from src to out: there the output
-// offsets are out's, from the batch element's offset bout[e]. A work item
-// is one position o of the tile's other legs of one batch element, and
-// NB of the gate's N outputs there: KN > 0 holds the K inputs in
-// registers (K == KN) and runs 2 * NB independent sums; KN == 0 takes any
-// K, one output at a time. Items run o fastest, so the lanes of a warp
-// read and write neighbouring positions (neighbouring addresses of out
-// where its innermost legs are the tile's).
+// The per-item path: one gate (group G) from src to dst inside shared
+// memory (complex pairs) or, for the pass's last group (TO_OUT), from
+// src to out: there the output offsets are out's, from the batch
+// element's offset bout[e]. A work item is one position o of the tile's
+// other legs of one batch element, and NB of the gate's N outputs there:
+// KN > 0 holds the K inputs in registers (K == KN) and runs 2 * NB
+// independent sums; KN == 0 takes any K, one output at a time. Items run
+// o fastest, so the lanes of a warp read and write neighbouring
+// positions (neighbouring addresses of out where its innermost legs are
+// the tile's).
 template <int KN, int NB, bool TO_OUT>
-__device__ void apply_gate(const ChainGate& g, const float2* src,
+__device__ void apply_gate(const ChainGate& g, const ChainGroup& G,
+                           const float2* src,
                            float2* dst, float* __restrict__ out,
                            const int64_t* bout, int64_t out_plane,
                            const float2* sy, const int* tab, int ev,
                            const FastDiv& Ediv) {
   const int K = KN > 0 ? KN : g.K;
-  const int N = g.N, O = (int)g.O.d, L = (int)g.L.d, E = (int)Ediv.d;
+  const int N = g.N, O = (int)G.O.d, L = (int)G.L.d, E = (int)Ediv.d;
   const int tin = g.tin, tout = g.tout;
   const float2* y = sy + g.yoff;
   const int* koff = tab + g.koff;
   const int* noff = tab + g.noff;
-  const int* oin_hi = tab + g.oin_hi;
-  const int* oin_lo = tab + g.oin_lo;
-  const int* oout_hi = tab + g.oout_hi;
-  const int* oout_lo = tab + g.oout_lo;
+  const int* oin_hi = tab + G.oin_hi;
+  const int* oin_lo = tab + G.oin_lo;
+  const int* oout_hi = tab + G.oout_hi;
+  const int* oout_lo = tab + G.oout_lo;
   // y's K-leg offsets are the same for every item: held in registers
   int ko[KN > 0 ? KN : 1];
   if constexpr (KN > 0) {
@@ -227,12 +267,12 @@ __device__ void apply_gate(const ChainGate& g, const float2* src,
   }
   const int total = E * O * (N / NB);
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int eb = (int)fdiv(i, g.O);
+    const int eb = (int)fdiv(i, G.O);
     const int o = i - eb * O;
     const int nb = (int)fdiv(eb, Ediv);
     const int e = eb - nb * E;
     if (e >= ev) continue;
-    const int q = (int)fdiv(o, g.L);
+    const int q = (int)fdiv(o, G.L);
     const int r = o - q * L;
     const float2* s = src + e * tin + oin_hi[q] + oin_lo[r];
     const int n0 = nb * NB;
@@ -292,60 +332,254 @@ __device__ void apply_gate(const ChainGate& g, const float2* src,
 // NB outputs an item: 8 where K >= 8, else 4 where N allows (registers:
 // K inputs and 2 * NB sums)
 template <int KN, bool TO_OUT>
-__device__ void apply_gate_nb(const ChainGate& g, const float2* src,
+__device__ void apply_gate_nb(const ChainGate& g, const ChainGroup& G,
+                              const float2* src,
                               float2* dst, float* out, const int64_t* bout,
                               int64_t out_plane, const float2* sy,
                               const int* tab, int ev, const FastDiv& Ediv) {
   if (KN >= 8 && g.N % 8 == 0)
-    apply_gate<KN, 8, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab, ev,
+    apply_gate<KN, 8, TO_OUT>(g, G, src, dst, out, bout, out_plane, sy, tab, ev,
                               Ediv);
   else if (g.N % 4 == 0)
-    apply_gate<KN, 4, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab, ev,
+    apply_gate<KN, 4, TO_OUT>(g, G, src, dst, out, bout, out_plane, sy, tab, ev,
                               Ediv);
   else if (g.N % 2 == 0)
-    apply_gate<KN, 2, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab, ev,
+    apply_gate<KN, 2, TO_OUT>(g, G, src, dst, out, bout, out_plane, sy, tab, ev,
                               Ediv);
   else
-    apply_gate<KN, 1, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab, ev,
+    apply_gate<KN, 1, TO_OUT>(g, G, src, dst, out, bout, out_plane, sy, tab, ev,
                               Ediv);
 }
 
 template <bool TO_OUT>
-__device__ void apply_any_gate(const ChainGate& g, const float2* src,
+__device__ void apply_any_gate(const ChainGate& g, const ChainGroup& G,
+                               const float2* src,
                                float2* dst, float* out, const int64_t* bout,
                                int64_t out_plane, const float2* sy,
                                const int* tab, int ev, const FastDiv& Ediv) {
   switch (g.K) {
     case 2:
-      apply_gate_nb<2, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab,
+      apply_gate_nb<2, TO_OUT>(g, G, src, dst, out, bout, out_plane, sy, tab,
                                ev, Ediv);
       break;
     case 4:
-      apply_gate_nb<4, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab,
+      apply_gate_nb<4, TO_OUT>(g, G, src, dst, out, bout, out_plane, sy, tab,
                                ev, Ediv);
       break;
     case 8:
-      apply_gate_nb<8, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab,
+      apply_gate_nb<8, TO_OUT>(g, G, src, dst, out, bout, out_plane, sy, tab,
                                ev, Ediv);
       break;
     case 16:
-      apply_gate_nb<16, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab,
+      apply_gate_nb<16, TO_OUT>(g, G, src, dst, out, bout, out_plane, sy, tab,
                                 ev, Ediv);
       break;
     case 32:
-      apply_gate_nb<32, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab,
+      apply_gate_nb<32, TO_OUT>(g, G, src, dst, out, bout, out_plane, sy, tab,
                                 ev, Ediv);
       break;
     default:
-      apply_gate<0, 1, TO_OUT>(g, src, dst, out, bout, out_plane, sy, tab,
+      apply_gate<0, 1, TO_OUT>(g, G, src, dst, out, bout, out_plane, sy, tab,
                                ev, Ediv);
+  }
+}
+
+// A register group: each thread holds the 2^B values of its group's
+// legs at one position of the tile's other legs (one slot a bit, slot 0
+// lowest: st[v] is the value where slot b reads bit b of v), applies
+// every gate of the group to them in registers and stores them once.
+// Every index below is known at compile time, so the state stays in
+// registers; the host lays the slots out so that each gate finds its
+// contracted bits in consecutive slots p..p+kb-1 and leaves its new bits
+// in p..p+nb-1 (its y loaded into shared memory with rows and columns
+// permuted to that order), and slots outside every gate's bits empty
+// where it creates more than it contracts.
+
+// y's row of N values from yk into v: 16-byte loads where N is even
+// (each gate's y starts on an even pair, so every row is aligned)
+template <int N>
+__device__ __forceinline__ void y_row(float2 (&v)[N], const float2* yk) {
+  if constexpr (N == 1) {
+    v[0] = yk[0];
+  } else {
+#pragma unroll
+    for (int n = 0; n < N; n += 2) {
+      const float4 w = *reinterpret_cast<const float4*>(yk + n);
+      v[n] = make_float2(w.x, w.y);
+      v[n + 1] = make_float2(w.z, w.w);
+    }
+  }
+}
+
+// st[h][n][l] = sum_k y[k][n] st[h][k][l] over the field of MB slots
+// from slot P: K = 2^KB inputs, N = 2^NB outputs, MB = max(KB, NB); the
+// field's values beyond K before the gate and beyond N after it are
+// empty
+template <int B, int KB, int NB, int P>
+__device__ __forceinline__ void reg_gate(float2 (&st)[1 << B],
+                                         const float2* __restrict__ y) {
+  constexpr int K = 1 << KB, N = 1 << NB;
+  constexpr int MB = KB > NB ? KB : NB, M = 1 << MB;
+  constexpr int LO = 1 << P, H = 1 << (B - MB - P);
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+#pragma unroll
+    for (int l = 0; l < LO; ++l) {
+      float2 acc[N];
+#pragma unroll
+      for (int n = 0; n < N; ++n) acc[n] = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float2 xk = st[(h * M + k) * LO + l];
+        float2 v[N];
+        y_row<N>(v, y + k * N);
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          acc[n].x = fmaf(v[n].x, xk.x, fmaf(-v[n].y, xk.y, acc[n].x));
+          acc[n].y = fmaf(v[n].x, xk.y, fmaf(v[n].y, xk.x, acc[n].y));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < N; ++n) st[(h * M + n) * LO + l] = acc[n];
+    }
+  }
+}
+
+// the gates a register group takes: kb and nb at most one apart (the
+// host sends the others item by item)
+#define REG_CASE(KB, NB, P)                                   \
+  case ((KB) * (MAX_REG_BITS + 1) + (NB)) * (MAX_REG_BITS + 1) + (P): \
+    if constexpr (((KB) > (NB) ? (KB) : (NB)) + (P) <= B)     \
+      reg_gate<B, KB, NB, P>(st, y);                          \
+    break;
+#define REG_PAIR(KB, NB)                                      \
+  REG_CASE(KB, NB, 0) REG_CASE(KB, NB, 1) REG_CASE(KB, NB, 2) \
+  REG_CASE(KB, NB, 3) REG_CASE(KB, NB, 4)
+
+template <int B>
+__device__ __forceinline__ void reg_gate_any(float2 (&st)[1 << B],
+                                             const float2* y, int kb, int nb,
+                                             int p) {
+  static_assert(MAX_REG_BITS == 4, "the cases below cover 4 slots");
+  switch ((kb * (MAX_REG_BITS + 1) + nb) * (MAX_REG_BITS + 1) + p) {
+    REG_PAIR(0, 0) REG_PAIR(0, 1) REG_PAIR(1, 0) REG_PAIR(1, 1)
+    REG_PAIR(1, 2) REG_PAIR(2, 1) REG_PAIR(2, 2) REG_PAIR(2, 3)
+    REG_PAIR(3, 2) REG_PAIR(3, 3) REG_PAIR(3, 4) REG_PAIR(4, 3)
+    REG_PAIR(4, 4)
+  }
+}
+#undef REG_PAIR
+#undef REG_CASE
+
+// offset of state index v: the strides of its set slots
+template <int B>
+__device__ __forceinline__ int slot_offset(const int (&st)[MAX_REG_BITS],
+                                           int v) {
+  int off = 0;
+#pragma unroll
+  for (int b = 0; b < B; ++b)
+    if (v >> b & 1) off += st[b];
+  return off;
+}
+
+// group G from src (a ring slot or a work buffer) to dst or, for the
+// pass's last group (to_out), to out. An item is one position o of the
+// legs G leaves, of one batch element; items run o fastest, as in
+// apply_gate.
+template <int B>
+__device__ __forceinline__ void run_reg_group(const PassArgs& a,
+                                              const ChainGroup& G,
+                              const float2* src, float2* dst,
+                              float* __restrict__ out, const int64_t* bout,
+                              const float2* sy, const int* tab, int ev,
+                              bool to_out) {
+  constexpr int S = 1 << B;
+  int sin[MAX_REG_BITS], sout[MAX_REG_BITS];
+#pragma unroll
+  for (int b = 0; b < MAX_REG_BITS; ++b) {
+    sin[b] = G.sin[b];
+    sout[b] = G.sout[b];
+  }
+  const int empty_in = G.empty_in, empty_out = G.empty_out;
+  const int O = (int)G.O.d, L = (int)G.L.d;
+  const int* oin_hi = tab + G.oin_hi;
+  const int* oin_lo = tab + G.oin_lo;
+  const int* oout_hi = tab + G.oout_hi;
+  const int* oout_lo = tab + G.oout_lo;
+  const int64_t out_plane = a.out_plane;
+  const int total = ev * O;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int e = (int)fdiv(i, G.O);
+    const int o = i - e * O;
+    const int q = (int)fdiv(o, G.L);
+    const int r = o - q * L;
+    const float2* s = src + e * G.tin + oin_hi[q] + oin_lo[r];
+    float2 st[S];
+#pragma unroll
+    for (int v = 0; v < S; ++v)
+      st[v] = (v & empty_in) ? make_float2(0.f, 0.f)
+                             : s[slot_offset<B>(sin, v)];
+    for (int j = G.first; j < G.stop; ++j) {
+      const ChainGate& g = a.g[j];
+      reg_gate_any<B>(st, sy + g.yoff, g.kb, g.nb, g.p);
+    }
+    const int oo = oout_hi[q] + oout_lo[r];
+    if (to_out) {
+      float* d = out + bout[e] + oo;
+#pragma unroll
+      for (int v = 0; v < S; ++v) {
+        if (v & empty_out) continue;
+        const int so = slot_offset<B>(sout, v);
+        d[so] = st[v].x;
+        d[out_plane + so] = st[v].y;
+      }
+    } else {
+      float2* d = dst + e * G.tout + oo;
+#pragma unroll
+      for (int v = 0; v < S; ++v)
+        if (!(v & empty_out)) d[slot_offset<B>(sout, v)] = st[v];
+    }
+  }
+}
+
+// one group: in registers, or a single gate on the per-item path
+__device__ __forceinline__ void run_group(const PassArgs& a,
+                                          const ChainGroup& G,
+                                          const float2* src, float2* dst,
+                                          float* __restrict__ out,
+                                          const int64_t* bout,
+                                          const float2* sy, const int* tab,
+                                          int ev, bool to_out) {
+  switch (G.slots) {
+    case 0:
+      run_reg_group<0>(a, G, src, dst, out, bout, sy, tab, ev, to_out);
+      break;
+    case 1:
+      run_reg_group<1>(a, G, src, dst, out, bout, sy, tab, ev, to_out);
+      break;
+    case 2:
+      run_reg_group<2>(a, G, src, dst, out, bout, sy, tab, ev, to_out);
+      break;
+    case 3:
+      run_reg_group<3>(a, G, src, dst, out, bout, sy, tab, ev, to_out);
+      break;
+    case 4:
+      run_reg_group<4>(a, G, src, dst, out, bout, sy, tab, ev, to_out);
+      break;
+    default:
+      if (to_out)
+        apply_any_gate<true>(a.g[G.first], G, src, nullptr, out, bout,
+                             a.out_plane, sy, tab, ev, a.Ediv);
+      else
+        apply_any_gate<false>(a.g[G.first], G, src, dst, nullptr, nullptr, 0,
+                              sy, tab, ev, a.Ediv);
   }
 }
 
 // Shared memory: every gate's y as (re, im) pairs (each gate's from an
 // even pair: 16-byte aligned rows where N is even), S ring slots of the
-// input tile [E][tin] and up to two work buffers [E][twork] (the tiles
-// between gates) of complex pairs, batch offsets [S + 2][x, out][E]
+// input tile [E][tin] and nwork work buffers [E][twork] (the tiles
+// between groups) of complex pairs, batch offsets [S + 2][x, out][E]
 // (int64), the index tables.
 // Tiles: this block takes tiles blockIdx.x + k * gridDim.x, k = 0, 1, ...;
 // tile k loads into slot k % S with its offsets in entry k % (S + 2).
@@ -372,8 +606,16 @@ gate_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
     const ChainGate& g = a.g[j];
     const int kn = g.K * g.N;
     const float* gy = g.y + slice * g.y_slice;
-    for (int i = threadIdx.x; i < kn; i += blockDim.x)
-      sy[g.yoff + i] = make_float2(gy[i], gy[kn + i]);
+    for (int i = threadIdx.x; i < kn; i += blockDim.x) {
+      // a register group's y in its field's order: row perm_k[k],
+      // column perm_n[n]
+      int at = i;
+      if (g.reg) {
+        const int k = i / g.N;
+        at = tables[g.koff + k] * g.N + tables[g.noff + i - k * g.N];
+      }
+      sy[g.yoff + i] = make_float2(gy[at], gy[kn + at]);
+    }
   }
 
   const int64_t step = gridDim.x;
@@ -411,18 +653,21 @@ gate_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
     const int ev = tile_count(a, tile);
     const float2* src = slots + (i % S) * PS;
     float2* dst = work;
-    for (int j = 0; j + 1 < a.ngates; ++j) {
-      apply_any_gate<false>(a.g[j], src, dst, nullptr, nullptr, 0, sy, tab,
-                            ev, a.Ediv);
+    const int64_t* bout = boff + ((i % (S + 2)) * 2 + 1) * E;
+    // the tile's ring slot takes every other intermediate tile where
+    // there is one work buffer: only the first group reads the tile, and
+    // the slot takes a new tile after the next iteration's barrier
+    float2* const other = a.nwork == 1 ? slots + (i % S) * PS : work + PW;
+    for (int j = 0;; ++j) {
+      // the last group writes out; what it reads is overwritten only
+      // after the next iteration's barrier
+      const bool last = j + 1 == a.ngroups;
+      run_group(a, a.grp[j], src, dst, out, bout, sy, tab, ev, last);
+      if (last) break;
       __syncthreads();
       src = dst;
-      dst = (dst == work) ? work + PW : work;
+      dst = (dst == work) ? other : work;
     }
-    // the last gate writes out; what it reads is overwritten only after
-    // the next iteration's barrier
-    apply_any_gate<true>(a.g[a.ngates - 1], src, nullptr, out,
-                         boff + ((i % (S + 2)) * 2 + 1) * E, a.out_plane,
-                         sy, tab, ev, a.Ediv);
   }
 }
 
@@ -451,13 +696,18 @@ int sm_count[MAX_DEVICES];
 Occupancy occupancy[OCC_SLOTS];
 int n_occupancy = 0;
 
-cudaError_t launch_config(int threads, int64_t smem, int* per_sm,
-                          int* sms) {
+cudaError_t launch_config(int threads, int64_t smem, int* per_sm, int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(config_mutex);
+  if (sm_count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sm_count[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = sm_count[dev];
   if (smem > smem_set[dev]) {
     err = cudaFuncSetAttribute(gate_chain_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -465,12 +715,6 @@ cudaError_t launch_config(int threads, int64_t smem, int* per_sm,
     if (err != cudaSuccess) return err;
     smem_set[dev] = smem;
   }
-  if (sm_count[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sm_count[dev],
-                                 cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  *sms = sm_count[dev];
   for (int i = 0; i < n_occupancy; ++i) {
     const Occupancy& o = occupancy[i];
     if (o.dev == dev && o.threads == threads && o.smem == smem) {
@@ -488,13 +732,17 @@ cudaError_t launch_config(int threads, int64_t smem, int* per_sm,
 }  // namespace
 
 // meta (host memory, int64), as ops/gate_chains.py::_pass_kernel_args
-// writes it: a header (gates, batch tile, ring stages, batch runs,
-// largest intermediate tile, batch count, x and out elements per plane,
-// table length, then hi position, lo position and len(lo) of the
-// gather, then slices, x and out slice strides); per gate (y pointer,
-// K, N, tile in, tile out, koff, noff, oin hi, oin lo, oout hi, oout
-// lo, len(lo) of oin and oout, y slice stride); per batch run (size,
-// x stride, out stride). tables: the int32 index tables on the device.
+// writes it: a header (gates, batch tile, ring stages, batch runs, work
+// buffer tile, batch count, x and out elements per plane, table length,
+// then hi position, lo position and len(lo) of the gather, then slices,
+// x and out slice strides, then groups and work buffers); per gate (y
+// pointer, K, N, tile in, tile out, koff, noff, y slice stride, then kb,
+// nb and p of its field in a register group);
+// per group (slots or -1 on the per-item path, first and stop gate, tile
+// in, tile out, oin hi, oin lo, oout hi, oout lo, len(lo) of oin and
+// oout, empty slots before and after, MAX_REG_BITS slot strides before
+// and as many after); per batch run (size, x stride, out stride).
+// tables: the int32 index tables on the device.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an argument block the kernel cannot take.
 extern "C" int ctg_gate_chain_f32(const float* x, float* out,
@@ -515,9 +763,12 @@ extern "C" int ctg_gate_chain_f32(const float* x, float* out,
   const int64_t nslice = meta[12];
   a.x_slice = meta[13];
   a.out_slice = meta[14];
+  a.ngroups = (int)meta[15];
+  a.nwork = (int)meta[16];
   if (a.ngates < 1 || a.ngates > MAX_PASS_GATES || a.nb < 0 ||
-      a.nb > MAX_BATCH_DIMS ||
-      meta_len != META_HEAD + META_GATE * a.ngates + 3 * a.nb ||
+      a.nb > MAX_BATCH_DIMS || a.ngroups < 1 || a.ngroups > a.ngates ||
+      meta_len != META_HEAD + META_GATE * a.ngates +
+                      META_GROUP * a.ngroups + 3 * a.nb ||
       a.E < 1 || a.S < 2 || a.S > MAX_STAGES || a.twork < 0 ||
       meta[4] >= ((int64_t)1 << 24) || n_batch < 0 || a.in_plane < 0 ||
       a.out_plane < 0 || a.in_plane >= ((int64_t)1 << 31) ||
@@ -526,7 +777,8 @@ extern "C" int ctg_gate_chain_f32(const float* x, float* out,
       a.x_slice < 0 || a.out_slice < 0 ||
       (nslice > 1 && a.out_slice < 2 * a.out_plane))
     return bad;
-  a.nwork = a.ngates - 1 < 2 ? a.ngates - 1 : 2;
+  if (a.nwork < 0 || a.nwork > 2 || (a.ngroups > 1) != (a.nwork > 0))
+    return bad;
   a.n_batch = (uint32_t)n_batch;
   a.n_tiles = (n_batch + a.E - 1) / a.E;
 
@@ -535,14 +787,14 @@ extern "C" int ctg_gate_chain_f32(const float* x, float* out,
   for (int j = 0; j < a.ngates; ++j, p += META_GATE) {
     ChainGate& g = a.g[j];
     g.y = reinterpret_cast<const float*>(p[0]);
-    g.y_slice = p[12];
-    const int64_t K = p[1], N = p[2], tin = p[3], tout = p[4], L = p[11];
-    // the tiles between gates live in the work buffers
+    g.y_slice = p[7];
+    const int64_t K = p[1], N = p[2], tin = p[3], tout = p[4];
     if (K < 1 || N < 1 || K * N > MAX_GATE_COMBOS || tin < 1 || tout < 1 ||
         tin >= ((int64_t)1 << 24) || tout >= ((int64_t)1 << 24) ||
-        (j > 0 && tin > a.twork) || (j + 1 < a.ngates && tout > a.twork) ||
-        tin % K || tin / K * N != tout || L < 1 || (tin / K) % L ||
-        g.y == nullptr || g.y_slice < 0)
+        tin % K || tin / K * N != tout || g.y == nullptr || g.y_slice < 0 ||
+        !in_table(p[5], K, a.table_len) || !in_table(p[6], N, a.table_len) ||
+        p[8] < 0 || p[9] < 0 || p[10] < 0 || p[8] > MAX_REG_BITS ||
+        p[9] > MAX_REG_BITS || p[10] > MAX_REG_BITS)
       return bad;
     if (j > 0 && a.g[j - 1].tout != tin) return bad;
     g.K = (int)K;
@@ -551,21 +803,73 @@ extern "C" int ctg_gate_chain_f32(const float* x, float* out,
     g.tout = (int)tout;
     g.koff = (int)p[5];
     g.noff = (int)p[6];
-    g.oin_hi = (int)p[7];
-    g.oin_lo = (int)p[8];
-    g.oout_hi = (int)p[9];
-    g.oout_lo = (int)p[10];
-    const int64_t O = tin / K;
-    if (!in_table(p[5], K, a.table_len) || !in_table(p[6], N, a.table_len) ||
-        !in_table(p[7], O / L, a.table_len) ||
-        !in_table(p[8], L, a.table_len) ||
-        !in_table(p[9], O / L, a.table_len) ||
-        !in_table(p[10], L, a.table_len))
-      return bad;
-    g.O = make_div((uint32_t)O);
-    g.L = make_div((uint32_t)L);
+    g.kb = (int)p[8];
+    g.nb = (int)p[9];
+    g.p = (int)p[10];
     g.yoff = kn_len;
     kn_len += (int)((K * N + 1) / 2 * 2);
+  }
+  for (int j = 0; j < a.ngroups; ++j, p += META_GROUP) {
+    ChainGroup& G = a.grp[j];
+    G.slots = (int)p[0];
+    G.first = (int)p[1];
+    G.stop = (int)p[2];
+    const int64_t tin = p[3], tout = p[4], L = p[9];
+    // groups cover the gates in order, each with its gates' tiles; the
+    // tiles between them go to the work buffers in turns, or (one work
+    // buffer) to it and to the ring slot of the tile in turns
+    const int64_t room = a.nwork == 1 && j % 2 ? a.g[0].tin : a.twork;
+    if (p[1] != (j == 0 ? 0 : a.grp[j - 1].stop) || p[2] <= p[1] ||
+        p[2] > a.ngates || (j + 1 == a.ngroups && p[2] != a.ngates) ||
+        p[0] < -1 || p[0] > MAX_REG_BITS ||
+        tin != a.g[G.first].tin || tout != a.g[G.stop - 1].tout ||
+        (j + 1 < a.ngroups && tout > room))
+      return bad;
+    G.tin = (int)tin;
+    G.tout = (int)tout;
+    int64_t O = 0;
+    if (G.slots < 0) {
+      // one gate, item by item
+      if (G.stop != G.first + 1) return bad;
+      O = tin / a.g[G.first].K;
+    } else {
+      const int full = (1 << G.slots) - 1;
+      G.empty_in = (int)p[10];
+      G.empty_out = (int)p[11];
+      if (p[10] < 0 || p[11] < 0 || p[10] > full || p[11] > full)
+        return bad;
+      const int held_in = __builtin_popcount(full & ~G.empty_in);
+      const int held_out = __builtin_popcount(full & ~G.empty_out);
+      O = tin >> held_in;
+      if (tin != O << held_in || tout != O << held_out) return bad;
+      for (int b = 0; b < MAX_REG_BITS; ++b) {
+        const int64_t si = p[12 + b], so = p[12 + MAX_REG_BITS + b];
+        if (si < 0 || so < 0 || si >= ((int64_t)1 << 31) ||
+            so >= ((int64_t)1 << 31))
+          return bad;
+        G.sin[b] = (int)si;
+        G.sout[b] = (int)so;
+      }
+      for (int k = G.first; k < G.stop; ++k) {
+        ChainGate& g = a.g[k];
+        const int mb = g.kb > g.nb ? g.kb : g.nb;
+        if (g.K != 1 << g.kb || g.N != 1 << g.nb || g.p + mb > G.slots ||
+            g.kb - g.nb > 1 || g.nb - g.kb > 1)
+          return bad;
+        g.reg = 1;
+      }
+    }
+    if (L < 1 || O < 1 || O % L || !in_table(p[5], O / L, a.table_len) ||
+        !in_table(p[6], L, a.table_len) ||
+        !in_table(p[7], O / L, a.table_len) ||
+        !in_table(p[8], L, a.table_len))
+      return bad;
+    G.oin_hi = (int)p[5];
+    G.oin_lo = (int)p[6];
+    G.oout_hi = (int)p[7];
+    G.oout_lo = (int)p[8];
+    G.O = make_div((uint32_t)O);
+    G.L = make_div((uint32_t)L);
   }
   a.kn_len = kn_len;
   const int tin = a.g[0].tin, tout = a.g[a.ngates - 1].tout;
@@ -612,7 +916,7 @@ extern "C" int ctg_gate_chain_f32(const float* x, float* out,
   if (grid < 1) grid = 1;
   if (grid > a.n_tiles) grid = a.n_tiles;
   const dim3 blocks((unsigned)grid, (unsigned)nslice);
-  gate_chain_kernel<<<blocks, threads, (size_t)smem,
-                      (cudaStream_t)stream>>>(x, out, tables, a);
+  gate_chain_kernel<<<blocks, threads, (size_t)smem, (cudaStream_t)stream>>>(
+      x, out, tables, a);
   return (int)cudaGetLastError();
 }

@@ -21,7 +21,9 @@ one strided complex matmul per gate. CUDA tensors go through
 ``csrc/gate_chain.cu``, which applies a run of gates (a *pass*, the
 whole chain where shared memory allows) to tiles of x held in shared
 memory: one HBM read and one write per pass. ``chain_tile_plan`` cuts
-the chain into passes and describes each pass's tile.
+the chain into passes, describes each pass's tile, and cuts each pass's
+gates into groups that the kernel applies in registers between two
+trips through shared memory (``ChainGroup``).
 """
 
 import ctypes
@@ -571,7 +573,10 @@ def run_chain_plain(spec, x_flat, ys):
 SMEM_BUDGET = 232448
 # Loads and stores coalesce once the tile covers this many floats of
 # x's (and out's) innermost legs: one 128-byte line per warp access.
+# Where that leaves the tile small, it widens on to WIDE_FLOATS (longer
+# runs of HBM a tile) as long as an SM still holds as many blocks.
 COALESCE_FLOATS = 32
+WIDE_FLOATS = 128
 # A block's batch tile holds about this many complex elements of x (16 KB
 # of both planes), and its load ring up to RING_STAGES batch tiles, so
 # that each SM keeps enough bytes in flight to cover HBM latency.
@@ -580,6 +585,12 @@ RING_STAGES = 4
 # limits of the kernel's argument block (csrc/gate_chain.cu)
 MAX_PASS_GATES = MAX_CHAIN_GATES
 MAX_BATCH_DIMS = 24
+# A register group's state: at most 2**REG_BITS complex values a thread,
+# one bit of the gates' legs a slot; the kernel holds up to
+# MAX_REG_BITS slots (csrc/gate_chain.cu), and the argument block that
+# many strides before and after each group
+REG_BITS = 4
+MAX_REG_BITS = 4
 
 # One pass of a chain as the kernel runs it (strides in elements).
 #   gates:      (first, stop) - the chain's gates ``first:stop``;
@@ -595,13 +606,162 @@ MAX_BATCH_DIMS = 24
 #               tile buffers before and after the gate - after the last
 #               gate, out's strides (it writes out); numel_in/numel_out
 #               are the tile sizes before and after the gate;
+#   groups:     the pass's gates cut into ChainGroups, in order;
 #   batch_tile: batch elements a block holds at once;
 #   stages:     batch tiles in the block's load ring;
 #   smem_bytes: shared memory of one block.
 ChainPass = namedtuple(
     "ChainPass",
-    ("gates", "legs", "io", "tile", "batch_tile", "stages", "smem_bytes"),
+    ("gates", "legs", "io", "tile", "groups", "batch_tile", "stages",
+     "smem_bytes"),
 )
+
+# A run of a pass's gates that the kernel applies between two trips
+# through shared memory.
+#   gates:  (first, stop) - the chain's gates ``first:stop``;
+#   slots:  a register group: each thread holds 2**slots complex values,
+#           one bit of the group's legs a slot, and applies every gate of
+#           the group to them; None: one gate on the per-item path;
+#   io:     GateStrides over the tile buffers before and after the group
+#           (after the pass's last group, out's strides): ``batch`` the
+#           tile's legs that no gate of the group touches; for a register
+#           group ``kdims`` / ``ndims`` one (2, stride) per slot before /
+#           after the group, (1, 0) where the slot is empty; on the
+#           per-item path the gate's own (its entry of ``tile``);
+#   fields: per gate of a register group (kb, nb, p, perm_k, perm_n): the
+#           gate contracts the bits in slots p:p+kb and writes its new
+#           legs' bits to slots p:p+nb (the state index is the slots'
+#           bits, slot 0 lowest); perm_k[k] (perm_n[n]) is y's row
+#           (column) where the field's bits read k (n).
+ChainGroup = namedtuple("ChainGroup", ("gates", "slots", "io", "fields"))
+
+
+def _leg_bits(size):
+    """log2(size) for a power of two, else None."""
+    b = size.bit_length() - 1
+    return b if size == 1 << b else None
+
+
+def _field_perm(field, order, sizes):
+    """y's index (row-major over the legs ``order``) of each value of the
+    bits ``field`` ((leg, bit) a slot, lowest first)."""
+    st = _strides(order, sizes)[0]
+    w = [st[ix] << b for ix, b in field]
+    return tuple(
+        sum(wi for i, wi in enumerate(w) if v >> i & 1)
+        for v in range(1 << len(w))
+    )
+
+
+def _slot_layout(gates, sizes, max_bits):
+    """Registers for the consecutive gates ``(c_order, ny_order)``, or
+    None where their legs take more than ``max_bits`` bits at once, a leg
+    is not a power of two, a gate's contracted and created bits differ
+    by more than one (the kernel compiles its register gates for those
+    shapes only), or no layout exists.
+
+    The state is indexed by slots, one bit each; each gate must find its
+    contracted bits in consecutive slots p:p+kb (in any order: y's rows
+    are permuted to match) with slots p+kb:p+nb empty where it creates
+    more bits than it contracts, and leaves its new bits in p:p+nb. A
+    breadth-first search over the slots' contents (at most 4! per bit
+    count) finds a start layout and each gate's field. Returns (slots,
+    contents before, contents after, fields) as in ChainGroup."""
+    bits = {}
+    for c, ny in gates:
+        for ix in c + ny:
+            bits[ix] = _leg_bits(sizes[ix])
+            if bits[ix] is None:
+                return None
+
+    def atoms(legs):
+        return [(ix, b) for ix in legs for b in range(bits[ix])]
+
+    for c, ny in gates:
+        if abs(len(atoms(c)) - len(atoms(ny))) > 1:
+            return None
+    made, inputs = set(), []
+    for c, ny in gates:
+        inputs += [ix for ix in c if ix not in made and ix not in inputs]
+        made.update(ny)
+    live = set(inputs)
+    nslots = sum(bits[ix] for ix in live)
+    for c, ny in gates:
+        live = (live - set(c)) | set(ny)
+        nslots = max(nslots, sum(bits[ix] for ix in live))
+    if nslots > max_bits:
+        return None
+    start = atoms(inputs)
+    layer = {}
+    for pos in itertools.permutations(range(nslots), len(start)):
+        st = [None] * nslots
+        for a, p in zip(start, pos):
+            st[p] = a
+        layer[tuple(st)] = None
+    history = []
+    for c, ny in gates:
+        catoms, natoms = set(atoms(c)), atoms(ny)
+        kb, nb = len(catoms), len(natoms)
+        mb = max(kb, nb)
+        nxt = {}
+        for st in layer:
+            for p in range(nslots - mb + 1):
+                if set(st[p:p + kb]) != catoms or any(
+                    s is not None for s in st[p + kb:p + mb]
+                ):
+                    continue
+                for perm in itertools.permutations(natoms):
+                    new = st[:p] + perm + (None,) * (mb - nb) + st[p + mb:]
+                    nxt.setdefault(new, (st, p))
+        if not nxt:
+            return None
+        history.append(nxt)
+        layer = nxt
+    states = [next(iter(layer))]
+    field_at = []
+    for step in reversed(history):
+        prev, p = step[states[0]]
+        states.insert(0, prev)
+        field_at.insert(0, p)
+    fields = []
+    for (c, ny), p, before, after in zip(gates, field_at, states,
+                                         states[1:]):
+        kb = sum(bits[ix] for ix in c)
+        nb = sum(bits[ix] for ix in ny)
+        fields.append((kb, nb, p, _field_perm(before[p:p + kb], c, sizes),
+                       _field_perm(after[p:p + nb], ny, sizes)))
+    return nslots, states[0], states[-1], tuple(fields)
+
+
+def _cached_layout(spec, first, stop):
+    """``_slot_layout`` of the chain's gates ``first:stop``, cached on the
+    spec."""
+    key = ("slots", first, stop, REG_BITS)
+    if key not in spec._tiles:
+        spec._tiles[key] = _slot_layout(
+            [(c, ny) for _, _, c, ny in spec.gate_orders[first:stop]],
+            spec.leg_sizes, REG_BITS,
+        )
+    return spec._tiles[key]
+
+
+def _register_groups(spec, first, stop):
+    """The gates ``first:stop`` of ``spec`` cut into groups, greedily:
+    each group the longest run from its first gate that has a register
+    layout (``_slot_layout``), a gate without one alone on the per-item
+    path. A list of (first, stop, layout or None)."""
+    groups = []
+    a = first
+    while a < stop:
+        b, lay = a, None
+        while b < stop:
+            nxt = _cached_layout(spec, a, b + 1)
+            if nxt is None:
+                break
+            b, lay = b + 1, nxt
+        groups.append((a, max(b, a + 1), lay))
+        a = max(b, a + 1)
+    return groups
 
 
 def _pass_smem_bytes(t_in, t_work, n_work, kn, table_ints, batch_tile,
@@ -609,7 +769,7 @@ def _pass_smem_bytes(t_in, t_work, n_work, kn, table_ints, batch_tile,
     """Shared memory of one block (``csrc/gate_chain.cu`` lays it out
     the same way): every gate's y (complex, each from an even index);
     ``stages`` ring slots of the input tile and ``n_work`` work buffers
-    of the largest intermediate tile, complex, per batch element; the
+    of ``t_work`` (``_work_buffers``), complex, per batch element; the
     batch offsets (int64, x and out, ``stages + 2`` tiles); the index
     tables (int32)."""
     return (
@@ -654,6 +814,50 @@ def _split_dims(dims):
     return tuple(hi), tuple(lo)
 
 
+def _group(orders, gates, first, a, b, lay, in_tile, out_strides, sizes):
+    """The :class:`ChainGroup` of the pass's gates ``a:b`` (the pass
+    starts at the chain's gate ``first``) with the register layout
+    ``lay`` (None: the per-item path, one gate). The pass's last group
+    writes out."""
+    span = (first + a, first + b)
+    if lay is None:
+        return ChainGroup(span, None, gates[a], None)
+    nslots, before, after, fields = lay
+    o_in = in_tile(orders[a][0])
+    o_out = in_tile(orders[b - 1][1])
+    touched = {ix for _, _, c, ny in orders[a:b] for ix in c + ny}
+    last = b == len(orders)
+    io = gate_strides(
+        o_in, o_out, [ix for ix in o_in if ix in touched],
+        [ix for ix in o_out if ix in touched], sizes,
+        out_strides if last else None,
+    )
+    sin = _strides(o_in, sizes)[0]
+    sout = out_strides if last else _strides(o_out, sizes)[0]
+
+    def slots(state, st):
+        return tuple((1, 0) if s is None else (2, st[s[0]] << s[1])
+                     for s in state)
+
+    return ChainGroup(
+        span, nslots,
+        GateStrides(io.numel_in, io.numel_out, io.batch,
+                    slots(before, sin), slots(after, sout)),
+        fields,
+    )
+
+
+def _work_buffers(t_in, groups):
+    """``t_work`` and ``n_work`` of a pass: the tiles between its groups
+    go to a work buffer and the ring slot of the tile in turns (the slot
+    is free once the first group has read it), so one work buffer does
+    where the slot holds every other tile; else two, in turns."""
+    tiles = [g.io.numel_out for g in groups[:-1]]
+    if all(t <= t_in for t in tiles[1::2]):
+        return dict(t_work=max(tiles[0::2] or [0]), n_work=min(1, len(tiles)))
+    return dict(t_work=max(tiles), n_work=2)
+
+
 def _make_pass(spec, first, stop, smem_bytes):
     """The :class:`ChainPass` of gates ``first:stop``, or None if its
     tile does not fit ``smem_bytes`` at one batch element."""
@@ -667,9 +871,10 @@ def _make_pass(spec, first, stop, smem_bytes):
         (prod(sizes[ix] for ix in c), prod(sizes[ix] for ix in ny))
         for _, _, c, ny in orders
     ]
+    cuts = _register_groups(spec, first, stop)
 
     def layout():
-        """(io, per-gate tile strides, shared-memory sizes)."""
+        """(io, per-gate tile strides, groups, shared-memory sizes)."""
         def in_tile(order):
             return tuple(ix for ix in order if ix in tile)
 
@@ -682,48 +887,58 @@ def _make_pass(spec, first, stop, smem_bytes):
                          out_strides if j == len(orders) - 1 else None)
             for j, (o_in, o_out, c, ny) in enumerate(orders)
         )
+        groups = tuple(
+            _group(orders, gates, first, a - first, b - first, lay,
+                   in_tile, out_strides, sizes)
+            for a, b, lay in cuts
+        )
         table = sum(k + n for k, n in kn)
-        for dims in [io.kdims] + [g.batch for g in gates] * 2:
+        for dims in [io.kdims] + [g.io.batch for g in groups] * 2:
             hi, lo = _split_dims([d[:2] for d in dims])
             table += prod(d[0] for d in hi) + prod(d[0] for d in lo)
         smem = dict(
             t_in=gates[0].numel_in,
-            t_work=max([g.numel_in for g in gates[1:]] or [0]),
-            n_work=min(2, len(gates) - 1),
+            **_work_buffers(gates[0].numel_in, groups),
             kn=kn,
             table_ints=table,
         )
-        return io, gates, smem
+        return io, gates, groups, smem
 
     def fits(batch_tile=1, stages=2, budget=smem_bytes):
         return _pass_smem_bytes(
-            **layout()[2], batch_tile=batch_tile, stages=stages
+            **layout()[3], batch_tile=batch_tile, stages=stages
         ) <= budget
 
     if not fits():
         return None
-    # widen the tile by x's and out's innermost untouched legs until
-    # both cover COALESCE_FLOATS contiguous floats, as the budget allows
-    while True:
-        ext_in, leg_in = _innermost_extent(order_in, tile, sizes)
-        ext_out, leg_out = _innermost_extent(order_out, tile, sizes)
-        if ext_in < COALESCE_FLOATS and leg_in is not None:
-            leg = leg_in
-        elif ext_out < COALESCE_FLOATS and leg_out is not None:
-            leg = leg_out
-        else:
-            break
-        tile.add(leg)
-        if not fits():
-            tile.discard(leg)
-            break
-    io, gates, smem = layout()
+
+    def widen(floats, budget):
+        """Widen the tile by x's and out's innermost untouched legs until
+        both cover ``floats`` contiguous floats, as ``budget`` allows."""
+        while True:
+            ext_in, leg_in = _innermost_extent(order_in, tile, sizes)
+            ext_out, leg_out = _innermost_extent(order_out, tile, sizes)
+            if ext_in < floats and leg_in is not None:
+                leg = leg_in
+            elif ext_out < floats and leg_out is not None:
+                leg = leg_out
+            else:
+                return
+            tile.add(leg)
+            if not fits(budget=budget):
+                tile.discard(leg)
+                return
+
+    half = smem_bytes // 2
+    widen(COALESCE_FLOATS, smem_bytes)
+    # then on to WIDE_FLOATS, where the tile keeps the blocks an SM holds
+    widen(WIDE_FLOATS, half if fits(1, 2, half) else smem_bytes)
+    io, gates, groups, smem = layout()
     t_in = gates[0].numel_in
     n_batch = prod(d[0] for d in io.batch)
     # the batch tile (up to TILE_ELEMS elements of x) and ring depth that
     # keep the most of x in flight, within half the budget where the tile
     # allows (two blocks share an SM), else within all of it
-    half = smem_bytes // 2
     budget = half if fits(1, 2, half) else smem_bytes
     choices = [
         (1 << e, st)
@@ -734,8 +949,8 @@ def _make_pass(spec, first, stop, smem_bytes):
     ]
     batch_tile, stages = max(choices, key=lambda c: ((c[1] - 1) * c[0], c[1]))
     return ChainPass(
-        (first, stop), tuple(sorted(tile, key=str)), io, gates, batch_tile,
-        stages,
+        (first, stop), tuple(sorted(tile, key=str)), io, gates, groups,
+        batch_tile, stages,
         _pass_smem_bytes(**smem, batch_tile=batch_tile, stages=stages),
     )
 
@@ -784,28 +999,42 @@ def pass_tables(ps):
     """The index tables of one pass, as the kernel reads them. Each
     index space is a pair ``(hi, lo)`` of int64 arrays (``_split_dims``):
     offset(i) = hi[i // len(lo)] + lo[i % len(lo)]. ``gather`` (x
-    offset of each input tile position), and per gate ``(koff, noff,
-    oin, oout)``: the offsets of y's K legs in the gate's input tile and
-    of its N legs in its output (plain arrays), and of the tile's other
-    legs in both (pairs). The last gate's outputs are offsets into out
-    (the pass writes out from its last gate), the others' into the
-    next tile."""
+    offset of each input tile position); per group ``(oin, oout)``
+    (pairs): the offsets of the tile's legs that the group leaves in the
+    buffers before and after it - after the pass's last group, in out
+    (the pass writes out from its last group); per gate ``(koff, noff)``
+    (plain arrays): on the per-item path the offsets of y's K legs in
+    the gate's input tile and of its N legs in its output, in a register
+    group the field's ``perm_k`` and ``perm_n`` (``ChainGroup``)."""
     def pair(dims):
         hi, lo = _split_dims(dims)
         return _offsets(hi), _offsets(lo)
 
+    gates = []
+    for g in ps.groups:
+        if g.slots is None:
+            gates.append((_offsets(g.io.kdims), _offsets(g.io.ndims)))
+        else:
+            gates += [(np.asarray(pk, dtype=np.int64),
+                       np.asarray(pn, dtype=np.int64))
+                      for _, _, _, pk, pn in g.fields]
     return {
         "gather": pair(ps.io.kdims),
-        "gates": [
-            (
-                _offsets(g.kdims),
-                _offsets(g.ndims),
-                pair([(s, i) for s, i, _ in g.batch]),
-                pair([(s, o) for s, _, o in g.batch]),
-            )
-            for g in ps.tile
+        "groups": [
+            (pair([(s, i) for s, i, _ in g.io.batch]),
+             pair([(s, o) for s, _, o in g.io.batch]))
+            for g in ps.groups
         ],
+        "gates": gates,
     }
+
+
+def group_counts(ps):
+    """(gates in register groups, gates on the per-item path, groups) of
+    one pass."""
+    reg = sum(g.gates[1] - g.gates[0] for g in ps.groups
+              if g.slots is not None)
+    return reg, ps.gates[1] - ps.gates[0] - reg, len(ps.groups)
 
 
 def _pass_kernel_args(ps):
@@ -816,12 +1045,16 @@ def _pass_kernel_args(ps):
     tables it points into. Layout: a header (gates, batch tile, ring
     stages, batch runs, largest intermediate tile, batch count, x and
     out elements, table length, then position of hi, position of lo and
-    len(lo) of the gather, then slices, x and out slice strides); per
-    gate (y, K, N, tile in, tile out, koff, noff, oin hi, oin lo, oout
-    hi, oout lo, len(lo) of oin and oout, y slice stride); per batch run
-    (size, x stride, out stride). Strides and sizes are per slice:
-    ``run_chain_cuda`` fills in the slice count and strides of a
-    batch."""
+    len(lo) of the gather, then slices, x and out slice strides, then
+    groups and work buffers); per gate (y, K, N, tile in, tile out,
+    koff, noff, y slice stride, then kb, nb and p of its field in a
+    register group, else 0); per group (slots or -1 on the per-item path,
+    first and stop gate of the pass, tile in, tile out, oin hi, oin lo,
+    oout hi, oout lo, len(lo) of oin and oout, the empty slots before and
+    after it as bit masks, then ``MAX_REG_BITS`` slot strides before it
+    and as many after it); per batch run (size, x stride, out stride).
+    Strides and sizes are per slice: ``run_chain_cuda`` fills in the
+    slice count and strides of a batch."""
     io = ps.io
     if len(io.batch) > MAX_BATCH_DIMS:
         raise ValueError(f"{len(io.batch)} batch runs > {MAX_BATCH_DIMS}")
@@ -840,24 +1073,45 @@ def _pass_kernel_args(ps):
 
     head = [put(tabs["gather"][0]), put(tabs["gather"][1]),
             len(tabs["gather"][1])]
+    first = ps.gates[0]
+    fields = [f for g in ps.groups for f in (g.fields or [None])]
     gate_meta = []
-    for g, (koff, noff, oin, oout) in zip(ps.tile, tabs["gates"]):
-        K, N = len(koff), len(noff)
+    for g, (koff, noff), f in zip(ps.tile, tabs["gates"], fields):
+        K = prod(d[0] for d in g.kdims)
+        N = prod(d[0] for d in g.ndims)
         if K * N > MAX_GATE_COMBOS:
             raise ValueError(f"gate K*N = {K * N} > {MAX_GATE_COMBOS}")
+        gate_meta += [0, K, N, g.numel_in, g.numel_out, put(koff),
+                      put(noff), 0, *(f[:3] if f else (0, 0, 0))]
+    group_meta = []
+    for g, (oin, oout) in zip(ps.groups, tabs["groups"]):
         if len(oin[1]) != len(oout[1]):
             raise ValueError("oin and oout must share their split")
-        gate_meta += [0, K, N, g.numel_in, g.numel_out, put(koff),
-                      put(noff), put(oin[0]), put(oin[1]), put(oout[0]),
-                      put(oout[1]), len(oin[1]), 0]
+        if g.slots is None:
+            slots = [-1] + [0] * (2 + 2 * MAX_REG_BITS)
+        else:
+            pad = [0] * (MAX_REG_BITS - g.slots)
+            slots = [
+                g.slots,
+                sum(1 << b for b, d in enumerate(g.io.kdims) if d[0] == 1),
+                sum(1 << b for b, d in enumerate(g.io.ndims) if d[0] == 1),
+                *(d[1] for d in g.io.kdims), *pad,
+                *(d[1] for d in g.io.ndims), *pad,
+            ]
+        group_meta += [
+            slots[0], g.gates[0] - first, g.gates[1] - first,
+            g.io.numel_in, g.io.numel_out, put(oin[0]), put(oin[1]),
+            put(oout[0]), put(oout[1]), len(oin[1]), *slots[1:],
+        ]
     tables = np.concatenate(parts)
     if np.abs(tables).max() >= 2**31:
         raise ValueError("an index table exceeds int32")
-    t_work = max([g.numel_in for g in ps.tile[1:]] or [0])
+    work = _work_buffers(ps.tile[0].numel_in, ps.groups)
     meta = [
-        len(ps.tile), ps.batch_tile, ps.stages, len(io.batch), t_work,
-        prod(d[0] for d in io.batch), io.numel_in, io.numel_out,
-        len(tables), *head, 1, 0, 0, *gate_meta,
+        len(ps.tile), ps.batch_tile, ps.stages, len(io.batch),
+        work["t_work"], prod(d[0] for d in io.batch), io.numel_in,
+        io.numel_out, len(tables), *head, 1, 0, 0, len(ps.groups),
+        work["n_work"], *gate_meta, *group_meta,
     ]
     for d in io.batch:
         meta.extend(d)
@@ -865,20 +1119,21 @@ def _pass_kernel_args(ps):
 
 
 _META_SLICES = 12  # slices, x and out slice strides in the argument block
-_META_Y = 15       # index of the first gate's y pointer in the argument block
-_META_GATE = 13    # int64s per gate in the argument block
-_META_Y_SLICE = 12  # a gate's y slice stride, from its y pointer
+_META_Y = 17       # index of the first gate's y pointer in the argument block
+_META_GATE = 11    # int64s per gate in the argument block
+_META_Y_SLICE = 7  # a gate's y slice stride, from its y pointer
 
 
 def _kernel_args(spec, device):
-    """Per pass (plan, meta list, device int32 tables), cached on the
-    spec by device: built and copied to the card once."""
+    """Per pass (plan, meta list, device int32 tables, ``group_counts``),
+    cached on the spec by device: built and copied to the card once."""
     key = ("args", device)
     if key not in spec._tiles:
         args = []
         for ps in chain_tile_plan(spec):
             meta, tables = _pass_kernel_args(ps)
-            args.append((ps, meta, torch.from_numpy(tables).to(device)))
+            args.append((ps, meta, torch.from_numpy(tables).to(device),
+                         group_counts(ps)))
         spec._tiles[key] = tuple(args)
     return spec._tiles[key]
 
@@ -898,8 +1153,10 @@ def run_chain_cuda(spec, x_flat, ys):
     ``chain_tile_plan(spec)`` on CUDA float32 planes, for one slice or
     for a whole batch (:func:`run_chain`'s batched forms: one launch per
     pass either way, a gate read by slice through its slice stride).
-    ``run_chain_cuda.launches`` counts the launches. Each pass is a
-    ``kernel.launch`` span (``tracing``); the first takes in the checks
+    ``run_chain_cuda.launches`` counts the launches, and
+    ``GATE_COUNTS`` the gates they ran in register groups and on the
+    per-item path. Each pass is a ``kernel.launch`` span (``tracing``)
+    with those counts and its groups; the first takes in the checks
     before it."""
     from ._build import load_library
 
@@ -938,7 +1195,9 @@ def run_chain_cuda(spec, x_flat, ys):
     lead = () if nslice is None else (nslice,)
     lib = load_library()
     stream = torch.cuda.current_stream(x_flat.device).cuda_stream
-    for ps, meta, tables in _kernel_args(spec, x_flat.device):
+    for ps, meta, tables, (reg, item, groups) in _kernel_args(
+        spec, x_flat.device
+    ):
         if tracing.ON and x_flat is not x_in:
             tracing.begin()
         meta = list(meta)
@@ -970,17 +1229,23 @@ def run_chain_cuda(spec, x_flat, ys):
                 f"gate-chain kernel launch failed: CUDA error {rc}"
             )
         run_chain_cuda.launches += 1
+        GATE_COUNTS["reg_gates"] += reg
+        GATE_COUNTS["item_gates"] += item
         if tracing.ON:
             tracing.end(
                 "kernel.launch", "gate_chain", run_chain_cuda.launches - 1,
                 (tuple(x_flat.shape), tuple(out.shape),
                  [tuple(y.shape) for y in ys[first:stop]]), launched,
+                reg, item, groups,
             )
         x_flat = out
     return x_flat
 
 
 run_chain_cuda.launches = 0
+# gates that run_chain_cuda's launches ran in register groups and on the
+# per-item path, cumulative
+GATE_COUNTS = {"reg_gates": 0, "item_gates": 0}
 
 
 def run_chain(spec, x_flat, ys):

@@ -24,9 +24,11 @@ per name (``ATTRS``). The spans, each opened where its work happens:
   to and including the launch (``gate_chains.run_chain_cuda``, one a
   pass; ``bmm_absmax.bmm_absmax_cuda``), with the kernel's sequence
   number (its wrapper's ``launches`` before the launch), the operand
-  shapes (``(x, out, gates)`` of the pass, ``(x, y)`` of the product)
-  and the host time just before the launch call (``launched``: the
-  kernel starts on the device after it).
+  shapes (``(x, out, gates)`` of the pass, ``(x, y)`` of the product),
+  the host time just before the launch call (``launched``: the kernel
+  starts on the device after it) and, for a chain pass, its gates in
+  register groups and on the per-item path and its groups
+  (``reg_gates``, ``item_gates``, ``groups``; None for the product).
 
 Spans are recorded only inside ``record()`` (tests, operators) or in an
 entry call that starts while a torch profiler session records
@@ -42,6 +44,7 @@ dropped and counted (``dropped()``). ``records()`` reads them.
 import collections
 import contextlib
 import functools
+import itertools
 import time
 
 import numpy as np
@@ -56,7 +59,8 @@ ATTRS = {
     "slices.select": ("inputs",),
     "executor.steps": ("steps",),
     "executor.step": ("index", "kind"),
-    "kernel.launch": ("kernel", "seq", "shapes", "launched"),
+    "kernel.launch": ("kernel", "seq", "shapes", "launched", "reg_gates",
+                      "item_gates", "groups"),
 }
 
 # Python step calls of the executors, by function
@@ -165,9 +169,10 @@ def record():
 
 def records():
     """The records kept, in the order their spans opened, attributes as
-    ``{name: value}``."""
+    ``{name: value}`` (None for those a site does not give)."""
     return [
-        Record(i, name, t0, t1, parent, ent, dict(zip(ATTRS[name], attrs)))
+        Record(i, name, t0, t1, parent, ent,
+               dict(itertools.zip_longest(ATTRS[name], attrs)))
         for i, name, t0, t1, parent, ent, attrs in sorted(_ring)
     ]
 

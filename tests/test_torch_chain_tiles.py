@@ -26,6 +26,7 @@ from cotengra_tpu.utils.io import load_tree
 from cotengra_tpu_torch.ops import gate_chains, grouped_plan, lowering
 from cotengra_tpu_torch.ops.gate_chains import (
     COALESCE_FLOATS,
+    REG_BITS,
     SMEM_BUDGET,
     build_chain_spec,
     chain_tile_plan,
@@ -46,8 +47,48 @@ def expand_table(pair):
     return (hi[:, None] + lo[None, :]).reshape(-1)
 
 
+def _cmatmul(x, y):
+    """(2, ..., K) @ (2, K, N) on split-complex planes."""
+    return torch.stack([x[0] @ y[0] - x[1] @ y[1], x[0] @ y[1] + x[1] @ y[0]])
+
+
+def _slot_offsets(dims):
+    """Offset of each state index (the slots' bits, slot 0 lowest) and
+    whether it holds a value: ``dims`` is a register group's ``kdims`` or
+    ``ndims``, (2, stride) a slot or (1, 0) where it is empty."""
+    n = len(dims)
+    off = np.array([sum(d[1] for b, d in enumerate(dims) if v >> b & 1)
+                    for v in range(1 << n)], dtype=np.int64)
+    empty = sum(1 << b for b, d in enumerate(dims) if d[0] == 1)
+    held = np.array([not v & empty for v in range(1 << n)])
+    return off, held
+
+
+def _run_group(g, src, gate_tabs, ys):
+    """One register group on gathered inputs ``src`` (2, B, O, inputs):
+    the thread's state of 2**slots values, every gate applied to its
+    field, as the kernel does in registers. Returns (2, B, O, outputs)."""
+    _, held_in = _slot_offsets(g.io.kdims)
+    _, held_out = _slot_offsets(g.io.ndims)
+    state = src.new_zeros(src.shape[:3] + (1 << g.slots,))
+    state[..., torch.from_numpy(held_in)] = src
+    for j, (kb, nb, p, pk, pn) in zip(range(*g.gates), g.fields):
+        koff, noff = next(gate_tabs)
+        assert tuple(koff) == pk and tuple(noff) == pn
+        K, N, mb = 1 << kb, 1 << nb, max(kb, nb)
+        y = ys[j][:, torch.tensor(pk)][:, :, torch.tensor(pn)]
+        st = state.reshape(state.shape[:3] + (-1, 1 << mb, 1 << p))
+        res = _cmatmul(st[..., :K, :].transpose(-1, -2), y)
+        new = torch.zeros_like(st)
+        new[..., :N, :] = res.transpose(-1, -2)
+        state = new.reshape(state.shape)
+    return state[..., torch.from_numpy(held_out)]
+
+
 def _emulate(spec, x, ys, smem_bytes=SMEM_BUDGET):
-    """The kernel's passes in PyTorch, from the plan's tables alone."""
+    """The kernel's passes in PyTorch, from the plan's tables alone: the
+    gather, then group by group (in registers, or gate by gate on the
+    per-item path) from buffer to buffer, the last group writing out."""
     for ps in chain_tile_plan(spec, smem_bytes):
         tabs = pass_tables(ps)
         io = ps.io
@@ -57,22 +98,32 @@ def _emulate(spec, x, ys, smem_bytes=SMEM_BUDGET):
         planes = x.view(2, -1)
         buf = planes[:, torch.from_numpy(b_in[:, None] + gather[None, :])]
         out = x.new_full((2 * io.numel_out,), float("nan"))
-        last = len(ps.tile) - 1
-        first, stop = ps.gates
-        for j, (g, (koff, noff, oin, oout), y) in enumerate(
-            zip(ps.tile, tabs["gates"], ys[first:stop])
-        ):
-            src = buf[:, :, torch.from_numpy(
-                expand_table(oin)[:, None] + koff[None, :])]
-            res = torch.stack([src[0] @ y[0] - src[1] @ y[1],
-                               src[0] @ y[1] + src[1] @ y[0]])
-            dst = expand_table(oout)[:, None] + noff[None, :]
-            if j == last:  # the last gate writes out
+        gate_tabs = iter(tabs["gates"])
+        for gi, (g, (oin, oout)) in enumerate(zip(ps.groups,
+                                                  tabs["groups"])):
+            ain, aout = expand_table(oin), expand_table(oout)
+            if g.slots is None:
+                koff, noff = next(gate_tabs)
+                src = buf[:, :, torch.from_numpy(ain[:, None] + koff[None, :])]
+                res = _cmatmul(src, ys[g.gates[0]])
+                dst = aout[:, None] + noff[None, :]
+            else:
+                s_in, held_in = _slot_offsets(g.io.kdims)
+                s_out, held_out = _slot_offsets(g.io.ndims)
+                src = buf[:, :, torch.from_numpy(
+                    ain[:, None] + s_in[held_in][None, :])]
+                res = _run_group(g, src, gate_tabs, ys)
+                dst = aout[:, None] + s_out[held_out][None, :]
+            if gi == len(ps.groups) - 1:
+                # the last group writes out
                 idx = b_out[:, None, None] + dst[None]
                 out.view(2, -1)[:, torch.from_numpy(idx)] = res
             else:
-                buf = buf.new_empty(2, buf.shape[1], g.numel_out)
+                buf = buf.new_full((2, buf.shape[1], g.io.numel_out),
+                                   float("nan"))
                 buf[:, :, torch.from_numpy(dst)] = res
+                assert not torch.isnan(buf).any(), "a tile position unset"
+        assert next(gate_tabs, None) is None
         assert not torch.isnan(out).any(), "a position of out was not written"
         x = out
     return x
@@ -166,7 +217,7 @@ def test_emulated_t27_chains_match_plain_and_reference(ci):
     _check(spec, ref_spec, x, ys)
 
 
-@pytest.mark.parametrize("smem_bytes,passes", [(8000, 2), (2000, 2), (800, 4)])
+@pytest.mark.parametrize("smem_bytes,passes", [(6000, 2), (2000, 2), (600, 4)])
 def test_small_budget_splits_into_passes(smem_bytes, passes):
     """A budget too small for the chain's tile: several passes, the
     same result."""
@@ -227,11 +278,12 @@ def test_m20_tile_plan_invariants(ci):
 
 
 def test_m20_tile_plan_passes():
-    """40 passes over the 38 m20 chains: chains 12 and 25 (seven and
-    eight gates on 2^25 elements) outgrow one pass."""
+    """39 passes over the 38 m20 chains: chain 25 (seven gates on 2^25
+    elements) outgrows one pass. Chain 12 (eight gates) fits one, since
+    its tiles go to work buffers only between its register groups."""
     passes = [len(chain_tile_plan(c[0])) for c in _m20_chains()]
-    assert sum(passes) == 40
-    assert [ci for ci, n in enumerate(passes) if n > 1] == [12, 25]
+    assert sum(passes) == 39
+    assert [ci for ci, n in enumerate(passes) if n > 1] == [25]
     assert max(passes) == 2
 
 
@@ -260,12 +312,58 @@ def _check_pass(spec, ps):
     for dims in (ps.io.kdims, ps.io.ndims):
         run = _contiguous_run(gate_chains._offsets(dims))
         assert run >= COALESCE_FLOATS or doubled > SMEM_BUDGET
-    # the last gate's tables address out itself
+    # the last group's tables address out itself, each position once
     tabs = pass_tables(ps)
-    koff, noff, oin, oout = tabs["gates"][-1]
+    last = ps.groups[-1]
+    oout = tabs["groups"][-1][1]
+    if last.slots is None:
+        noff = tabs["gates"][-1][1]
+    else:
+        s_out, held = _slot_offsets(last.io.ndims)
+        noff = s_out[held]
     full = (expand_table(oout)[:, None] + noff[None, :]).reshape(-1)
     assert np.array_equal(np.sort(full),
                           np.sort(gate_chains._offsets(ps.io.ndims)))
+    _check_groups(spec, ps)
+
+
+def _check_groups(spec, ps):
+    """The groups cover the pass's gates in order; a register group
+    holds at most 2**REG_BITS values a thread, every gate's field lies
+    in its slots, and its slots cover the tile: the slots' positions
+    times the other legs' positions are the tile's, before and after."""
+    assert ps.groups[0].gates[0] == ps.gates[0]
+    assert ps.groups[-1].gates[1] == ps.gates[1]
+    assert all(a.gates[1] == b.gates[0] for a, b in zip(ps.groups,
+                                                       ps.groups[1:]))
+    for g in ps.groups:
+        first, stop = g.gates
+        assert g.io.numel_in == ps.tile[first - ps.gates[0]].numel_in
+        assert g.io.numel_out == ps.tile[stop - 1 - ps.gates[0]].numel_out
+        if g.slots is None:
+            assert stop == first + 1
+            continue
+        assert 0 <= g.slots <= REG_BITS
+        assert len(g.io.kdims) == len(g.io.ndims) == g.slots
+        assert len(g.fields) == stop - first
+        for (kb, nb, p, pk, pn), (_, _, c, ny) in zip(
+                g.fields, spec.gate_orders[first:stop]):
+            K = prod(spec.leg_sizes[ix] for ix in c)
+            N = prod(spec.leg_sizes[ix] for ix in ny)
+            assert (1 << kb, 1 << nb) == (K, N)
+            assert p + max(kb, nb) <= g.slots
+            # each y row and column read once
+            assert sorted(pk) == list(range(K))
+            assert sorted(pn) == list(range(N))
+        others = gate_chains._offsets([(s, i) for s, i, _ in g.io.batch])
+        for dims, numel in ((g.io.kdims, g.io.numel_in),
+                            (g.io.ndims, g.io.numel_out)):
+            off, held = _slot_offsets(dims)
+            if dims is g.io.ndims:
+                others = gate_chains._offsets(
+                    [(s, o) for s, _, o in g.io.batch])
+            full = (others[:, None] + off[held][None, :]).reshape(-1)
+            assert len(np.unique(full)) == len(full) == numel
 
 
 def test_split_tables_expand_to_the_full_offsets():
@@ -277,3 +375,115 @@ def test_split_tables_expand_to_the_full_offsets():
             expand_table((gate_chains._offsets(hi),
                           gate_chains._offsets(lo))), full)
         assert len(gate_chains._offsets(lo)) <= max(1, len(full))
+
+
+@pytest.mark.parametrize("ci", [0, 1, 2, 3])
+def test_emulated_m20_chains_match_plain_and_reference(ci):
+    """m20 chains 0-3 at full size (2^16 - 2^17 elements): register
+    groups of 2-4 slots, and chain 3's (8, 32) gate on the per-item path
+    after a group."""
+    spec, ref_spec, c_orders, sizes = _m20_chains()[ci]
+    assert spec.key() == ref_spec.key()
+    n = spec.gate_strides[0].numel_in
+    x, ys = _inputs(c_orders, sizes, n, 100 + ci)
+    _check(spec, ref_spec, x, ys)
+
+
+# the m20 gates whose legs take more than REG_BITS bits on a side, as
+# (chain, gate): (8, 32) and (16, 32) gates and one (32, 8)
+M20_ITEM_GATES = [(3, 2), (5, 0), (6, 0), (7, 0), (8, 0), (33, 4)]
+
+
+def test_m20_gates_run_in_register_groups():
+    """Every m20 gate whose contracted and created legs take at most
+    REG_BITS bits each runs in a register group (141 of 147); the six
+    wider ones stay on the per-item path; no group holds more than
+    2**REG_BITS values a thread; 110 groups in the 39 passes."""
+    item, n_gates, n_groups = [], 0, 0
+    for ci, (spec, _, _, _) in enumerate(_m20_chains()):
+        for ps in chain_tile_plan(spec):
+            n_groups += len(ps.groups)
+            for g in ps.groups:
+                n_gates += g.gates[1] - g.gates[0]
+                assert g.slots is None or g.slots <= REG_BITS
+                if g.slots is None:
+                    item.append((ci, g.gates[0]))
+            reg, n_item, groups = gate_chains.group_counts(ps)
+            assert (reg + n_item, groups) == (ps.gates[1] - ps.gates[0],
+                                              len(ps.groups))
+    assert item == M20_ITEM_GATES
+    assert (n_gates, n_groups) == (147, 110)
+    for ci, j in item:
+        _, _, c, ny = _m20_chains()[ci][0].gate_orders[j]
+        assert max(len(c), len(ny)) > REG_BITS
+
+
+def test_t27_gates_run_in_register_groups():
+    counts = [gate_chains.group_counts(ps)
+              for spec, _, _, _ in _t27_chains()
+              for ps in chain_tile_plan(spec)]
+    assert sum(c[0] for c in counts) == 33
+    assert sum(c[1] for c in counts) == 2
+    assert sum(c[2] for c in counts) == 24
+
+
+@pytest.mark.parametrize("chains", ["t27", "m20"])
+def test_pass_smem_is_the_kernel_layout(chains):
+    """``_pass_smem_bytes`` counts the arrays that the kernel lays out
+    from the argument block: the gates' y, the ring slots and work
+    buffers (one where the ring slot takes every other tile between
+    groups), the batch offsets and the index tables it is handed."""
+    specs = _t27_chains() if chains == "t27" else _m20_chains()
+    for spec, _, _, _ in specs:
+        for ps in chain_tile_plan(spec):
+            meta, tables = gate_chains._pass_kernel_args(ps)
+            ngates, E, S, _, t_work = meta[:5]
+            assert meta[8] == len(tables)
+            at = gate_chains._META_Y
+            kn = [tuple(meta[at + gate_chains._META_GATE * j + 1:
+                             at + gate_chains._META_GATE * j + 3])
+                  for j in range(ngates)]
+            t_in = meta[at + 3]
+            n_work = meta[16]
+            # the tiles between groups fit the buffers they go to
+            room = [t_work, t_in] if n_work == 1 else [t_work, t_work]
+            for j, g in enumerate(ps.groups[:-1]):
+                assert g.io.numel_out <= room[j % 2]
+            assert gate_chains._pass_smem_bytes(
+                t_in, t_work, n_work, kn, len(tables), E, S
+            ) == ps.smem_bytes
+
+
+def test_kron_gate_stays_on_the_per_item_path():
+    """A K*N = 512 gate (a kron-fused pair of gates, as ``fuse_gates``
+    makes them, at MAX_GATE_COMBOS) has more bits than a register group
+    holds: it runs alone on the per-item path, and small gates around
+    it form register groups."""
+    order0, sizes, gates = _gates(
+        17, [((0, 1), 2), ((1, 5, 6, 15, 16), 4), ((2, 3), 2)])
+    spec, _, _ = build_chain_spec(order0, sizes, gates)
+    (ps,) = chain_tile_plan(spec)
+    assert [(g.gates, g.slots) for g in ps.groups] == [
+        ((0, 1), 2), ((1, 2), None), ((2, 3), 2)]
+    assert gate_chains.group_counts(ps) == (2, 1, 3)
+    K, N = (prod(d[0] for d in ps.tile[1].kdims),
+            prod(d[0] for d in ps.tile[1].ndims))
+    assert K * N == gate_chains.MAX_GATE_COMBOS
+
+
+@pytest.mark.parametrize("picks", [
+    [((0, 1), 2), ((14, 15), 2), ((15, 16), 2)],
+    [((15, 16), 2), ((1, 2), 2), ((14, 15), 2), ((16, 15), 2)],
+])
+def test_emulated_strided_last_group_matches_plain_and_reference(picks):
+    """A pass whose last register group makes out's innermost legs stores
+    to out a stride apart, straight from its registers."""
+    order0, sizes, gates = _gates(17, picks)
+    ref_spec, _, c_orders = ref_gates.build_chain_spec(order0, sizes, gates)
+    spec, _, _ = build_chain_spec(order0, sizes, gates)
+    (ps,) = chain_tile_plan(spec)
+    last = ps.groups[-1]
+    assert len(ps.groups) > 1 and last.slots is not None
+    assert last.io.batch[-1][2] >= 4
+    x, ys = _inputs(c_orders, sizes, 2**17, len(picks))
+    _check(spec, ref_spec, x, ys)

@@ -68,6 +68,12 @@ def _chain(n, gates, seed):
     return spec, x, ys
 
 
+_OVERLAPPING = [((1, 2), 2), ((2, 3), 2), ((3, 4), 2), ((1, 2), 2)]
+_DISJOINT = [((1, 2), 2), ((4, 5), 2), ((7, 8), 2), ((10, 11), 2)]
+_MIXED_EIGHT = [((0, 1), 2), ((2, 3), 2), ((1, 2), 2), ((4, 5), 2),
+                ((3, 4), 2), ((0, 1), 2), ((2, 3), 2), ((1, 2), 2)]
+_KRON_BETWEEN = [((0, 1), 2), ((1, 5, 6, 17, 18), 4), ((2, 3), 2)]
+
 # seven 2-leg gates on 2^24 elements whose widest tile (8192 complex
 # per batch element) outgrows one block's shared memory: two passes
 _OVER_BUDGET = [((0, 1), 2), ((2, 3), 2), ((14, 15), 2), ((16, 17), 2),
@@ -87,6 +93,34 @@ _OVER_BUDGET = [((0, 1), 2), ((2, 3), 2), ((14, 15), 2), ((16, 17), 2),
         (19, [((15, 18), 2), ((16, 17), 2), ((17, 18), 2), ((1, 2), 2),
               ((14, 18), 2)], 1),
         (24, _OVER_BUDGET, 2),                  # over the budget
+        # single gates of each (K, N) of the m20 plan, in registers up to
+        # 16 x 16 ((8, 32), (32, 8) above and (16, 32) item by item), and
+        # of 2 x 1 and 2 x 2
+        (19, [((1,), 0)], 1),
+        (19, [((1,), 1)], 1),
+        (19, [((1, 2), 2)], 1),
+        (19, [((1, 2), 3)], 1),
+        (19, [((1, 2, 3), 2)], 1),
+        (19, [((1, 2, 3), 3)], 1),
+        (19, [((1, 2, 3), 4)], 1),
+        (19, [((1, 2, 3, 4), 4)], 1),
+        (19, [((1, 2, 3, 4), 5)], 1),
+        # runs of register groups: overlapping legs (one group), disjoint
+        # (two groups: a boundary inside the pass, the last writing out),
+        # eight gates in three groups, growing and shrinking gates
+        (19, _OVERLAPPING, 1),
+        (19, _DISJOINT, 1),
+        (19, _MIXED_EIGHT, 1),
+        (19, [((1, 2), 3), ((6, 7), 2), ((0, 1, 2), 2)], 1),
+        # a K = 32, N = 16 gate (K * N = 512, as fuse_gates makes them)
+        # item by item between two register groups
+        (19, _KRON_BETWEEN, 1),
+        # the last group's outputs on out's innermost legs, stored to out
+        # a stride apart
+        (19, [((0, 1), 2), ((16, 17), 2), ((17, 18), 2)], 1),
+        # K = 2 and 4 item by item: contracted and created bits two apart
+        (19, [((1,), 3)], 1),
+        (19, [((1, 2), 4)], 1),
     ],
 )
 def test_gate_chain_kernel_matches_plain(cuda, n, gates, passes):
@@ -110,6 +144,8 @@ def test_gate_chain_kernel_matches_plain(cuda, n, gates, passes):
         (19, [((15, 16), 2), ((3, 9), 2)], 1),
         (19, [((0, 1, 2, 3, 4), 3)], 1),
         (24, _OVER_BUDGET, 2),
+        (19, _DISJOINT, 1),
+        (19, _KRON_BETWEEN, 1),
     ],
 )
 def test_batched_gate_chain_kernel_matches_plain(cuda, n, gates, passes,
@@ -190,22 +226,29 @@ def _kn(rec):
 
 
 @pytest.mark.parametrize(
-    "which", ["first two-pass", "second two-pass", "(16,32) gate"]
+    "which", ["two-pass", "eight gates in one pass", "(16,32) gate"]
 )
 def test_gate_chain_kernel_on_m20_chains(cuda, which):
-    """m=20 t28 chains at full size that no m=10 path runs: the two
-    chains whose tile outgrows one pass, and the largest one that opens
-    with a (16, 32) gate."""
+    """m=20 t28 chains at full size that no m=10 path runs: the chain
+    whose tile outgrows one pass, the eight-gate chain with the most
+    register groups in one pass, and the largest one that opens with a
+    (16, 32) gate."""
     recs = _m20_chains()
     two = [r for r in recs if len(chain_tile_plan(r.spec)) == 2]
-    assert len(two) == 2
+    assert len(two) == 1
     if which == "(16,32) gate":
         rec = max(
             (r for r in recs if (16, 32) in _kn(r)),
             key=lambda r: r.spec.gate_strides[0].numel_in,
         )
+    elif which == "two-pass":
+        rec = two[0]
     else:
-        rec = two[which.startswith("second")]
+        rec = max(
+            (r for r in recs if len(r.ys) == 8),
+            key=lambda r: (len(chain_tile_plan(r.spec)[0].groups),
+                           r.spec.gate_strides[0].numel_in),
+        )
     passes = len(chain_tile_plan(rec.spec))
     gen = torch.Generator(device=cuda)
     gen.manual_seed(len(_kn(rec)))
@@ -220,6 +263,61 @@ def test_gate_chain_kernel_on_m20_chains(cuda, which):
     torch.cuda.synchronize()
     scale = ref.abs().max().item()
     assert (got - ref).abs().max().item() <= 1e-5 * scale
+
+
+def test_gate_chain_kernel_short_last_batch_tile(cuda, monkeypatch):
+    """A batch tile of 3 elements over a power-of-two batch: the last
+    tile holds fewer, and each group's items stop at them. (The planner
+    picks powers of two that divide the batch; the argument block is
+    changed here.)"""
+    from cotengra_tpu_torch.ops import gate_chains
+
+    spec, x, ys = _chain(19, [((0, 1), 2), ((2, 3), 2), ((1, 2), 2)],
+                         seed=5)
+    make = gate_chains._pass_kernel_args
+
+    def short(ps):
+        meta, tables = make(ps)
+        assert meta[5] % 3 != 0
+        meta[1:3] = [3, 2]  # batch tile 3, two ring stages
+        kn = [(np.prod([d[0] for d in g.kdims]),
+               np.prod([d[0] for d in g.ndims])) for g in ps.tile]
+        assert gate_chains._pass_smem_bytes(
+            ps.tile[0].numel_in, meta[4], meta[16], kn, len(tables), 3, 2
+        ) <= gate_chains.SMEM_BUDGET
+        return meta, tables
+
+    monkeypatch.setattr(gate_chains, "_pass_kernel_args", short)
+    xt = torch.from_numpy(x).to(cuda)
+    yt = [torch.from_numpy(y).to(cuda) for y in ys]
+    got = run_chain(spec, xt, yt)
+    ref = run_chain_plain(spec, xt, yt)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-5 * scale
+
+
+def test_gate_chain_counts_register_and_item_gates(cuda):
+    """Two 4 x 4 gates in register groups and a 32 x 16 gate item by item
+    between them: one launch, three groups, counted by the wrapper and
+    ``GATE_COUNTS`` and on its ``kernel.launch`` span."""
+    from cotengra_tpu_torch import tracing
+    from cotengra_tpu_torch.ops import gate_chains
+
+    counts = gate_chains.GATE_COUNTS
+    spec, x, ys = _chain(19, _KRON_BETWEEN, seed=6)
+    xt = torch.from_numpy(x).to(cuda)
+    yt = [torch.from_numpy(y).to(cuda) for y in ys]
+    before = (run_chain_cuda.launches, counts["reg_gates"],
+              counts["item_gates"])
+    with tracing.record():
+        run_chain_cuda(spec, xt, yt)
+    after = (run_chain_cuda.launches, counts["reg_gates"],
+             counts["item_gates"])
+    assert [b - a for a, b in zip(before, after)] == [1, 2, 1]
+    (rec,) = [r for r in tracing.records() if r.name == "kernel.launch"]
+    assert (rec.attrs["reg_gates"], rec.attrs["item_gates"],
+            rec.attrs["groups"]) == (2, 1, 3)
 
 
 def test_gate_chain_kernel_rejects_bad_input(cuda):

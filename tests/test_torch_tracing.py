@@ -260,3 +260,23 @@ def test_step_calls_is_the_tracers_counter():
     before = tracing.STEP_CALLS["_exec_steps_split"]
     _slice_call()[0]()
     assert capture.STEP_CALLS["_exec_steps_split"] > before
+
+
+def test_launch_attributes_a_site_leaves_out_read_none():
+    """A chain pass's ``kernel.launch`` carries its gates in register
+    groups, on the per-item path and its groups; the product's gives
+    none of them, and reads None there."""
+    with tracing.record():
+        tracing.begin()
+        tracing.end("kernel.launch", "bmm_absmax", 0, ((2,), (2,)),
+                    tracing.now())
+        tracing.begin()
+        tracing.end("kernel.launch", "gate_chain", 0, ((2,), (2,), []),
+                    tracing.now(), 5, 1, 3)
+    bmm, chain = tracing.records()
+    assert set(bmm.attrs) == set(chain.attrs) == set(
+        tracing.ATTRS["kernel.launch"])
+    assert [bmm.attrs[k] for k in ("reg_gates", "item_gates", "groups")] == [
+        None, None, None]
+    assert [chain.attrs[k] for k in ("reg_gates", "item_gates", "groups")] == [
+        5, 1, 3]
