@@ -19,6 +19,11 @@ comparison is a file of its own, found by the name that
 - ``networks/<generator>.py``, ``entries/<kind>.py``,
   ``checks/<number>.py``: the generators, the ways of calling the
   program and the compared numbers that those files name;
-- ``reference/``: the plain reference, which imports nothing of the
-  program.
+- ``reference/<kind>.py``: the plain references, which import nothing
+  of the program, one module per ``"kind"`` that a configuration's
+  ``"reference"`` names (``contract``, the exact walk, where it names
+  none). Each has ``prepare(config, inputs, output, size_dict)``,
+  whose result's ``contract(arrays, slice_ids, dtype, device, strip,
+  tf32)`` gives ``(sum, norm, log2 exponent)``
+  (``reference.contract.contract_slices``).
 """

@@ -103,7 +103,7 @@ def metric_reader(root, metric):
 
 def plugin(kind, name):
     """``tnbench/<kind>/<name>.py`` as a module (networks, entries,
-    checks)."""
+    checks, reference)."""
     return importlib.import_module(f"tnbench.{kind}.{name}")
 
 
@@ -275,6 +275,23 @@ def check_spec(cell):
     return dict(cell.config["check"], **cell.traffic.get("check", {}))
 
 
+def program_options(cell):
+    """The program's keyword options as the cell's files give them: the
+    configuration's ``"options"``, then the traffic entry's."""
+    return dict(cell.config.get("options", {}), **cell.traffic["entry"].get("options", {}))
+
+
+def reference(cell, inputs, output, size_dict):
+    """The plain reference that the configuration names, prepared for
+    its network: ``tnbench/reference/<kind>.py`` for the ``"kind"`` of
+    its ``"reference"`` (``contract``, the exact walk of the plan, where
+    it names none). Its ``prepare`` gets the configuration with the
+    options that the entry passes the program (``program_options``)."""
+    conf = dict(cell.config, options=program_options(cell))
+    kind = cell.config["reference"].get("kind", "contract")
+    return plugin("reference", kind).prepare(conf, inputs, output, size_dict)
+
+
 def judge(cell, session, calls, sets, inputs, output, size_dict, device, seed,
           controls=()):
     """Compare the window's sampled calls with the plain reference.
@@ -285,19 +302,17 @@ def judge(cell, session, calls, sets, inputs, output, size_dict, device, seed,
     lower precision put in the program's place, on the same calls)."""
     import torch
 
-    from tnbench.reference.contract import Plan, contract_slices
-
     conf = cell.config
     number = plugin("checks", check_spec(cell)["number"]).number
-    plan = Plan(conf["plan"], inputs, output, size_dict)
+    plain = reference(cell, inputs, output, size_dict)
     strip = bool(conf["reference"].get("strip", False))
     sampled = _sample([c for c in calls if c.ok], int(cell.traffic["check_calls"]), seed)
     worst = {key: 0.0 if sampled else math.inf for key in ["program", *range(len(controls))]}
     log10_2 = math.log10(2.0)
 
     def contract(ids, s, prec):
-        m, n, e = contract_slices(
-            plan, sets[s], ids, getattr(torch, prec["dtype"]), device,
+        m, n, e = plain.contract(
+            sets[s], ids, getattr(torch, prec["dtype"]), device,
             strip=strip, tf32=prec.get("tf32", False),
         )
         return (m, e * log10_2), (n, e * log10_2)

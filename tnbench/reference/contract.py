@@ -166,6 +166,11 @@ class Plan:
                 f"plan has {len(self.order)} contractions for {n} inputs"
             )
 
+    def contract(self, arrays, slice_ids, dtype, device, strip=False, tf32=False):
+        """``contract_slices`` of this plan: the reference's interface
+        (``prepare``)."""
+        return contract_slices(self, arrays, slice_ids, dtype, device, strip=strip, tf32=tf32)
+
     def contract_slice(self, leaves, i, strip=False, tf32=False):
         """One slice: ``(mantissa, log2 exponent)``, the mantissa a 0-d
         tensor (a tensor in the output's legs, in ``self.output``'s
@@ -213,6 +218,12 @@ def contract_slices(plan, arrays, slice_ids, dtype, device, strip=False,
     total = sum(m * 2.0 ** (e - emax) for m, e in parts)
     norm = math.sqrt(sum(abs(m * 2.0 ** (e - emax)) ** 2 for m, e in parts))
     return total, norm, emax
+
+
+def prepare(config, inputs, output, size_dict):
+    """The exact reference of a configuration: its committed plan,
+    walked slice by slice (``Plan.contract``)."""
+    return Plan(config["plan"], inputs, output, size_dict)
 
 
 def _as(dtype, a):

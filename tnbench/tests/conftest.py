@@ -35,6 +35,21 @@ def _plan(inputs, output, size_dict, target_slices):
     return json.loads(f.getvalue())
 
 
+def compressed_plan(inputs, output, size_dict, chi):
+    """``(plan file as JSON, tree, its SSA path)`` from the program's
+    greedy compressed planner: the file's ``children`` in surface
+    order."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.pathfinders.compressed import greedy_compressed_ssa
+    from cotengra_tpu_torch.utils.io import save_tree
+
+    ssa = greedy_compressed_ssa(inputs, output, size_dict, chi=chi)
+    tree = ctt.ContractionTreeCompressed.from_path(inputs, output, size_dict, ssa_path=ssa)
+    f = io.StringIO()
+    save_tree(f, tree)
+    return json.loads(f.getvalue()), tree, ssa
+
+
 def make_tiny(root):
     """A copy of ``BENCHMARK.json`` and ``tnbench/`` under ``root``
     whose configurations are tiny: the same generators, entries,

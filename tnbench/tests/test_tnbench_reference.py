@@ -101,3 +101,26 @@ def test_tf32_round():
     assert 2.0**-12 < rel <= 2.0**-11
     z = torch.randn(8, dtype=torch.complex64)
     assert torch.equal(torch.view_as_real(tf32_round(z)), tf32_round(torch.view_as_real(z)))
+
+
+@pytest.mark.parametrize("cell", ["m20-slices", "m20-slice-tasks", "lattice-values"])
+def test_default_reference_is_the_exact_walk(tiny_root, cell):
+    """A configuration that names no reference kind gets the exact walk:
+    through the harness's lookup by name, its ``(sum, norm, exponent)``
+    equal ``contract_slices``'s bit for bit, in the reference's precision
+    and the control's."""
+    from tnbench import harness
+    from tnbench.reference.contract import Plan, contract_slices
+
+    c = harness.resolve_cell(tiny_root, cell)
+    assert "kind" not in c.config["reference"]
+    gen = harness.plugin("networks", c.config["network"]["generator"])
+    inputs, output, size_dict, sets = gen.make_sets(c.config["network"], 21, 2)
+    plain = harness.reference(c, inputs, output, size_dict)
+    plan = Plan(c.config["plan"], inputs, output, size_dict)
+    strip = bool(c.config["reference"].get("strip", False))
+    for prec in (c.config["reference"], c.config["control"]):
+        dtype, tf32 = getattr(torch, prec["dtype"]), prec.get("tf32", False)
+        for ids, s in (([0], 0), ([1, 2, 3], 1)):
+            got = plain.contract(sets[s], ids, dtype, "cpu", strip=strip, tf32=tf32)
+            assert got == contract_slices(plan, sets[s], ids, dtype, "cpu", strip=strip, tf32=tf32)
