@@ -109,7 +109,8 @@ Run from the root of a checkout. Phases:
    compressed log2 max, log2 peak and log10 flops), then
    ``ContractionTreeCompressed.contract_compressed(arrays, chi=32,
    strip_exponent=True)`` runs on the card in float64 and with the
-   inputs cast to float32, each held to ``COMPRESSED_LOG10`` (from
+   inputs cast to float32 (the exponent a float64 tensor in both), each
+   held to ``COMPRESSED_LOG10`` (from
    ``scratch/make_compressed_ref.py``) at |delta log10| <= 1e-4 and
    1e-3; per dtype the QR and SVD calls and the host syncs of one pass
    (``torch.cuda.set_sync_debug_mode("warn")``), the warm time-to-value
@@ -415,7 +416,8 @@ LATTICE6_MAX_LOG2 = 28
 # the compressed 16x16 bond-4 lattice at chi=32, from
 # ``python scratch/make_compressed_ref.py`` (the JAX package on the CPU
 # with x64: the same planner, path and float64 inputs; its stripped
-# exponent is a float32 sum, whose ulp at 289 is 3.05e-5)
+# exponent is a float32 sum, whose ulp at 289 is 3.05e-5, the port's a
+# float64 one)
 COMPRESSED = "lattice16x16_d4_chi32"
 COMPRESSED_DIMS = (16, 16)
 COMPRESSED_BOND = 4
@@ -424,9 +426,9 @@ COMPRESSED_PATH_HASH = (
     "849afce1fe0f9957606833839d80c6439a64fc5500173c2588466ff6fb148c08"
 )
 COMPRESSED_LOG10 = 288.9674377441406
-# float64 on the card: the exponent's float32 rounding and cuSOLVER's QR
-# rounding otherwise than LAPACK's; float32: QR and SVD in float32 over
-# 255 steps on top of that
+# float64 on the card: the reference exponent's float32 rounding and
+# cuSOLVER's QR rounding otherwise than LAPACK's; float32: QR and SVD in
+# float32 over 255 steps on top of that
 COMPRESSED_ATOL = {torch.float64: 1e-4, torch.float32: 1e-3}
 # phases 17-20: the port's own hyper-optimizer, as a user would call it:
 # with the methods named (17-18), then with its default methods (19-20)
@@ -1677,7 +1679,7 @@ def _stripped_pass(tree, tensors):
         tensors, chi=COMPRESSED_CHI, strip_exponent=True,
         device=tensors[0].device,
     )
-    if m.shape != () or e.dtype != torch.float32:
+    if m.shape != () or e.dtype != torch.float64:
         raise AssertionError(f"{COMPRESSED}: mantissa {m.shape}, {e.dtype}")
     return m.item(), e.item()
 

@@ -15,14 +15,28 @@ the reference, so complex inputs give its result. QR and SVD are
 ``torch.linalg`` (cuSOLVER on the card), the pairwise contractions
 ``ops/pairwise.py``. Shapes change with every truncation, so the loop
 runs eagerly on the host, one device call after another (the reference
-jits one program per shape). The stripped exponent is summed in float32
-even for float64 inputs, as the reference sums it.
+jits one program per shape). The stripped exponent is summed in float64
+whatever the inputs' dtype (the reference sums it in float32, whose ulp
+at a value of 10^289 is 3e-5 in log10).
+
+Spans (``tracing``): the call is an ``entry`` of kind ``compressed``;
+each step of the loop a ``compressed.step`` (its leg bookkeeping, the
+pairwise contraction, the stripping), each ``compress_with_neighbors``
+inside it a ``compressed.neighbours`` (the neighbour and index-holder
+bookkeeping), and each truncated bond inside that a
+``compressed.truncate`` (its QR, SVD and products). ``COUNTS`` counts
+the truncations, traced or not: each makes two QR calls and one SVD,
+and a call makes ``tree.N - 1`` steps.
 """
 
 import torch
 
+from .. import tracing
 from .._device import resolve_device
 from .pairwise import apply_pairwise, apply_single, promote_pair
+
+# bonds truncated, cumulative over every call of the process
+COUNTS = {"truncations": 0}
 
 
 def _mm(a, b):
@@ -68,16 +82,24 @@ def _move_bond_last(x, legs, bond_group):
 def compress_bond(Ta, legs_a, Tb, legs_b, bond_group, chi, new_ix):
     """Compress the shared ``bond_group`` indices between two tensors to a
     single new index of size <= chi. Returns updated
-    (Ta, legs_a, Tb, legs_b)."""
+    (Ta, legs_a, Tb, legs_b). A ``compressed.truncate`` span with the
+    rows of each side's matrix, the fused bond and the kept k."""
+    if tracing.ON:
+        tracing.begin()
     Am, other_a, shape_a = _move_bond_last(Ta, list(legs_a), bond_group)
     Bm, other_b, shape_b = _move_bond_last(Tb, list(legs_b), bond_group)
     k = min(Am.shape[0], Bm.shape[0], Am.shape[1], chi)
     newA, newB = _compress_pair_core(Am, Bm, int(k))
     Ta2 = newA.reshape(*shape_a, newA.shape[-1])
     Tb2 = newB.reshape(*shape_b, newB.shape[-1])
+    COUNTS["truncations"] += 1
+    if tracing.ON:
+        tracing.end("compressed.truncate", Am.shape[0], Bm.shape[0],
+                    Am.shape[1], int(k))
     return Ta2, (*other_a, new_ix), Tb2, (*other_b, new_ix)
 
 
+@tracing.entry("compressed", 1)
 def contract_compressed(
     tree,
     arrays,
@@ -104,7 +126,9 @@ def contract_compressed(
     strip_exponent : bool, optional
         Divide every intermediate by its max|.| and return
         ``(mantissa, exponent)``, the value being mantissa *
-        10**exponent; the exponent is a float32 tensor.
+        10**exponent; the mantissa keeps the result's dtype, the
+        exponent is a float64 tensor (the sum of each step's log10
+        scale, taken in float64), for float32 inputs too.
     device : str or torch.device, optional
         ``"cuda"`` (the default; raises without a card) or ``"cpu"``.
 
@@ -143,6 +167,9 @@ def contract_compressed(
                 yield other
 
     def compress_with_neighbors(node):
+        if tracing.ON:
+            tracing.begin()
+            scanned = len(live)
         for other in list(neighbors_of(node)):
             x, legs = live[node]
             y, olegs = live[other]
@@ -170,11 +197,15 @@ def contract_compressed(
                 )
                 live[node] = (x2, l2)
                 live[other] = (y2, o2)
+        if tracing.ON:
+            tracing.end("compressed.neighbours", scanned)
 
     out_set = set(tree.output)
-    exponent = torch.zeros((), dtype=torch.float32, device=dev)
+    exponent = torch.zeros((), dtype=torch.float64, device=dev)
 
-    for p, l, r in tree.traverse(order):
+    for si, (p, l, r) in enumerate(tree.traverse(order)):
+        if tracing.ON:
+            tracing.begin()
         if compress_late:
             compress_with_neighbors(l)
             compress_with_neighbors(r)
@@ -195,10 +226,12 @@ def contract_compressed(
             absmax = z.abs().max()
             scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
             z = z / scale
-            exponent = exponent + torch.log10(scale).to(torch.float32)
+            exponent = exponent + torch.log10(scale.to(torch.float64))
         live[p] = (z, p_legs)
         if not compress_late:
             compress_with_neighbors(p)
+        if tracing.ON:
+            tracing.end("compressed.step", si, z.numel())
 
     (result, legs) = live.popitem()[1]
     # transpose to output order (output indices always survive)

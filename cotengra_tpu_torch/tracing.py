@@ -7,10 +7,10 @@ of the span it was opened in, the id of the entry call it belongs to
 per name (``ATTRS``). The spans, each opened where its work happens:
 
 - ``entry``: the outermost call of ``contract_tree``,
-  ``contract_slice``, ``contract_core`` and the functions that
-  ``make_grouped_contractor`` and ``make_full_contractor`` return
-  (``entry``). An entry called inside another opens no span of its
-  own: its spans nest in the outer call's;
+  ``contract_slice``, ``contract_core``, ``contract_compressed`` and
+  the functions that ``make_grouped_contractor`` and
+  ``make_full_contractor`` return (``entry``). An entry called inside
+  another opens no span of its own: its spans nest in the outer call's;
 - ``inputs.upload``: ``convert.to_tensors``, ``convert.to_plane_tensors``
   and ``slices.device_digits``, with the bytes taken from host memory
   (numpy arrays and CPU tensors);
@@ -28,7 +28,13 @@ per name (``ATTRS``). The spans, each opened where its work happens:
   the host time just before the launch call (``launched``: the kernel
   starts on the device after it) and, for a chain pass, its gates in
   register groups and on the per-item path and its groups
-  (``reg_gates``, ``item_gates``, ``groups``; None for the product).
+  (``reg_gates``, ``item_gates``, ``groups``; None for the product);
+- ``compressed.step``, ``compressed.neighbours`` and
+  ``compressed.truncate``: in ``ops.compressed.contract_compressed``,
+  one step of its loop (the step's index, the element count of its
+  pairwise result), one neighbour and index-holder pass over the live
+  tensors (how many were live) and one bond's truncation, its QR, SVD
+  and products (the rows of each side, the fused bond, the kept k).
 
 Spans are recorded only inside ``record()`` (tests, operators) or in an
 entry call that starts while a torch profiler session records
@@ -61,6 +67,9 @@ ATTRS = {
     "executor.step": ("index", "kind"),
     "kernel.launch": ("kernel", "seq", "shapes", "launched", "reg_gates",
                       "item_gates", "groups"),
+    "compressed.step": ("index", "size"),
+    "compressed.neighbours": ("live",),
+    "compressed.truncate": ("rows_a", "rows_b", "bond", "k"),
 }
 
 # Python step calls of the executors, by function

@@ -4,7 +4,9 @@ JAX package's, on the CPU: the hypergraph, the compressed cost model
 refiners (the same paths from the same seeds), and
 ``contract_compressed(device="cpu")`` on the same numpy inputs in
 float64 (rtol 1e-10; stripped values |delta log10| <= 1e-6, where the
-two float32 exponent sums may round apart). Both packages' cost replays
+JAX package's float32 exponent sum may round away from the port's
+float64 one); the port's stripped value past float32's range equals its
+unstripped float64 one. Both packages' cost replays
 run in pure Python (their native engines are patched out), except where
 a test compares the two native replays (``accel=True``)."""
 
@@ -41,7 +43,8 @@ from cotengra_tpu_torch.utils.eqs import inputs_output_to_eq
 torch.set_num_threads(1)
 
 F64_RTOL = 1e-10
-# two float32 exponent sums over different roundings of the same scales
+# the JAX package's float32 exponent sum against the port's float64 sum
+# of the same scales
 LOG10_ATOL = 1e-6
 NATIVE_REPLAY = {port_tree_mod: port_tree_mod._get_native_replay,
                  ref_tree_mod: ref_tree_mod._get_native_replay}
@@ -511,11 +514,42 @@ def test_contract_compressed_matches_reference(late):
     rm, re_ = ref.contract_compressed(
         arrays, chi=9, compress_late=late, strip_exponent=True
     )
-    assert m.dtype == torch.float64 and e.dtype == torch.float32
+    assert m.dtype == torch.float64 and e.dtype == torch.float64
     log10 = np.log10(abs(m.item())) + e.item()
     ref_log10 = np.log10(abs(float(rm))) + float(re_)
     assert abs(log10 - ref_log10) <= LOG10_ATOL
     assert abs(log10 - np.log10(abs(want))) <= LOG10_ATOL
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("late", [False, True])
+def test_stripped_exponent_is_summed_in_float64(late, dtype):
+    """An 8x8 bond-4 lattice on 1 + 0.05 * normal entries at chi=8 (value
+    about 10^67, past float32's range; 49 truncations a value): the
+    stripped log10 value equals the unstripped float64 run's to 1e-12 in
+    float64 (a float32 sum of the 63 log10 scales errs by ~1e-6 there),
+    and its exponent is float64 for float32 inputs too, whose float32
+    arithmetic over 63 steps may err by 63 float32 epsilons in log10
+    (3.3e-6)."""
+    inputs, output, shapes, size_dict = ctt.lattice_equation([8, 8], d_min=4)
+    rng = np.random.default_rng(0)
+    arrays = [np.ones(s) + 0.05 * rng.normal(size=s) for s in shapes]
+    tree = ContractionTreeCompressed.from_path(
+        inputs, output, size_dict,
+        ssa_path=pc.greedy_compressed_ssa(inputs, output, size_dict, chi=8),
+    )
+    exact = tree.contract_compressed(
+        arrays, chi=8, compress_late=late, device="cpu"
+    ).item()
+    assert 1e60 < exact < 1e75
+    m, e = tree.contract_compressed(
+        [a.astype(dtype) for a in arrays], chi=8, compress_late=late,
+        strip_exponent=True, device="cpu",
+    )
+    assert m.dtype == getattr(torch, dtype) and e.dtype == torch.float64
+    log10 = np.log10(abs(m.item())) + e.item()
+    atol = 1e-12 if dtype == "float64" else 1e-5
+    assert abs(log10 - np.log10(exact)) <= atol
 
 
 @pytest.mark.parametrize("late", [False, True])

@@ -514,7 +514,7 @@ def test_contract_compressed_on_the_card(cuda):
     assert want.device.type == "cpu"
     assert abs(got.item() - want.item()) <= 1e-9 * abs(want.item())
     m, e = tree.contract_compressed(arrays, chi=16, strip_exponent=True)
-    assert m.device == cuda and e.dtype == torch.float32
+    assert m.device == cuda and e.dtype == torch.float64
     assert abs(
         np.log10(abs(m.item())) + e.item() - np.log10(abs(want.item()))
     ) <= 1e-5

@@ -216,15 +216,17 @@ def test_contract_compressed_mixed_matches_reference():
     tree = ctt.ContractionTreeCompressed.from_path(
         inputs, output, size_dict, path=path
     )
+    exp = _value(rtree.contract_compressed(arrays, chi=4))
     for strip in (False, True):
-        exp = _value(rtree.contract_compressed(
-            arrays, chi=4, strip_exponent=strip
-        ))
         got = tree.contract_compressed(arrays, chi=4, strip_exponent=strip,
                                        device="cpu")
         m = got[0] if strip else got
         assert m.dtype == torch.complex128
+        # the stripped value against the reference's unstripped one: its
+        # stripped exponent is a float32 sum, the port's a float64 one
         assert_allclose(_value(got), exp, rtol=1e-10, atol=0)
+    rm, _ = rtree.contract_compressed(arrays, chi=4, strip_exponent=True)
+    assert_allclose(m.numpy(), np.asarray(rm), rtol=1e-10, atol=0)
 
 
 def test_compressed_pair_core_promotes():

@@ -3,7 +3,9 @@ they record nothing; on, under a torch profiler session or
 ``tracing.record()``, each entry call's spans share its id and nest in
 their parents, self times are spans less their children, the ring keeps
 its bound and counts what it drops, and tiny contractions on each route
-give the span names and one ``executor.step`` per step run.
+give the span names and one ``executor.step`` per step run, and a
+compressed contraction its ``compressed.*`` spans, nested step,
+neighbour pass, truncation, and its ``COUNTS``.
 ``capture.STEP_CALLS`` is the tracer's counter."""
 
 import collections
@@ -280,3 +282,80 @@ def test_launch_attributes_a_site_leaves_out_read_none():
         None, None, None]
     assert [chain.attrs[k] for k in ("reg_gates", "item_gates", "groups")] == [
         5, 1, 3]
+
+
+def _compressed_call():
+    """A 5x5 bond-3 lattice at chi=4 (truncating), stripped, float64."""
+    from cotengra_tpu_torch.pathfinders.compressed import (
+        greedy_compressed_ssa,
+    )
+
+    inputs, output, shapes, size_dict = ctt.lattice_equation([5, 5],
+                                                             d_min=3)
+    rng = np.random.default_rng(3)
+    arrays = [np.ones(s) + 0.05 * rng.normal(size=s) for s in shapes]
+    tree = ctt.ContractionTreeCompressed.from_path(
+        inputs, output, size_dict,
+        ssa_path=greedy_compressed_ssa(inputs, output, size_dict, chi=4),
+    )
+    return lambda: tree.contract_compressed(
+        arrays, chi=4, strip_exponent=True, device="cpu"
+    ), tree
+
+
+@pytest.mark.parametrize("how", ["profiler", "record"])
+def test_spans_of_a_compressed_call(how):
+    """One ``entry`` of kind ``compressed``; a ``compressed.step`` a
+    contraction, each neighbour pass inside its step and each
+    truncation inside a neighbour pass; ``COUNTS`` grows by the
+    truncations recorded."""
+    from cotengra_tpu_torch.ops import compressed
+
+    call, tree = _compressed_call()
+    before = dict(compressed.COUNTS)
+    if how == "profiler":
+        first = _last_index()
+        with profile(activities=[ProfilerActivity.CPU]):
+            call()
+        recs = _new(first)
+    else:
+        with tracing.record():
+            call()
+        recs = tracing.records()
+    assert not tracing.ON
+    ent = _check_tree(recs)
+    assert ent.attrs == {"kind": "compressed", "slices": 1}
+    by_index = {r.index: r for r in recs}
+    names = collections.Counter(r.name for r in recs)
+    steps = [r for r in recs if r.name == "compressed.step"]
+    cuts = [r for r in recs if r.name == "compressed.truncate"]
+    assert set(names) == {"entry", "compressed.step", "compressed.neighbours",
+                          "compressed.truncate"}
+    assert [r.attrs["index"] for r in steps] == list(range(tree.N - 1))
+    assert {r.parent for r in steps} == {ent.index}
+    assert names["compressed.neighbours"] == len(steps)
+    for r in recs:
+        if r.name == "compressed.neighbours":
+            assert by_index[r.parent].name == "compressed.step"
+            assert r.attrs["live"] >= 1
+    assert cuts and all(
+        by_index[r.parent].name == "compressed.neighbours"
+        and r.attrs["k"] <= 4 < r.attrs["bond"] for r in cuts
+    )
+    grown = {k: compressed.COUNTS[k] - before[k] for k in before}
+    assert grown == {"truncations": len(cuts)}
+
+
+def test_a_compressed_call_off_records_nothing_and_counts():
+    from cotengra_tpu_torch.ops import compressed
+
+    call, _ = _compressed_call()
+    with tracing.record():
+        call()
+    cuts = sum(r.name == "compressed.truncate" for r in tracing.records())
+    before, dropped = tracing.records(), tracing.dropped()
+    counts = dict(compressed.COUNTS)
+    call()
+    assert not tracing.ON
+    assert tracing.records() == before and tracing.dropped() == dropped
+    assert compressed.COUNTS["truncations"] == counts["truncations"] + cuts > 0
