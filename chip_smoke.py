@@ -112,13 +112,21 @@ Run from the root of a checkout. Phases:
    inputs cast to float32 (the exponent a float64 tensor in both), each
    held to ``COMPRESSED_LOG10`` (from
    ``scratch/make_compressed_ref.py``) at |delta log10| <= 1e-4 and
-   1e-3; per dtype the QR and SVD calls and the host syncs of one pass
-   (``torch.cuda.set_sync_debug_mode("warn")``), the warm time-to-value
-   (best of 3, each pass ending in a host pull checked finite and
-   stable) and the peak device memory; the host seconds of the
-   neighbour bookkeeping (``compress_with_neighbors``, under cProfile);
-   one SVD of a 128x128 core and one QR of the largest tall-skinny
-   operand, timed; no kernel of the port is launched;
+   1e-3; per dtype of one pass the QR calls (two a truncation), the
+   library SVD calls (0), the truncation-core kernel's launches
+   (``csrc/svd_core.cu``, one a truncation: 72), none of them at its
+   sweep cap unconverged (``svd_core.unconverged``), and the host syncs
+   (0; ``torch.cuda.set_sync_debug_mode("warn")``), the warm
+   time-to-value (best of 3, each pass ending in a host pull checked
+   finite and stable) and the peak device memory; the host seconds of
+   the neighbour bookkeeping (``compress_with_neighbors``, under
+   cProfile); the kernel on every core of the pass held to the plain
+   version on the CPU in float64 (singular values, the rank-k truncation
+   and its error above the optimum, within ``SVD_CORE_ATOL``), timed on one core of
+   each size (1x1 to 1024x1024) and on a value's cores in turn beside
+   the library's SVD and the bound, and one QR of the largest
+   tall-skinny operand, timed; neither the chain nor the matmul kernel
+   is launched;
 17. Sycamore-53 m=10 planned by the port: ``HyperOptimizer(methods=
    ["greedy", "labels"], max_repeats=16, seed=8, slicing_reconf_opts=
    {"target_size": 2**27, "temperature": 0}, parallel=False)`` on the
@@ -196,7 +204,8 @@ Run from the root of a checkout. Phases:
 28. the compressed 16x16 lattice of phase 16 in float64 with input 0
    times the same phase (complex128): the truncations depend on
    singular values only, so the value is ``COMPRESSED_LOG10`` times the
-   phase; |delta log10| and the phase error <= 1e-4;
+   phase; |delta log10| and the phase error <= 1e-4; each truncation
+   either the library's SVD (complex cores, > 0) or the kernel's;
 29. the JAX package's example (``examples/ex_plan_slice_contract.py``)
    through the port at full width, on phase 4's m10 instance:
    ``optimize_random_greedy_track_flops(ntrials=128, seed=0)``,
@@ -337,7 +346,10 @@ Run from the root of a checkout. Phases:
    ``gpu_m10_launches``, and of phases 37 and 38 under
    ``window_t27_chain_launches`` and ``fused_t27_launches``, of phases
    43-45 under ``captured_*``: counted by the profiler in replayed
-   graphs), one JSON
+   graphs; the truncation-core kernel's from phase 16, a value's cores
+   in float64, with ``max_err_over_s0``, ``max_cut_err``, ``max_excess``,
+   ``max_sweeps``
+   and ``f32_*`` keys), one JSON
    line ``{"host_native": {...}}`` of the host library's build seconds
    and the planning seconds of phases 15, 17-21 and 30, then the last
    line ``{"ok": true, "device": {...}}``.
@@ -372,6 +384,7 @@ import hashlib
 import itertools
 import json
 import math
+import os
 import pstats
 import subprocess
 import sys
@@ -524,7 +537,16 @@ def _kernel_counters():
     from cotengra_tpu_torch.ops.bmm_absmax import bmm_absmax_cuda
     from cotengra_tpu_torch.ops.gate_chains import run_chain_cuda
 
-    return {"gate_chain": run_chain_cuda, "bmm_absmax": bmm_absmax_cuda}
+    from cotengra_tpu_torch.ops.svd_core import svd_topk_cuda
+
+    return {"gate_chain": run_chain_cuda, "bmm_absmax": bmm_absmax_cuda,
+            "svd_core": svd_topk_cuda}
+
+
+def _launches(gate_chain=0, bmm_absmax=0, svd_core=0):
+    """What ``_read_launches`` reads where each kernel launched as given."""
+    return {"gate_chain": gate_chain, "bmm_absmax": bmm_absmax,
+            "svd_core": svd_core}
 
 
 def _reset_launches():
@@ -996,7 +1018,7 @@ def phase_main_path(plan_name, n_ref, dev, passes=3):
     amp0 = complex(amp.cpu().item())
     ref = refs[n_ref]
     relerr = abs(amp0 - ref) / abs(ref)
-    if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+    if counts != _launches(gate_chain=expect):
         raise AssertionError(
             f"{plan_name}: launches {counts}, plan has {expect} passes"
         )
@@ -1141,7 +1163,7 @@ def phase_lattice(dev, passes=3):
 
     log10 = float(np.log10(abs(m.item())) + e.item())
     d_log10 = abs(log10 - ref["log10"])
-    if counts != {"gate_chain": 0, "bmm_absmax": expect}:
+    if counts != _launches(bmm_absmax=expect):
         raise AssertionError(
             f"{LATTICE}: launches {counts}, plan has {expect} kernel steps"
         )
@@ -1199,7 +1221,7 @@ def phase_t27_stripped(dev):
     amp = complex(m.cpu().item()) * 10.0 ** e.item()
     ref = refs[n_ref]
     relerr = abs(amp - ref) / abs(ref)
-    if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+    if counts != _launches(gate_chain=expect):
         raise AssertionError(
             f"stripped t27: launches {counts}, plan has {expect} passes"
         )
@@ -1271,7 +1293,7 @@ def phase_t27_batched(dev, passes=3):
         else:
             amp = complex(res.cpu().item())
         relerr = abs(amp - ref) / abs(ref)
-        if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+        if counts != _launches(gate_chain=expect):
             raise AssertionError(
                 f"batched t27 (strip {strip}): launches {counts}, the plan "
                 f"gives {expect}"
@@ -1340,7 +1362,7 @@ def phase_m20(dev, passes=3):
     first = time.perf_counter() - t0
     counts = _read_launches()
 
-    if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+    if counts != _launches(gate_chain=expect):
         raise AssertionError(
             f"{M20}: launches {counts}, the plan gives {expect}"
         )
@@ -1460,7 +1482,7 @@ def phase_front_lattice(dev):
     d_log10 = abs(log10 - ref["log10"])
     if res[0].device != dev:
         raise AssertionError(f"front end lattice: result on {res[0].device}")
-    if counts != {"gate_chain": 0, "bmm_absmax": expect}:
+    if counts != _launches(bmm_absmax=expect):
         raise AssertionError(
             f"front end lattice: launches {counts}, plan has {expect}"
         )
@@ -1523,7 +1545,7 @@ def phase_front_t27(dev):
         raise AssertionError(
             f"front end t27: {res.dtype} result on {res.device}"
         )
-    if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+    if counts != _launches(gate_chain=expect):
         raise AssertionError(
             f"front end t27: launches {counts}, the plan gives {expect}"
         )
@@ -1607,7 +1629,8 @@ def phase_front_auto(dev):
         raise AssertionError("auto 6x6: einsum planned another expression")
     log10 = _stripped_log10(res)
     d_log10 = abs(log10 - LATTICE6_LOG10)
-    if counts["gate_chain"] != 0 or counts["bmm_absmax"] <= 0:
+    if (counts["gate_chain"] != 0 or counts["bmm_absmax"] <= 0
+            or counts["svd_core"] != 0):
         raise AssertionError(f"auto 6x6: launches {counts}")
     if not (np.isfinite(log10) and d_log10 <= LOG10_ATOL):
         raise AssertionError(
@@ -1642,13 +1665,23 @@ def _path_hash(ssa_path):
     return hashlib.sha256(text.encode()).hexdigest()
 
 
+# the note torch gives the first time sync debugging is switched on: it
+# names no synchronising call
+SYNC_DEBUG_NOTE = "Synchronization debug mode is a prototype feature"
+
+
 @contextlib.contextmanager
-def _count_linalg():
+def _count_linalg(cores=None):
     """Count ``torch.linalg.qr`` and ``torch.linalg.svd`` calls (looked up
-    at call time by ``ops/compressed.py``) and the host syncs that
-    ``set_sync_debug_mode("warn")`` reports, inside the block."""
+    at call time by ``ops/compressed.py`` and ``ops/svd_core.py``) and the
+    host syncs that ``set_sync_debug_mode("warn")`` reports, inside the
+    block. Where ``cores`` is a list, every core that reaches ``svd_topk``
+    is cloned into it (a device copy: no sync)."""
+    from cotengra_tpu_torch.ops import compressed
+
     counts = {"qr": 0, "svd": 0, "syncs": 0}
     real = {k: getattr(torch.linalg, k) for k in ("qr", "svd")}
+    topk = compressed.svd_topk
 
     def counted(k):
         def fn(*args, **kwargs):
@@ -1657,19 +1690,29 @@ def _count_linalg():
 
         return fn
 
+    def keeping(M, k):
+        if cores is not None:
+            cores.append(M.clone())
+        return topk(M, k)
+
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         for k in real:
             setattr(torch.linalg, k, counted(k))
+        compressed.svd_topk = keeping
         torch.cuda.set_sync_debug_mode("warn")
         try:
             yield counts
         finally:
             torch.cuda.set_sync_debug_mode("default")
+            compressed.svd_topk = topk
             for k, fn in real.items():
                 setattr(torch.linalg, k, fn)
-    counts["syncs"] = sum(
-        "synchroniz" in str(w.message) for w in caught
+    syncs = [w for w in caught if "synchroniz" in str(w.message)
+             and not str(w.message).startswith(SYNC_DEBUG_NOTE)]
+    counts["syncs"] = len(syncs)
+    counts["sync_sites"] = sorted(
+        {f"{os.path.basename(w.filename)}:{w.lineno}" for w in syncs}
     )
 
 
@@ -1687,6 +1730,8 @@ def _stripped_pass(tree, tensors):
 def phase_compressed(dev, passes=3):
     """The compressed 16x16 lattice: planned by the port, contracted on
     the card in float64 and float32, held to the JAX package's value."""
+    from cotengra_tpu_torch.ops import compressed
+    from cotengra_tpu_torch.ops.svd_core import unconverged
     from cotengra_tpu_torch.pathfinders.compressed import (
         greedy_compressed_ssa,
     )
@@ -1719,23 +1764,47 @@ def phase_compressed(dev, passes=3):
         flush=True,
     )
 
+    rows = {}
     for dtype in (torch.float64, torch.float32):
         tensors = [torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
+        capped = unconverged(dev)
+        truncations = compressed.COUNTS["truncations"]
+        cores = []
         t0 = time.perf_counter()
-        with _count_linalg() as counts:
+        with _count_linalg(cores) as counts:
             m, e = tree.contract_compressed(
                 tensors, chi=COMPRESSED_CHI, strip_exponent=True, device=dev
             )
         mant, expo = m.item(), e.item()
         first_s = time.perf_counter() - t0
         launches = _read_launches()
+        truncations = compressed.COUNTS["truncations"] - truncations
         log10 = float(np.log10(abs(mant)) + expo)
         d_log10 = abs(log10 - COMPRESSED_LOG10)
-        if launches != {"gate_chain": 0, "bmm_absmax": 0}:
-            raise AssertionError(f"{COMPRESSED}: launches {launches}")
+        # real cores: every truncation one kernel launch, converged under
+        # its sweep cap, no library SVD, and nothing that makes the host
+        # wait for the card
+        if (launches != _launches(svd_core=truncations) or truncations <= 0
+                or len(cores) != truncations):
+            raise AssertionError(
+                f"{COMPRESSED} {dtype}: launches {launches} for "
+                f"{truncations} truncations ({len(cores)} cores kept)"
+            )
+        if counts["svd"] != 0 or counts["qr"] != 2 * truncations:
+            raise AssertionError(f"{COMPRESSED} {dtype}: {counts}")
+        if counts["syncs"] != 0:
+            raise AssertionError(
+                f"{COMPRESSED} {dtype}: {counts['syncs']} host syncs at "
+                f"{counts['sync_sites']}"
+            )
+        if unconverged(dev) != capped:
+            raise AssertionError(
+                f"{COMPRESSED} {dtype}: {unconverged(dev) - capped} "
+                "truncation cores reached the kernel's sweep cap"
+            )
         if m.dtype != dtype or m.device != dev:
             raise AssertionError(f"{COMPRESSED}: {m.dtype} on {m.device}")
         if not (np.isfinite(log10) and d_log10 <= COMPRESSED_ATOL[dtype]):
@@ -1761,19 +1830,24 @@ def phase_compressed(dev, passes=3):
             f"# main path {COMPRESSED} {str(dtype).removeprefix('torch.')}: "
             f"value {mant!r} x 10^{expo!r} log10 {log10!r} (reference "
             f"{COMPRESSED_LOG10!r}) |delta log10| {d_log10:.3e} qr "
-            f"{counts['qr']} svd {counts['svd']} host syncs "
-            f"{counts['syncs']} first_call_s {first_s:.3f} time_to_value_s "
+            f"{counts['qr']} library svd {counts['svd']} svd_core launches "
+            f"{launches['svd_core']} host syncs {counts['syncs']} "
+            f"first_call_s {first_s:.3f} time_to_value_s "
             f"{' '.join(f'{t:.4f}' for t in times)} (best {min(times):.4f}) "
             f"peak_mem_gib {peak:.2f} launches {launches}",
             flush=True,
         )
         if dtype == torch.float64:
             _compressed_host_share(tree, tensors)
-        _time_compressed_linalg(dtype, dev, int(stats.max_size))
-        del tensors, m, e
+        rows[dtype] = _time_compressed_linalg(
+            dtype, dev, int(stats.max_size), cores
+        )
+        rows[dtype]["launches"] = launches["svd_core"]
+        del tensors, m, e, cores
         torch.cuda.empty_cache()
     print(f"# {COMPRESSED} phase_s {time.perf_counter() - t_phase:.1f}",
           flush=True)
+    return rows
 
 
 def _compressed_host_share(tree, tensors):
@@ -1801,27 +1875,148 @@ def _compressed_host_share(tree, tensors):
     )
 
 
-def _time_compressed_linalg(dtype, dev, max_size):
-    """One SVD of the largest core (D x D, D = 4 * chi = 128 here) and
-    one QR of the largest operand as a tall-skinny (max_size / D, D)
-    matrix, by CUDA events."""
+# the least time of a dense SVD of an (m, n) core on the card: Householder
+# bidiagonalisation's 4 m n^2 - 4 n^3 / 3 flops (n <= m) at the 67 TFLOP/s
+# FP64 tensor rate, or reading it and writing its k triplets at the HBM
+# rate, the larger
+FP64_TENSOR_FLOPS = 67e12
+# the kernel's singular values against the plain version's on the CPU
+# (LAPACK, float64), over the largest; its truncation U diag(s) V^T against
+# the plain version's, and its Frobenius error above the optimum, over
+# ||M||_F: at most. (cuSOLVER's float64 SVD errs by up to 1.5e-12 on the
+# plan's 256 x 256 cores by the same measure.)
+SVD_CORE_ATOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+def _svd_bound(m, n, k, itemsize):
+    """(ms, "bytes" or "operations") for one (m, n) core, k triplets."""
+    m, n = max(m, n), min(m, n)
+    t_ops = (4 * m * n * n - 4 * n**3 / 3) / FP64_TENSOR_FLOPS
+    t_bytes = itemsize * (m * n + (m + n + 1) * k) / HBM_BYTES_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def _svd_core_errors(core, k, U, s, V):
+    """The top-k ``(U, s, V)`` of ``core`` against the plain version on the
+    CPU (LAPACK) in float64: max |s - s_plain|, that over the largest
+    singular value;
+    ||U diag(s) V^T - U_p diag(s_p) V_p^T||_F over ||M||_F (first order in
+    a vector's error; the rank-k truncation is one matrix wherever s_k >
+    s_k+1, and where they tie both cuts are at s_k's level); and
+    ||M - U diag(s) V^T||_F above the optimum (the norm of the singular
+    values past k) over ||M||_F."""
+    from cotengra_tpu_torch.ops.svd_core import svd_topk_plain
+
+    Md = core.double().cpu()
+    U_p, s_p, V_p = svd_topk_plain(Md, k)
+    full = torch.linalg.svdvals(Md)
+    top = max(float(full[0]), 1e-300)
+    norm = max(float(torch.linalg.norm(Md)), 1e-300)
+    U, s, V = (x.double().cpu() for x in (U, s, V))
+    err = float((s - s_p).abs().max())
+    cut = (U * s) @ V.T
+    gap = float(torch.linalg.norm(cut - (U_p * s_p) @ V_p.T))
+    resid = float(torch.linalg.norm(Md - cut))
+    opt = float(torch.sqrt((full[k:] ** 2).sum()))
+    return err, err / top, gap / norm, (resid - opt) / norm
+
+
+def _time_compressed_linalg(dtype, dev, max_size, cores):
+    """The truncation-core kernel on every core of a pass (``cores``, in
+    the pass's order), each held to the plain version (``svd_topk_plain``
+    on the CPU, float64) within ``SVD_CORE_ATOL``, and the library on the
+    card measured the same way; by CUDA events, the first core of
+    each shape, and all of a value's cores one after another, beside the
+    plain version (``svd_topk_plain``: the library's SVD and the top-k
+    slices, in the cores' dtype) and the bound; and one QR of the largest
+    operand as a tall-skinny (max_size / D, D) matrix. Returns the kernel's
+    row for the ``kernels`` line: errors, ms a value, plain and library ms
+    (the same call), the bound and the most sweeps a core took."""
+    from cotengra_tpu_torch.ops.svd_core import svd_topk_cuda, svd_topk_plain
+
+    name = str(dtype).removeprefix("torch.")
+    ks = [min(COMPRESSED_CHI, *c.shape) for c in cores]
+    worst = [0.0, 0.0, 0.0, 0.0]
+    library = 0.0
+    sweeps = {}
+    for core, k in zip(cores, ks):
+        U, s, V = svd_topk_cuda(core, k)
+        sweep = int(svd_topk_cuda.ctl[2].item())
+        errs = _svd_core_errors(core, k, U, s, V)
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+        library = max(library, _svd_core_errors(
+            core, k, *svd_topk_plain(core, k))[1])
+        shape = tuple(core.shape)
+        sweeps[shape] = max(sweeps.get(shape, 0), sweep)
+        if not max(errs[1:]) <= SVD_CORE_ATOL[dtype]:
+            raise AssertionError(
+                f"{COMPRESSED} {name}: svd core {shape[0]}x{shape[1]} k {k}: "
+                f"|s - s_plain| {errs[1]:.3e} of the largest, truncation "
+                f"{errs[2]:.3e} of ||M|| from the plain one and "
+                f"{errs[3]:.3e} above the optimum (> "
+                f"{SVD_CORE_ATOL[dtype]}), {sweep} sweeps"
+            )
+    firsts = {}
+    for core, k in zip(cores, ks):
+        firsts.setdefault(tuple(core.shape), (core, k))
+    for shape in sorted(firsts, key=lambda s: (s[0] * s[1], s)):
+        core, k = firsts[shape]
+        reps = max(3, min(50, int(2e8 / (shape[0] * shape[1] * max(shape)))))
+        svd_topk_cuda(core, k)
+        svd_topk_plain(core, k)
+        kernel_ms = _cuda_ms(lambda: svd_topk_cuda(core, k), reps)
+        library_ms = _cuda_ms(lambda: svd_topk_plain(core, k), reps)
+        print(
+            f"# {COMPRESSED} {name}: svd core {shape[0]}x{shape[1]} k {k} "
+            f"(x{sum(tuple(c.shape) == shape for c in cores)} a value): "
+            f"kernel_ms {kernel_ms:.3f} library_ms {library_ms:.3f} "
+            f"(plain, the same call) bound_ms "
+            f"{_svd_bound(*shape, k, core.element_size())[0]:.4f} sweeps "
+            f"{sweeps[shape]} at most",
+            flush=True,
+        )
+
+    def value(fn):
+        return lambda: [fn(core, k) for core, k in zip(cores, ks)]
+
+    value(svd_topk_cuda)()
+    value(svd_topk_plain)()
+    ms = _cuda_ms(value(svd_topk_cuda), 3)
+    plain_ms = _cuda_ms(value(svd_topk_plain), 3)
+    bounds = [_svd_bound(*c.shape, k, c.element_size())
+              for c, k in zip(cores, ks)]
+    row = {
+        "max_abs_err": worst[0], "max_err_over_s0": worst[1],
+        "max_cut_err": worst[2], "max_excess": worst[3], "ms": ms, "plain_ms": plain_ms,
+        "library_ms": plain_ms, "bound_ms": sum(b[0] for b in bounds),
+        "bound_by": _dominant(bounds), "max_sweeps": max(sweeps.values()),
+        "library_max_err_over_s0": library,
+    }
+    print(
+        f"# {COMPRESSED} {name}: svd_core on a value's {len(cores)} cores: "
+        f"kernel_ms {ms:.3f} plain_ms {plain_ms:.3f} bound_ms "
+        f"{row['bound_ms']:.4f} max |s - s_plain| {worst[0]:.3e} "
+        f"({worst[1]:.3e} of the largest) truncation from the plain one "
+        f"{worst[2]:.3e} and above the optimum {worst[3]:.3e} of ||M|| "
+        f"sweeps at most {row['max_sweeps']}; the library's |s - s_plain| "
+        f"{library:.3e} of the largest",
+        flush=True,
+    )
     D = COMPRESSED_BOND * COMPRESSED_CHI
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    core = torch.randn(D, D, generator=gen, device=dev, dtype=dtype)
     tall = torch.randn(max_size // D, D, generator=gen, device=dev, dtype=dtype)
     for _ in range(2):
-        torch.linalg.svd(core, full_matrices=False)
         torch.linalg.qr(tall)
-    svd_ms = _cuda_ms(lambda: torch.linalg.svd(core, full_matrices=False), 20)
     qr_ms = _cuda_ms(lambda: torch.linalg.qr(tall), 5)
     print(
-        f"# {COMPRESSED} {str(dtype).removeprefix('torch.')}: one svd "
-        f"({D}, {D}) {svd_ms:.3f} ms; one qr ({max_size // D}, {D}) "
-        f"{qr_ms:.3f} ms",
+        f"# {COMPRESSED} {name}: one qr ({max_size // D}, {D}) {qr_ms:.3f} ms",
         flush=True,
     )
-    del core, tall
+    del tall
+    return row
 
 
 def _seeded_methods(methods, rng):
@@ -1973,7 +2168,7 @@ def phase_hyper_m10(dev, methods, label):
 
     amp0 = complex(amp.cpu().item())
     relerr = abs(amp0 - ref) / abs(ref)
-    if counts != {"gate_chain": expect, "bmm_absmax": 0} or expect <= 0:
+    if counts != _launches(gate_chain=expect) or expect <= 0:
         raise AssertionError(
             f"{label}: launches {counts}, the plan has {expect} passes"
         )
@@ -2032,7 +2227,7 @@ def phase_hyper_lattice(dev, methods, label):
     counts = _read_launches()
     log10 = _stripped_log10(res)
     d_log10 = abs(log10 - ref["log10"])
-    if counts != {"gate_chain": 0, "bmm_absmax": expect} or expect <= 0:
+    if counts != _launches(bmm_absmax=expect) or expect <= 0:
         raise AssertionError(
             f"{label}: launches {counts}, the plan has {expect} "
             f"kernel steps"
@@ -2411,7 +2606,7 @@ def _check_t27_ranks(label, ranks):
     launches = []
     for r in ranks:
         expect = r["passes"] * r["slices"]
-        if r["counts"] != {"gate_chain": expect, "bmm_absmax": 0}:
+        if r["counts"] != _launches(gate_chain=expect):
             raise AssertionError(
                 f"{label} rank {r['rank']}: launches {r['counts']}, its "
                 f"{r['slices']} slices give {expect}"
@@ -2447,7 +2642,7 @@ def _check_lattice_ranks(label, ranks):
     launches = []
     for r in ranks:
         expect = r["steps"] * r["slices"]
-        if r["counts"] != {"gate_chain": 0, "bmm_absmax": expect}:
+        if r["counts"] != _launches(bmm_absmax=expect):
             raise AssertionError(
                 f"{label} rank {r['rank']}: launches {r['counts']}, its "
                 f"{r['slices']} slices give {expect}"
@@ -2632,8 +2827,8 @@ def phase_folded(dev):
     k_rest = n * len(kernel - set(batch.steps_fold))
     (s1, c1, v1), (s2, c2, v2) = calls
     if not (batch.steps_fold and s1 - s2 == len(batch.steps_fold)
-            and c1 == {"gate_chain": 0, "bmm_absmax": k_fold + k_rest}
-            and c2 == {"gate_chain": 0, "bmm_absmax": k_rest}):
+            and c1 == _launches(bmm_absmax=k_fold + k_rest)
+            and c2 == _launches(bmm_absmax=k_rest)):
         raise AssertionError(
             f"folded lattice: {len(batch.steps_fold)} folded steps, steps "
             f"run {s1} then {s2}, launches {c1} then {c2}, expected "
@@ -2708,7 +2903,7 @@ def phase_mixed_lattice(dev):
     d_phase = _phase_error(val)
     if m.dtype != torch.complex64 or e.dtype != torch.float32:
         raise AssertionError(f"mixed {LATTICE}: {m.dtype}, {e.dtype}")
-    if counts != {"gate_chain": 0, "bmm_absmax": expect}:
+    if counts != _launches(bmm_absmax=expect):
         raise AssertionError(
             f"mixed {LATTICE}: launches {counts}, {expect} real kernel "
             "steps expected"
@@ -2736,7 +2931,9 @@ def phase_mixed_compressed(dev):
     """The compressed 16x16 lattice at chi=32 in float64 with input
     ``MIXED_INPUT`` times exp(i pi/3) (complex128): the truncations
     depend only on singular values, so the value is the real one's
-    times the phase."""
+    times the phase. Complex cores take the library's SVD, real ones the
+    kernel: one or the other a truncation."""
+    from cotengra_tpu_torch.ops import compressed
     from cotengra_tpu_torch.pathfinders.compressed import (
         greedy_compressed_ssa,
     )
@@ -2752,18 +2949,22 @@ def phase_mixed_compressed(dev):
     arrays[MIXED_INPUT] = arrays[MIXED_INPUT] * np.exp(1j * MIXED_PHASE)
     tensors = [torch.as_tensor(a, device=dev) for a in arrays]
     _reset_launches()
-    m, e = tree.contract_compressed(
-        tensors, chi=COMPRESSED_CHI, strip_exponent=True, device=dev
-    )
+    truncations = compressed.COUNTS["truncations"]
+    with _count_linalg() as counts:
+        m, e = tree.contract_compressed(
+            tensors, chi=COMPRESSED_CHI, strip_exponent=True, device=dev
+        )
     val = complex(m.item())
     launches = _read_launches()
+    truncations = compressed.COUNTS["truncations"] - truncations
     log10 = float(np.log10(abs(val)) + e.item())
     d_log10 = abs(log10 - COMPRESSED_LOG10)
     d_phase = _phase_error(val)
-    if m.dtype != torch.complex128 or launches != {"gate_chain": 0,
-                                                   "bmm_absmax": 0}:
+    if (m.dtype != torch.complex128 or counts["svd"] <= 0
+            or launches != _launches(svd_core=truncations - counts["svd"])):
         raise AssertionError(
-            f"mixed {COMPRESSED}: {m.dtype}, launches {launches}"
+            f"mixed {COMPRESSED}: {m.dtype}, launches {launches}, library "
+            f"svd {counts['svd']} of {truncations} truncations"
         )
     if not (np.isfinite(log10) and d_log10 <= COMPRESSED_ATOL[torch.float64]
             and d_phase <= COMPRESSED_ATOL[torch.float64]):
@@ -2774,7 +2975,9 @@ def phase_mixed_compressed(dev):
     print(
         f"# main path mixed {COMPRESSED}: input {MIXED_INPUT} x "
         f"exp(i pi/3) complex128, the rest float64: value {val!r} x "
-        f"10^{e.item()!r} |delta log10| {d_log10:.3e} phase error "
+        f"10^{e.item()!r} |delta log10| {d_log10:.3e} library svd "
+        f"{counts['svd']} svd_core launches {launches['svd_core']} host "
+        f"syncs {counts['syncs']} phase error "
         f"{d_phase:.3e} rad phase_s {time.perf_counter() - t_phase:.1f}",
         flush=True,
     )
@@ -2830,7 +3033,7 @@ def phase_example(dev):
     counts = _read_launches()
     amp0 = complex(amp.cpu().item())
     relerr = abs(amp0 - ref) / abs(ref)
-    if counts != {"gate_chain": expect, "bmm_absmax": 0} or expect <= 0:
+    if counts != _launches(gate_chain=expect) or expect <= 0:
         raise AssertionError(
             f"example m10: launches {counts}, the plan has {expect} passes"
         )
@@ -2937,7 +3140,7 @@ def phase_multi(dev):
     counts = _read_launches()
     amp0 = complex(amp.cpu().item())
     relerr = abs(amp0 - ref) / abs(ref)
-    if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+    if counts != _launches(gate_chain=expect):
         raise AssertionError(
             f"multi m10: launches {counts}, the plan has {expect} passes"
         )
@@ -3165,7 +3368,7 @@ def phase_vmap_t27(dev):
             total = res.sum(0)
             amp = complex(total[0].item(), total[1].item())
         relerr = abs(amp - ref) / abs(ref)
-        if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+        if counts != _launches(gate_chain=expect):
             raise AssertionError(
                 f"vmap t27 (strip {strip}): launches {counts}, the plan "
                 f"gives {expect}"
@@ -3245,7 +3448,7 @@ def phase_vmap_m20(dev):
     torch.cuda.synchronize()
     counts = _read_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+    if counts != _launches(gate_chain=expect):
         raise AssertionError(
             f"vmap {M20}: launches {counts}, the plan gives {expect}"
         )
@@ -3327,7 +3530,7 @@ def phase_small_slices(dev):
         peaks[mode] = torch.cuda.max_memory_allocated() / 2**30
         expect = _batched_chain_passes(fn, n, b)
         relerr = abs(amp - ref) / abs(ref)
-        if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+        if counts != _launches(gate_chain=expect):
             raise AssertionError(
                 f"small slices {mode}: launches {counts}, the plan gives "
                 f"{expect}"
@@ -3495,7 +3698,7 @@ def phase_gpu_planned(dev):
     torch.cuda.synchronize()
     counts = _read_launches()
     relerr = abs(amp - ref) / abs(ref)
-    if counts != {"gate_chain": expect, "bmm_absmax": 0}:
+    if counts != _launches(gate_chain=expect):
         raise AssertionError(
             f"gpu m10: launches {counts}, the plan has {expect} passes"
         )
@@ -3634,7 +3837,7 @@ def _window_stats(fn):
 
 def _check_amp(label, amp, ref, counts, chain_expect):
     relerr = abs(amp - ref) / abs(ref)
-    if counts != {"gate_chain": chain_expect, "bmm_absmax": 0}:
+    if counts != _launches(gate_chain=chain_expect):
         raise AssertionError(
             f"{label}: launches {counts}, expected {chain_expect} chain "
             "launches"
@@ -4639,7 +4842,7 @@ def main():
     phase_front_lattice(dev)
     phase_front_t27(dev)
     auto_plan_s = phase_front_auto(dev)
-    phase_compressed(dev)
+    svd_rows = phase_compressed(dev)
     hyper_m10_launches, labels_m10_s = phase_hyper_m10(
         dev, HYPER_LABELS, "hyper m10"
     )
@@ -4776,6 +4979,22 @@ def main():
             # the lattice's 16 slices as one CUDA graph (autojit),
             # counted by the profiler in one replayed call
             "captured_lattice_launches": staged_lattice["launches"],
+        },
+        {
+            # per value of the compressed 16x16 lattice (float64): its
+            # truncation cores one after another; errors against the plain
+            # version on the CPU in float64 on every core (s absolute and
+            # over the largest; the truncation from the plain one's and
+            # above the optimum, over ||M||), and the library's s error
+            "name": "svd_core",
+            "route": "cuda",
+            "source": "cotengra_tpu_torch/csrc/svd_core.cu",
+            # no TPU kernel: the JAX package takes XLA's SVD
+            "replaces": None,
+            **svd_rows[torch.float64],
+            "f32_max_err_over_s0": svd_rows[torch.float32]["max_err_over_s0"],
+            "f32_ms": svd_rows[torch.float32]["ms"],
+            "f32_plain_ms": svd_rows[torch.float32]["plain_ms"],
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -214,4 +214,23 @@ def load_library():
         ctypes.c_void_p,                    # cudaStream_t
     ]
     fn.restype = ctypes.c_int
+    fn = lib.ctg_svd_core_workspace
+    fn.argtypes = [ctypes.c_int64] * 4      # m, n, k, element bytes
+    fn.restype = ctypes.c_int64
+    fn = lib.ctg_svd_core
+    fn.argtypes = [
+        ctypes.c_int,                       # dtype: 0 float32, 1 float64
+        ctypes.c_void_p,                    # M (device)
+        ctypes.c_int64,                     # m
+        ctypes.c_int64,                     # n
+        ctypes.c_int64,                     # k
+        ctypes.c_void_p,                    # U (device)
+        ctypes.c_void_p,                    # s (device)
+        ctypes.c_void_p,                    # V (device)
+        ctypes.c_void_p,                    # workspace (device)
+        ctypes.c_void_p,                    # control words (device, zeroed)
+        ctypes.c_void_p,                    # unconverged launches (device)
+        ctypes.c_void_p,                    # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
     return lib

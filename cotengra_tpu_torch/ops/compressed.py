@@ -11,13 +11,16 @@ multibond to a neighbouring tensor whose combined dimension exceeds
     T_a <- Q_a U sqrt(s) ; T_b <- Q_b V sqrt(s)
 
 The transposes are bilinear (``R_b.T``, ``Vh.T``), not adjoints, as in
-the reference, so complex inputs give its result. QR and SVD are
-``torch.linalg`` (cuSOLVER on the card), the pairwise contractions
-``ops/pairwise.py``. Shapes change with every truncation, so the loop
-runs eagerly on the host, one device call after another (the reference
-jits one program per shape). The stripped exponent is summed in float64
-whatever the inputs' dtype (the reference sums it in float32, whose ulp
-at a value of 10^289 is 3e-5 in log10).
+the reference, so complex inputs give its result. The QRs are
+``torch.linalg.qr`` (cuSOLVER on the card); the core's SVD is
+``svd_core.svd_topk``: on the card a hand-written kernel for real cores,
+which decides its convergence on the card, so the SVD never makes the
+host wait; ``torch.linalg.svd`` on the CPU and for complex cores. The
+pairwise contractions are ``ops/pairwise.py``. Shapes change with every
+truncation, so the loop runs eagerly on the host, one device call after
+another (the reference jits one program per shape). The stripped
+exponent is summed in float64 whatever the inputs' dtype (the reference
+sums it in float32, whose ulp at a value of 10^289 is 3e-5 in log10).
 
 Spans (``tracing``): the call is an ``entry`` of kind ``compressed``;
 each step of the loop a ``compressed.step`` (its leg bookkeeping, the
@@ -34,6 +37,7 @@ import torch
 from .. import tracing
 from .._device import resolve_device
 from .pairwise import apply_pairwise, apply_single, promote_pair
+from .svd_core import svd_topk
 
 # bonds truncated, cumulative over every call of the process
 COUNTS = {"truncations": 0}
@@ -50,13 +54,10 @@ def _compress_pair_core(A, B, chi):
     Qa, Ra = torch.linalg.qr(A)        # (la, k) (k, D)
     Qb, Rb = torch.linalg.qr(B)        # (lb, k') (k', D)
     M = _mm(Ra, Rb.T)                  # (k, k')
-    U, s, Vh = torch.linalg.svd(M, full_matrices=False)
-    U = U[:, :chi]
-    s = s[:chi]
-    Vh = Vh[:chi, :]
+    U, s, V = svd_topk(M, chi)         # (k, chi) (chi) (k', chi)
     sq = torch.sqrt(s)
     newA = _mm(Qa, U * sq[None, :])    # (la, chi)
-    newB = _mm(Qb, Vh.T * sq[None, :])  # (lb, chi)
+    newB = _mm(Qb, V * sq[None, :])    # (lb, chi)
     return newA, newB
 
 

@@ -602,3 +602,181 @@ def test_contract_compressed_defaults_to_the_card(monkeypatch):
         tree.contract_compressed(arrays, chi=9)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tree.contract_compressed(arrays, chi=9, device="cuda")
+
+
+# -- the truncation core's top-k SVD (ops/svd_core.py) ---------------------
+
+SVD_SHAPES = [(1, 1), (32, 32), (64, 64), (256, 32), (256, 128)]
+SVD_KINDS = ["random", "rank-deficient", "zero", "degenerate"]
+
+
+def _svd_core(shape, kind, seed=0):
+    """A float64 core: Gaussian; of rank min(m, n) // 4 (at least 1); all
+    zero; or with exactly repeated singular values (4, 2 and 1 in groups
+    of a multiple of 8, the rest 0.5), so that a top-k cut may split a
+    group, where only the singular values and the truncation's error are
+    fixed, not its vectors."""
+    m, n = shape
+    p = min(m, n)
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return torch.from_numpy(rng.standard_normal(shape))
+    if kind == "rank-deficient":
+        r = max(1, p // 4)
+        a = rng.standard_normal((m, r)) @ rng.standard_normal((r, n))
+        return torch.from_numpy(a)
+    if kind == "zero":
+        return torch.zeros(shape, dtype=torch.float64)
+    qa = np.linalg.qr(rng.standard_normal((m, p)))[0]
+    qb = np.linalg.qr(rng.standard_normal((n, p)))[0]
+    third = max(1, (p // 24) * 8)
+    s = np.full(p, 0.5)
+    for g, v in enumerate((4.0, 2.0, 1.0)):
+        s[g * third:(g + 1) * third] = v
+    return torch.from_numpy((qa * s) @ qb.T)
+
+
+@pytest.mark.parametrize("kind", SVD_KINDS)
+@pytest.mark.parametrize("shape", SVD_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_svd_topk_plain_reconstructs_the_library_truncation(shape, kind):
+    """``svd_topk`` on the CPU keeps the library's k largest triplets:
+    ``U diag(s) V^T`` equals the library's rank-k truncation, the full
+    rank reconstructs the core, the truncation error is the optimum
+    (Eckart-Young, which holds whichever vectors a degenerate group
+    gives), and s comes out descending."""
+    from cotengra_tpu_torch.ops.svd_core import svd_topk
+
+    M = _svd_core(shape, kind)
+    p = min(shape)
+    k = min(32, p)
+    U, s, V = svd_topk(M, k)
+    assert (U.shape, s.shape, V.shape) == ((shape[0], k), (k,), (shape[1], k))
+    Uf, sf, Vhf = torch.linalg.svd(M, full_matrices=False)
+    scale = max(float(torch.linalg.norm(M)), 1e-300)
+    want = (Uf[:, :k] * sf[:k]) @ Vhf[:k]
+    got = (U * s) @ V.T
+    assert float(torch.linalg.norm(got - want)) <= 1e-13 * scale
+    assert torch.all(s[:-1] >= s[1:])
+    opt = float(torch.sqrt((sf[k:] ** 2).sum()))
+    assert abs(float(torch.linalg.norm(M - got)) - opt) <= 1e-13 * scale
+    Ua, sa, Va = svd_topk(M, p)
+    assert float(torch.linalg.norm((Ua * sa) @ Va.T - M)) <= 1e-13 * scale
+
+
+@pytest.mark.parametrize("kind", ["random", "rank-deficient", "degenerate"])
+def test_compress_pair_core_keeps_the_truncated_product(kind):
+    """``_compress_pair_core`` through ``svd_topk``: ``newA @ newB.T`` equals
+    ``Qa (U_k s_k V_k^T) Qb^T`` of the library's SVD of ``Ra Rb^T``, and
+    each factor carries sqrt(s)."""
+    from cotengra_tpu_torch.ops.compressed import _compress_pair_core
+
+    rng = np.random.default_rng(3)
+    core = _svd_core((64, 64), kind, seed=4).numpy()
+    # A B^T = core through random orthogonal sides: Ra Rb^T has core's
+    # singular values
+    qa = np.linalg.qr(rng.standard_normal((96, 64)))[0]
+    qb = np.linalg.qr(rng.standard_normal((80, 64)))[0]
+    A = torch.from_numpy(qa @ core)
+    B = torch.from_numpy(qb)
+    newA, newB = _compress_pair_core(A, B, 16)
+    assert newA.shape == (96, 16) and newB.shape == (80, 16)
+    Qa, Ra = torch.linalg.qr(A)
+    Qb, Rb = torch.linalg.qr(B)
+    U, s, Vh = torch.linalg.svd(Ra @ Rb.T, full_matrices=False)
+    want = Qa @ ((U[:, :16] * s[:16]) @ Vh[:16]) @ Qb.T
+    got = newA @ newB.T
+    scale = float(torch.linalg.norm(A @ B.T))
+    assert float(torch.linalg.norm(got - want)) <= 1e-12 * scale
+    assert_allclose(
+        torch.linalg.norm(newA, dim=0).numpy() ** 2, s[:16].numpy(),
+        rtol=1e-10, atol=1e-12 * float(s[0]),
+    )
+
+
+def test_svd_topk_dispatch(monkeypatch):
+    """CPU cores take the plain version, complex ones too (on the card
+    they go to the library by dtype); the kernel's wrapper refuses what
+    the kernel does not take before it reaches the card."""
+    from cotengra_tpu_torch.ops import svd_core
+
+    calls = []
+    real = svd_core.svd_topk_plain
+
+    def plain(M, k):
+        calls.append((M.dtype, k))
+        return real(M, k)
+
+    monkeypatch.setattr(svd_core, "svd_topk_plain", plain)
+    monkeypatch.setattr(
+        svd_core, "svd_topk_cuda",
+        lambda M, k: pytest.fail("a CPU or complex core reached the kernel"),
+    )
+    M = _svd_core((8, 6), "random")
+    svd_core.svd_topk(M, 3)
+    svd_core.svd_topk(M.to(torch.complex128), 2)
+    svd_core.svd_topk(M.to(torch.float32), 1)
+    assert calls == [(torch.float64, 3), (torch.complex128, 2),
+                     (torch.float32, 1)]
+
+
+@pytest.mark.parametrize(
+    "M, k, match",
+    [
+        (torch.zeros(4, 4, 2, dtype=torch.float64), 1, "takes a matrix"),
+        (torch.zeros(4, 3, dtype=torch.float64), 4, "outside"),
+        (torch.zeros(4, 3, dtype=torch.float64), 0, "outside"),
+        (torch.zeros(4, 3, dtype=torch.float16), 2, "float32 or float64"),
+        (torch.zeros(4, 3, dtype=torch.complex128), 2, "float32 or float64"),
+        (torch.zeros(3, 4, dtype=torch.float64).T, 2, "contiguous"),
+        (torch.zeros(4, 3, dtype=torch.float64), 2, "CUDA tensor"),
+    ],
+    ids=["3-d", "k-too-large", "k-zero", "float16", "complex", "strided",
+         "cpu"],
+)
+def test_svd_topk_cuda_refuses_what_the_kernel_does_not_take(M, k, match):
+    from cotengra_tpu_torch.ops.svd_core import svd_topk, svd_topk_cuda
+
+    with pytest.raises(ValueError, match=match):
+        svd_topk_cuda(M, k)
+    if match in ("takes a matrix", "outside"):
+        with pytest.raises(ValueError, match=match):
+            svd_topk(M, k)
+
+
+def test_svd_core_unconverged_reads_zero_where_the_kernel_never_ran():
+    """The count of kernel launches that hit the sweep cap lives on the
+    device the kernel ran on; a device it never ran on reads 0, without
+    touching the card."""
+    from cotengra_tpu_torch.ops.svd_core import unconverged
+
+    assert unconverged("cpu") == 0
+    assert unconverged(torch.device("cuda", 7)) == 0
+
+
+@pytest.mark.parametrize("fault", ["none", "skips-the-top", "loose-vectors"])
+def test_smoke_svd_core_check_catches_a_wrong_top_k(fault):
+    """``chip_smoke.py``'s check of the truncation-core kernel, run here on
+    the plain version's own triplets: it reads 0 for them, and more than
+    its limit where the top triplet is left out or the vectors are off by
+    1e-9, as an unconverged kernel's would be."""
+    import chip_smoke
+    from cotengra_tpu_torch.ops.svd_core import svd_topk_plain
+
+    M = _svd_core((64, 48), "random", seed=5)
+    k = 8
+    U, s, V = svd_topk_plain(M, k)
+    if fault == "skips-the-top":
+        U, s, V = svd_topk_plain(M, k + 1)
+        U, s, V = U[:, 1:], s[1:], V[:, 1:]
+    elif fault == "loose-vectors":
+        gen = torch.Generator().manual_seed(0)
+        U = U + 1e-9 * torch.randn(U.shape, generator=gen, dtype=U.dtype)
+    err, over_s0, cut, excess = chip_smoke._svd_core_errors(M, k, U, s, V)
+    limit = chip_smoke.SVD_CORE_ATOL[torch.float64]
+    if fault == "none":
+        assert err == 0.0 and over_s0 == 0.0 and cut == 0.0
+        assert abs(excess) <= limit
+    elif fault == "skips-the-top":
+        assert over_s0 > limit and cut > limit and excess > limit
+    else:
+        assert over_s0 == 0.0 and cut > limit

@@ -24,6 +24,12 @@ from cotengra_tpu_torch.ops.gate_chains import (
     run_chain_cuda,
     run_chain_plain,
 )
+from cotengra_tpu_torch.ops.svd_core import (
+    svd_topk,
+    svd_topk_cuda,
+    svd_topk_plain,
+    unconverged,
+)
 
 torch.set_num_threads(1)
 
@@ -518,6 +524,164 @@ def test_contract_compressed_on_the_card(cuda):
     assert abs(
         np.log10(abs(m.item())) + e.item() - np.log10(abs(want.item()))
     ) <= 1e-5
+
+
+# every core size the 16x16 bond-4 lattice at chi=32 truncates
+SVD_CORE_SHAPES = [(1, 1), (32, 32), (64, 64), (128, 128), (256, 32),
+                   (256, 128), (256, 256), (512, 512), (1024, 1024)]
+# float64: the kernel's threshold 8 sqrt(L) u against the library's
+# rounding; float32: its threshold, ~1.5e-5 at L = 1024
+SVD_TOL = {torch.float64: 1e-11, torch.float32: 1e-4}
+# columns whose singular value passes this share of the largest are held
+# to orthonormality (below it the kernel stops at M's rounding level)
+SVD_LIVE = {torch.float64: 1e-6, torch.float32: 1e-2}
+
+
+def _card_core(shape, kind, dtype, device, seed=0):
+    """A core on the card: Gaussian; of rank min(m, n) // 4; all zero; with
+    exactly repeated singular values (4, 2, 1 in groups of a multiple of 8,
+    the rest 0.5); or graded, singular values 1 .. 1e-8 geometrically."""
+    m, n = shape
+    p = min(m, n)
+    gen = torch.Generator().manual_seed(seed)
+    f64 = torch.float64
+    if kind == "random":
+        M = torch.randn(shape, generator=gen, dtype=f64)
+    elif kind == "rank-deficient":
+        r = max(1, p // 4)
+        M = (torch.randn((m, r), generator=gen, dtype=f64)
+             @ torch.randn((r, n), generator=gen, dtype=f64))
+    elif kind == "zero":
+        M = torch.zeros(shape, dtype=f64)
+    elif kind == "graded":
+        qa = torch.linalg.qr(torch.randn((m, p), generator=gen, dtype=f64))[0]
+        qb = torch.linalg.qr(torch.randn((n, p), generator=gen, dtype=f64))[0]
+        M = (qa * torch.logspace(0, -8, p, dtype=f64)) @ qb.T
+    else:
+        qa = torch.linalg.qr(torch.randn((m, p), generator=gen, dtype=f64))[0]
+        qb = torch.linalg.qr(torch.randn((n, p), generator=gen, dtype=f64))[0]
+        third = max(1, (p // 24) * 8)
+        s = torch.full((p,), 0.5, dtype=f64)
+        for g, v in enumerate((4.0, 2.0, 1.0)):
+            s[g * third:(g + 1) * third] = v
+        M = (qa * s) @ qb.T
+    return M.to(dtype).to(device).contiguous()
+
+
+def _check_topk(M, k, U, s, V):
+    """The kernel's top-k against the library's singular values: s to
+    tolerance over the largest, the truncation's Frobenius error at the
+    optimum (Eckart-Young: whichever vectors a degenerate group takes),
+    and the live columns of U and V orthonormal. Never U or V alone."""
+    tol = SVD_TOL[M.dtype]
+    Md = M.double()
+    ref = torch.linalg.svdvals(Md)
+    top = float(ref[0])
+    scale = max(float(torch.linalg.norm(Md)), 1e-300)
+    assert s.dtype == M.dtype and torch.all(s[:-1] >= s[1:])
+    assert float((s.double() - ref[:k]).abs().max()) <= tol * max(top, 1e-300)
+    resid = float(torch.linalg.norm(Md - (U.double() * s.double()) @ V.double().T))
+    opt = float(torch.sqrt((ref[k:] ** 2).sum()))
+    assert abs(resid - opt) <= tol * scale
+    live = s.double() > SVD_LIVE[M.dtype] * top
+    if live.any():
+        for X in (U, V):
+            Xl = X.double()[:, live]
+            eye = torch.eye(Xl.shape[1], dtype=torch.float64, device=M.device)
+            assert float((Xl.T @ Xl - eye).abs().max()) <= 1e3 * tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("kind", ["random", "rank-deficient", "graded"])
+@pytest.mark.parametrize("shape", SVD_CORE_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_svd_core_kernel_matches_plain(cuda, shape, kind, dtype):
+    """The truncation-core kernel at every core size of the 16x16 lattice's
+    plan, against the library (``svd_topk_plain``'s singular values), its
+    wide transpose too, converged under the sweep cap: the launch says so,
+    and the count of launches that hit the cap does not move."""
+    for M in (_card_core(shape, kind, dtype, cuda),
+              _card_core(shape[::-1], kind, dtype, cuda, seed=1)):
+        k = min(32, *M.shape)
+        before = svd_topk_cuda.launches
+        capped = unconverged(cuda)
+        U, s, V = svd_topk(M, k)
+        torch.cuda.synchronize()
+        assert svd_topk_cuda.launches == before + 1
+        sweeps, converged = svd_topk_cuda.ctl[2:4].tolist()
+        assert sweeps >= 1 and converged == 1
+        assert unconverged(cuda) == capped
+        _check_topk(M, k, U, s, V)
+        # the library in M's dtype errs too: float32 gesvdj by ~1.5e-4 of
+        # the largest at 1024 x 1024
+        _, s_lib, _ = svd_topk_plain(M, k)
+        tol = 10 * SVD_TOL[M.dtype]
+        assert float((s - s_lib).abs().max()) <= tol * max(
+            float(s_lib[0]), 1e-300)
+
+
+@pytest.mark.parametrize("kind", ["zero", "degenerate"])
+def test_svd_core_kernel_on_zero_and_degenerate_cores(cuda, kind):
+    """An all-zero core gives zero singular values and a zero truncation;
+    exactly repeated singular values, cut inside a group, the library's
+    values and the optimal error."""
+    for shape in ((64, 64), (256, 128), (128, 256)):
+        M = _card_core(shape, kind, torch.float64, cuda)
+        capped = unconverged(cuda)
+        U, s, V = svd_topk_cuda(M, 32)
+        torch.cuda.synchronize()
+        assert svd_topk_cuda.ctl[3].item() == 1
+        assert unconverged(cuda) == capped
+        _check_topk(M, 32, U, s, V)
+        if kind == "zero":
+            assert float(s.abs().max()) == 0.0
+            assert torch.all(torch.isfinite(U)) and torch.all(torch.isfinite(V))
+
+
+def test_svd_core_kernel_above_the_plan(cuda):
+    """A core wider than any the plan truncates (1100 x 1500), for
+    correctness alone."""
+    M = _card_core((1100, 1500), "random", torch.float64, cuda)
+    capped = unconverged(cuda)
+    U, s, V = svd_topk_cuda(M, 32)
+    torch.cuda.synchronize()
+    assert svd_topk_cuda.ctl[3].item() == 1 and unconverged(cuda) == capped
+    _check_topk(M, 32, U, s, V)
+
+
+def test_contract_compressed_makes_no_host_sync(cuda):
+    """The 6x6 bond-4 lattice's compressed contraction with its inputs on
+    the card: no synchronising call in the whole contraction
+    (``set_sync_debug_mode("error")`` raises at the first), one kernel
+    launch a truncation, and the value of the CPU run."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.ops import compressed
+
+    inputs, output, shapes, size_dict = ctt.lattice_equation([6, 6], d_min=4)
+    rng = np.random.default_rng(0)
+    arrays = [np.ones(s) + 0.05 * rng.normal(size=s) for s in shapes]
+    tree = ctt.array_contract_tree(
+        inputs, output, size_dict=size_dict, optimize="greedy-compressed"
+    )
+    tensors = [torch.as_tensor(a, device=cuda) for a in arrays]
+    tree.contract_compressed(tensors, chi=16)  # builds the kernels
+    torch.cuda.synchronize()
+    launches = svd_topk_cuda.launches
+    truncations = compressed.COUNTS["truncations"]
+    capped = unconverged(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tree.contract_compressed(tensors, chi=16)
+        m, e = tree.contract_compressed(tensors, chi=16, strip_exponent=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    gained = compressed.COUNTS["truncations"] - truncations
+    assert gained > 0 and svd_topk_cuda.launches - launches == gained
+    assert unconverged(cuda) == capped
+    want = tree.contract_compressed(arrays, chi=16, device="cpu").item()
+    assert abs(got.item() - want) <= 1e-9 * abs(want)
+    assert abs(np.log10(abs(m.item())) + e.item() - np.log10(abs(want))) <= 1e-9
 
 
 def test_port_planned_circuit_through_the_chain_kernel(cuda):
