@@ -310,7 +310,7 @@ Run from the root of a checkout. Phases:
    after ``fn.precompile``) on m10-t27, 4 slices a call under
    ``"vmap"`` and ``"scan"``, each against the eager contractor in the
    same mode: relerr <= 1e-5 against key ``"4"``; replays a call equal
-   to the graphs, no Python step call (``capture.STEP_CALLS``) in a
+   to the graphs, no Python step call (``tracing.STEP_CALLS``) in a
    replayed call; ``gate_chain_kernel`` launches equal to the plan's
    (13 vmap, 52 scan), exactly, by the wrapper's counter: in an eager
    call, and recorded into the graphs at capture (a replay runs each
@@ -4293,7 +4293,7 @@ def _capture_s(fn):
 
 def _python_step_calls():
     """Python step calls so far, of both executors."""
-    from cotengra_tpu_torch.ops.capture import STEP_CALLS
+    from cotengra_tpu_torch.tracing import STEP_CALLS
 
     return sum(STEP_CALLS.values())
 

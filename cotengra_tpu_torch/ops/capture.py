@@ -28,8 +28,6 @@ import time
 
 import torch
 
-from ..tracing import STEP_CALLS  # noqa: F401 (read here by tests)
-
 
 class CaptureError(RuntimeError):
     """A stage refused CUDA graph capture (the step is in the message)."""

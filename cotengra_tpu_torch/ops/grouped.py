@@ -59,14 +59,16 @@ def _to_planes(a, plane_dtype):
     return torch.stack([a, torch.zeros_like(a)])
 
 
+def _lead(flat):
+    """``(S,)`` for a batch's rows, ``()`` for one slice's planes."""
+    return tuple(flat.shape[:-1])
+
+
 def _planes_to_complex(flat, shape):
     """flat (2*numel,) planes -> complex tensor of ``shape``; a batch's
     (S, 2*numel) rows -> (S, *shape)."""
-    if flat.dim() == 1:
-        planes = flat.view((2,) + tuple(shape))
-        return torch.complex(planes[0], planes[1])
-    planes = flat.view((flat.shape[0], 2) + tuple(shape))
-    return torch.complex(planes[:, 0], planes[:, 1])
+    planes = flat.view(_lead(flat) + (2,) + tuple(shape))
+    return torch.complex(*planes.unbind(-1 - len(shape)))
 
 
 # a CUDA TensorIterator copy takes at most this many dims
@@ -115,137 +117,42 @@ def _apply_block_plan_split(flat, plan):
     if plan is None:
         return flat
     block_dims, perm = plan
-    if flat.dim() == 1:
-        return permute_copy(
-            flat.view((2,) + tuple(block_dims)),
-            (0,) + tuple(p + 1 for p in perm),
-        ).view(-1)
-    S = flat.shape[0]
+    lead = _lead(flat)
+    nl = len(lead)
     return permute_copy(
-        flat.view((S, 2) + tuple(block_dims)),
-        (0, 1) + tuple(p + 2 for p in perm),
-    ).view(S, -1)
-
-
-def _split_pair_scattered(x_flat, yf, p, block_dims, kpos):
-    """One real contraction on the un-realigned x view.
-
-    lhs (2N, 2, K) carries the complex combine over the plane axis: out
-    rows [0:N] = yr.xr - yi.xi (real), rows [N:2N] = yi.xr + yr.xi
-    (imag); contracting (plane, K-dims) of the stored view yields
-    (2N, *m-dims), already plane-major (N, M).
-    """
-    N, K = p.N, p.K
-    if p.mode == "mm":
-        y2 = yf.view(2, N, K)
-        yr, yi = y2[0], y2[1]
-    else:  # y stored (K, N)
-        y2 = yf.view(2, K, N)
-        yr, yi = y2[0].T, y2[1].T
-    lhs = torch.stack(
-        [torch.cat([yr, yi]), torch.cat([-yi, yr])], dim=1
-    )  # (2N, 2, K)
-    kdims = tuple(block_dims[q] for q in kpos)
-    lhs = lhs.reshape((2 * N, 2) + kdims)
-    x2 = x_flat.view((2,) + tuple(block_dims))
-    out = torch.tensordot(
-        lhs,
-        x2,
-        dims=(
-            list(range(1, 2 + len(kpos))),
-            [0] + [q + 1 for q in kpos],
-        ),
-    )  # (2N, *mdims)
-    return out.reshape(-1)
-
-
-def _split_apply_small_y(xf, x_layout, M, K, N, ykn_r, ykn_i):
-    """Apply a small (K, N) complex gate (planes ``ykn_r/ykn_i``) to the
-    big plane-flat ``xf`` (logical (K, M) in ``x_layout``). Returns
-    plane-flat (2*N*M,) in (N, M) order. B == 1 only."""
-    if K < 8:
-        # mac: unrolled plane MACs on (strided) 1-D slices
-        if x_layout == "cm":
-            xv = xf.view(2, K, M)
-        else:
-            xv = xf.view(2, M, K).transpose(1, 2)
-        cols_r, cols_i = [], []
-        for n in range(N):
-            accr = acci = None
-            for k in range(K):
-                xr, xi = xv[0, k], xv[1, k]
-                tr = xr * ykn_r[k, n] - xi * ykn_i[k, n]
-                ti = xr * ykn_i[k, n] + xi * ykn_r[k, n]
-                accr = tr if accr is None else accr + tr
-                acci = ti if acci is None else acci + ti
-            cols_r.append(accr)
-            cols_i.append(acci)
-        return torch.cat(cols_r + cols_i)
-
-    if N < 8:
-        # matvec: per-column matvecs
-        cols_r, cols_i = [], []
-        if x_layout == "cm":
-            # stacked planes (2K, M); the complex combine is embedded in
-            # the 2K-vector: zr = [yr; -yi] . X, zi = [yi; yr] . X
-            x2 = xf.view(2 * K, M)
-            for n in range(N):
-                vr = torch.cat([ykn_r[:, n], -ykn_i[:, n]])
-                vi = torch.cat([ykn_i[:, n], ykn_r[:, n]])
-                cols_r.append(vr @ x2)
-                cols_i.append(vi @ x2)
-        else:
-            # stacked planes (2M, K): a real y column hits both planes
-            x2 = xf.view(2 * M, K)
-            for n in range(N):
-                a = x2 @ ykn_r[:, n]
-                b = x2 @ ykn_i[:, n]
-                cols_r.append(a[:M] - b[M:])
-                cols_i.append(b[:M] + a[M:])
-        return torch.cat(cols_r + cols_i)
-
-    # mm: K >= 8, N >= 8
-    yrT, yiT = ykn_r.T, ykn_i.T  # (N, K)
-    if x_layout == "cm":
-        yb = torch.cat(
-            [torch.cat([yrT, -yiT], dim=1), torch.cat([yiT, yrT], dim=1)]
-        )  # (2N, 2K): the real block embedding of the complex gate
-        # (2N, M) = planes of (N, M), already plane-major
-        return (yb @ xf.view(2 * K, M)).reshape(-1)
-    x2 = xf.view(2 * M, K)
-    a = yrT @ x2.T  # (N, 2M)
-    b = yiT @ x2.T
-    zr = a[:, :M] - b[:, M:]
-    zi = b[:, :M] + a[:, M:]
-    return torch.cat([zr.reshape(-1), zi.reshape(-1)])
-
-
-# Batched steps ("vmap"): a stored id holds a batch's (S, 2 * numel) rows
-# or one slice's (2 * numel,) planes, shared by the batch; the slice dim
-# leads, and an operand without it broadcasts. The unbatched functions
-# above keep their own code: the host's cost per step call is what the
-# slice-by-slice paths pay.
-
-
-def _lead(flat):
-    """``(S,)`` for a batch's rows, ``()`` for one slice's planes."""
-    return tuple(flat.shape[:-1])
+        flat.view(lead + (2,) + tuple(block_dims)),
+        tuple(range(nl + 1)) + tuple(p + nl + 1 for p in perm),
+    ).view(lead + (-1,))
 
 
 def _permuted_view(x, perm, shape):
-    """``x.permute(perm)`` viewed as ``shape``, copied
-    (``permute_copy``) only where no view exists."""
+    """``x.permute(perm)`` viewed as ``shape``, copied (``permute_copy``
+    past ``MAX_COPY_DIMS``) only where no view exists."""
+    src = x.permute(perm)
+    if src.dim() <= MAX_COPY_DIMS:
+        return src.reshape(shape)  # a view, else one contiguous copy
     try:
-        return x.permute(perm).view(shape)
+        return src.view(shape)
     except RuntimeError:
         return permute_copy(x, perm).view(shape)
 
 
-def _split_pair_scattered_batched(x_flat, yf, p, block_dims, kpos):
-    """``_split_pair_scattered`` with a slice dim on x, y or both: the
-    stored view's plane and K blocks gathered in front, (S, 2K, M), and
-    one batched GEMM with the lhs (2N, 2K), broadcast where unbatched;
-    the result (S, 2N, M) is already plane-major per slice."""
+# Every step below takes a leading slice dim on x, y, both or neither:
+# a stored id holds a batch's (S, 2 * numel) rows ("vmap") or one
+# slice's (2 * numel,) planes, and an operand without the slice dim
+# broadcasts.
+
+
+def _split_pair_scattered(x_flat, yf, p, block_dims, kpos):
+    """One real contraction on the un-realigned x view, a leading slice
+    dim on x, y, both or neither.
+
+    lhs (2N, 2, K) carries the complex combine over the plane axis: out
+    rows [0:N] = yr.xr - yi.xi (real), rows [N:2N] = yi.xr + yr.xi
+    (imag). The stored view's plane and K blocks are gathered in front,
+    (2K, M), and one GEMM with the lhs (2N, 2K), batched where a slice
+    dim is, yields (2N, M), already plane-major.
+    """
     N, K = p.N, p.K
     lead_x, lead_y = _lead(x_flat), _lead(yf)
     if p.mode == "mm":
@@ -289,10 +196,13 @@ def _mv_right(m, v):
     return (m @ v.unsqueeze(-1)).squeeze(-1)
 
 
-def _split_apply_small_y_batched(xf, x_layout, M, K, N, ykn_r, ykn_i):
-    """``_split_apply_small_y`` with a slice dim on ``xf`` (S, 2*K*M),
-    on the gate (S, K, N) or both. Where x alone has it, the slices fold
-    into x's free legs of the same GEMM."""
+def _split_apply_small_y(xf, x_layout, M, K, N, ykn_r, ykn_i):
+    """Apply a small (K, N) complex gate (planes ``ykn_r/ykn_i``) to the
+    big plane-flat ``xf`` (logical (K, M) in ``x_layout``), a leading
+    slice dim on ``xf`` (S, 2*K*M), on the gate (S, K, N), both or
+    neither. Returns plane-flat (2*N*M,) in (N, M) order per slice.
+    Where x alone has the slice dim, the slices fold into x's free legs
+    of the same GEMM."""
     lead = _lead(xf)
     if K < 8:
         # mac: unrolled plane MACs on (strided) 1-D slices
@@ -324,6 +234,8 @@ def _split_apply_small_y_batched(xf, x_layout, M, K, N, ykn_r, ykn_i):
         # matvec: per-column matvecs
         cols_r, cols_i = [], []
         if x_layout == "cm":
+            # stacked planes (2K, M); the complex combine is embedded in
+            # the 2K-vector: zr = [yr; -yi] . X, zi = [yi; yr] . X
             x2 = xf.view(lead + (2 * K, M))
             for n in range(N):
                 vr = torch.cat([ykn_r[..., n], -ykn_i[..., n]], -1)
@@ -331,6 +243,7 @@ def _split_apply_small_y_batched(xf, x_layout, M, K, N, ykn_r, ykn_i):
                 cols_r.append(_mv(vr, x2))
                 cols_i.append(_mv(vi, x2))
         else:
+            # stacked planes (2M, K): a real y column hits both planes
             x2 = xf.view(lead + (2 * M, K))
             for n in range(N):
                 a = _mv_right(x2, ykn_r[..., n])
@@ -345,7 +258,8 @@ def _split_apply_small_y_batched(xf, x_layout, M, K, N, ykn_r, ykn_i):
         yb = torch.cat(
             [torch.cat([yrT, -yiT], dim=-1), torch.cat([yiT, yrT], dim=-1)],
             dim=-2,
-        )  # (2N, 2K)
+        )  # (2N, 2K): the real block embedding of the complex gate
+        # (2N, M) = planes of (N, M), already plane-major
         return (yb @ xf.view(lead + (2 * K, M))).flatten(-2)
     x2 = xf.view(lead + (2 * M, K))
     a = yrT @ x2.mT  # (N, 2M)
@@ -355,9 +269,9 @@ def _split_apply_small_y_batched(xf, x_layout, M, K, N, ykn_r, ykn_i):
     return torch.cat([zr.flatten(-2), zi.flatten(-2)], dim=-1)
 
 
-def _pair_batched(p, xf, yf):
-    """A bmm / mac / matvec / mm pair step on realigned operands with a
-    slice dim on either or both."""
+def _pair(p, xf, yf):
+    """A bmm / mac / matvec / mm pair step on realigned operands, a
+    leading slice dim on x, y, both or neither."""
     B, M, K, N = p.B, p.M, p.K, p.N
     lead_x, lead_y = _lead(xf), _lead(yf)
     if p.mode == "bmm":
@@ -376,9 +290,7 @@ def _pair_batched(p, xf, yf):
     else:
         y2 = yf.view(lead_y + (2, K, N))
         ykn_r, ykn_i = y2.select(-3, 0), y2.select(-3, 1)
-    return _split_apply_small_y_batched(
-        xf, p.x_layout, M, K, N, ykn_r, ykn_i
-    )
+    return _split_apply_small_y(xf, p.x_layout, M, K, N, ykn_r, ykn_i)
 
 
 def _kron(a, b):
@@ -424,14 +336,9 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
         # max over both planes, as the reference: max(|re|, |im|), not
         # the modulus; a batch's slices each by their own
         nonlocal exponent
-        if flat.dim() == 1:
-            absmax = flat.abs().amax()
-        else:
-            absmax = flat.abs().amax(dim=1, keepdim=True)
+        absmax = flat.abs().amax(dim=-1, keepdim=True)
         scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
-        e = torch.log10(scale)
-        if flat.dim() == 2:
-            e = e[:, 0]
+        e = torch.log10(scale).squeeze(-1)
         exponent = e if exponent is None else exponent + e
         return flat / scale
 
@@ -462,33 +369,23 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
             if kind == "fallback":
                 step, x_id, y_id, x_order, y_order, x_dims, y_dims = info
                 xf, yf = temps[x_id], temps[y_id]
-                xc = _planes_to_complex(xf, x_dims)
-                yc = _planes_to_complex(yf, y_dims)
-                if xf.dim() == 1 and yf.dim() == 1:
-                    out = apply_pairwise(xc, yc, x_order, y_order,
-                                         step.out_legs)
-                    flat = torch.cat(
-                        [out.real.reshape(-1), out.imag.reshape(-1)]
-                    )
-                    shape = out.shape
-                else:
-                    # the slice leg: kept on the batched operands, a batch
-                    # leg where both have it
-                    lx = (_SLICE,) * (xf.dim() - 1)
-                    ly = (_SLICE,) * (yf.dim() - 1)
-                    out = apply_pairwise(
-                        xc, yc, lx + tuple(x_order), ly + tuple(y_order),
-                        (_SLICE,) + tuple(step.out_legs),
-                    )
-                    S = out.shape[0]
-                    flat = torch.cat(
-                        [out.real.reshape(S, -1), out.imag.reshape(S, -1)],
-                        dim=1,
-                    )
-                    shape = out.shape[1:]
+                # the slice leg: kept on the batched operands, a batch
+                # leg where both have it
+                lx = (_SLICE,) * (xf.dim() - 1)
+                ly = (_SLICE,) * (yf.dim() - 1)
+                rows = _lead(xf) or _lead(yf)  # (S,) where either has it
+                out = apply_pairwise(
+                    _planes_to_complex(xf, x_dims),
+                    _planes_to_complex(yf, y_dims),
+                    lx + tuple(x_order), ly + tuple(y_order),
+                    (_SLICE,) * len(rows) + tuple(step.out_legs),
+                )
+                flat = torch.cat([out.real.reshape(rows + (-1,)),
+                                  out.imag.reshape(rows + (-1,))], dim=-1)
                 if strip_exponent:
                     flat = strip(flat)
-                store(step.out, flat, shape, si, (x_id, y_id))
+                store(step.out, flat, out.shape[len(rows):], si,
+                      (x_id, y_id))
                 continue
 
             if kind == "w2build":
@@ -537,13 +434,8 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
                 # The reference rounds the kron product to float32 even
                 # under float64 planes (cotengra_tpu/ops/grouped.py:
                 # 1649-1650); here it keeps the planes' precision.
-                small_y = (
-                    _split_apply_small_y
-                    if xf.dim() == 1 and gk.dim() == 2
-                    else _split_apply_small_y_batched
-                )
-                out = small_y(xf, ch.x_layout, ch.M, ch.K, ch.N, gk.real,
-                              gk.imag)
+                out = _split_apply_small_y(xf, ch.x_layout, ch.M, ch.K,
+                                           ch.N, gk.real, gk.imag)
                 if strip_exponent:
                     out = strip(out)
                 store(ch.out_id, out, (1, ch.N, ch.M), si,
@@ -566,47 +458,17 @@ def _exec_steps_split(plans, steps, temps, shapes, last_use,
                 continue
 
             p = info
-            B, M, K, N = p.B, p.M, p.K, p.N
             if p.scatter is not None:
-                xf = temps[p.x_id]
                 yf = _apply_block_plan_split(temps[p.y_id], p.y_plan)
-                scattered = (
-                    _split_pair_scattered
-                    if xf.dim() == 1 and yf.dim() == 1
-                    else _split_pair_scattered_batched
-                )
-                out = scattered(xf, yf, p, p.scatter[0], p.scatter[1])
-                if strip_exponent:
-                    out = strip(out)
-                store(p.out_id, out, (B, N, M), si, (p.x_id, p.y_id))
-                continue
-            xf = _apply_block_plan_split(temps[p.x_id], p.x_plan)
-            yf = _apply_block_plan_split(temps[p.y_id], p.y_plan)
-
-            if xf.dim() == 2 or yf.dim() == 2:
-                out = _pair_batched(p, xf, yf)
-            elif p.mode == "bmm":
-                x3 = xf.view(2, B, K, M)
-                y3 = yf.view(2, B, N, K)
-                rr = torch.bmm(y3[0], x3[0])
-                ii = torch.bmm(y3[1], x3[1])
-                ri = torch.bmm(y3[1], x3[0])
-                ir = torch.bmm(y3[0], x3[1])
-                out = torch.cat([(rr - ii).reshape(-1), (ri + ir).reshape(-1)])
+                out = _split_pair_scattered(temps[p.x_id], yf, p,
+                                            *p.scatter)
             else:
-                # y stored as (K, N) for mac/matvec, (N, K) for mm
-                if p.mode == "mm":
-                    y2 = yf.view(2, N, K)
-                    ykn_r, ykn_i = y2[0].T, y2[1].T
-                else:
-                    y2 = yf.view(2, K, N)
-                    ykn_r, ykn_i = y2[0], y2[1]
-                out = _split_apply_small_y(
-                    xf, p.x_layout, M, K, N, ykn_r, ykn_i
-                )
+                xf = _apply_block_plan_split(temps[p.x_id], p.x_plan)
+                yf = _apply_block_plan_split(temps[p.y_id], p.y_plan)
+                out = _pair(p, xf, yf)
             if strip_exponent:
                 out = strip(out)
-            store(p.out_id, out, (B, N, M), si, (p.x_id, p.y_id))
+            store(p.out_id, out, (p.B, p.N, p.M), si, (p.x_id, p.y_id))
     except Exception as err:
         # the plan step that raised: a refused capture names it
         note_step(err, f"plan step {si} ({plans[si][0]})")
@@ -1169,7 +1031,7 @@ def make_grouped_staged_contractor(
     buffer (decoded on the host, exactly, ``slices._ids_to_digits``;
     one pinned, non-blocking copy) and replays one graph per stage: one
     dispatch a stage, as the reference's jitted stages, and no Python
-    step (``capture.STEP_CALLS`` stays put). The result is a copy
+    step (``tracing.STEP_CALLS`` stays put). The result is a copy
     of the graphs' outputs. A stage that cannot be captured raises
     ``capture.CaptureError`` naming the plan step; nothing reruns
     eagerly. On the CPU, or with ``autojit=False``, the same stages run

@@ -937,10 +937,10 @@ def test_staged_replays_equal_the_eager_contractor(cuda, mode, strip):
     on the host at capture would repeat. A replayed call makes no
     Python step call and replays one graph per stage."""
     import cotengra_tpu_torch as ctt
-    from cotengra_tpu_torch.ops.capture import STEP_CALLS
     from cotengra_tpu_torch.ops.grouped import (
         make_grouped_staged_contractor,
     )
+    from cotengra_tpu_torch.tracing import STEP_CALLS
 
     tree, planes = _t27(cuda)
     fn = make_grouped_staged_contractor(

@@ -14,6 +14,7 @@ import pytest
 import torch
 from numpy.testing import assert_allclose
 
+import jax
 import jax.numpy as jnp
 
 import cotengra_tpu as ctg
@@ -263,47 +264,100 @@ _PAIRS = {
                        ((4, 2, 6, 4), (1, 3))),
 }
 
+# the fallback einsum step: x (a, b, c), y (c, b, d) -> (b, a, d), the
+# leg b kept as a batch leg
+_FALLBACK = (("a", "b", "c"), ("c", "b", "d"), ("b", "a", "d"),
+             (3, 4, 5), (5, 4, 2))
 
-@pytest.mark.parametrize("strip", [False, True])
-@pytest.mark.parametrize("batched", ["x", "y", "both"])
-@pytest.mark.parametrize("pair", sorted(_PAIRS))
-def test_batched_pair_step_equals_per_slice(pair, batched, strip):
-    """Each branch of a pair step on a batch of slices (x, y or both
-    with a leading slice dim) equals the step run slice by slice, its
-    strip per slice included."""
+
+def _step_plans(pair):
+    """(the port's plan entry, the reference's, x numel, y numel) of a
+    pair step of ``_PAIRS`` or of ``"fallback"``: ids 0 and 1 into 2."""
+    if pair == "fallback":
+        from cotengra_tpu_torch.ops.lowering import PairStep
+
+        x_order, y_order, out_legs, x_dims, y_dims = _FALLBACK
+        step = PairStep(out=2, l=0, r=1, l_legs=x_order, r_legs=y_order,
+                        out_legs=out_legs)
+        info = (step, 0, 1, x_order, y_order, x_dims, y_dims)
+        return ("fallback", info), ("fallback", info), 60, 40
     mode, layout, B, M, K, N, scatter = _PAIRS[pair]
     p = _pair(mode, layout, B, M, K, N, scatter)
+    q = ref_grouped._GroupedPair()
+    for field in ("x_id", "y_id", "out_id", "x_plan", "y_plan", "mode",
+                  "x_layout", "B", "M", "K", "N", "scatter"):
+        setattr(q, field, getattr(p, field))
+    return ("pair", p), ("pair", q), B * M * K, B * K * N
+
+
+def _ref_step(plan, flats, shapes, out_id, strip):
+    """One reference plan entry through the reference's
+    ``_exec_steps_split`` on one slice's float64 planes ``flats`` (ids
+    0, 1, ...): (its output planes, its exponent or None)."""
+    temps = {i: jnp.asarray(f.numpy()) for i, f in enumerate(flats)}
+    e = ref_grouped._exec_steps_split(
+        [plan], [0], temps, dict(shapes), {}, strip,
+        jax.lax.Precision.HIGHEST, jnp.float64, None, jnp.float64,
+    )
+    return np.asarray(temps[out_id]), e
+
+
+@pytest.mark.parametrize("strip", [False, True])
+@pytest.mark.parametrize("batched", ["x", "y", "both", "neither"])
+@pytest.mark.parametrize("pair", sorted(_PAIRS) + ["fallback"])
+def test_batched_pair_step_equals_per_slice(pair, batched, strip):
+    """Each branch of a pair step, and the fallback einsum step, on a
+    batch of slices (x, y, both or neither with a leading slice dim)
+    equals the step run slice by slice, its strip per slice included;
+    each slice's result and exponent equal the reference's step
+    (``ref_grouped._exec_steps_split``) on that slice's planes."""
+    plan, ref_plan, nx, ny = _step_plans(pair)
     rng = np.random.default_rng(11)
     S = 3
-    x = torch.from_numpy(rng.normal(size=(S, 2 * B * M * K)))
-    y = torch.from_numpy(rng.normal(size=(S, 2 * B * K * N)))
+    x = torch.from_numpy(rng.normal(size=(S, 2 * nx)))
+    y = torch.from_numpy(rng.normal(size=(S, 2 * ny)))
     x_arg = x if batched in ("x", "both") else x[0]
     y_arg = y if batched in ("y", "both") else y[0]
 
     def run(xv, yv):
         temps = {0: xv, 1: yv}
         e = grouped._exec_steps_split(
-            [("pair", p)], [0], temps, {}, {0: 0, 1: 0}, strip
+            [plan], [0], temps, {}, {0: 0, 1: 0}, strip
         )
         assert set(temps) == {2}
         return temps[2], e
 
     out, e = run(x_arg, y_arg)
-    assert out.shape == (S, 2 * B * N * M)
-    if strip:
-        assert e.shape == (S,)
-    for s in range(S):
-        want, we = run(x_arg[s] if x_arg.dim() == 2 else x_arg,
-                       y_arg[s] if y_arg.dim() == 2 else y_arg)
-        assert_allclose(out[s].numpy(), want.numpy(), rtol=1e-12,
-                        atol=1e-12 * want.abs().max().item())
+    if batched == "neither":
+        assert out.dim() == 1
         if strip:
-            assert_allclose(e[s].item(), we.item(), rtol=1e-12)
+            assert e.shape == ()
+        rows = [(0, out, e)]
+    else:
+        assert out.shape[0] == S and out.dim() == 2
+        if strip:
+            assert e.shape == (S,)
+        rows = [(s, out[s], e[s] if strip else None) for s in range(S)]
+    for s, got, got_e in rows:
+        xs = x_arg[s] if x_arg.dim() == 2 else x_arg
+        ys = y_arg[s] if y_arg.dim() == 2 else y_arg
+        if batched != "neither":
+            want, we = run(xs, ys)
+            assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                            atol=1e-12 * want.abs().max().item())
+            if strip:
+                assert_allclose(got_e.item(), we.item(), rtol=1e-12)
+        ref, ref_e = _ref_step(ref_plan, (xs, ys), {}, 2, strip)
+        assert_allclose(got.numpy(), ref, rtol=F64_RTOL,
+                        atol=F64_RTOL * np.abs(ref).max())
+        if strip:
+            assert_allclose(got_e.item(), float(ref_e), rtol=F64_RTOL)
 
 
 def test_batched_single_step_equals_per_slice():
     """A single step (a trace and a transposition) on a batch of slices
-    equals the step of each slice."""
+    equals the step of each slice, and each slice's the reference's
+    step on its planes."""
     from cotengra_tpu_torch.ops.lowering import SingleStep
 
     step = SingleStep(inp=0, out=1, in_legs=("a", "b", "a", "c"),
@@ -320,7 +374,10 @@ def test_batched_single_step_equals_per_slice():
 
     out = run(x)
     for s in range(3):
-        assert_allclose(out[s].numpy(), run(x[s]).numpy(), rtol=1e-12)
+        want = run(x[s])
+        assert_allclose(out[s].numpy(), want.numpy(), rtol=1e-12)
+        ref, _ = _ref_step(("single", step), (x[s],), shapes, 1, False)
+        assert_allclose(want.numpy(), ref, rtol=F64_RTOL)
 
 
 # -- slice ids and selection ------------------------------------------------

@@ -30,13 +30,14 @@ from cotengra_tpu.utils.io import load_tree as ref_load_tree
 
 import cotengra_tpu_torch as ctt
 from cotengra_tpu_torch.ops import grouped, slices
-from cotengra_tpu_torch.ops.capture import STEP_CALLS, run_stages
+from cotengra_tpu_torch.ops.capture import run_stages
 from cotengra_tpu_torch.ops.executor import (
     make_staged_contractor,
     make_traced_slicer,
 )
 from cotengra_tpu_torch.ops.gate_chains import _kernel_args, _slices_of
 from cotengra_tpu_torch.ops.grouped import make_grouped_staged_contractor
+from cotengra_tpu_torch.tracing import STEP_CALLS
 
 from test_torch_slices import (
     _CASES,

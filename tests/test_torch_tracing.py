@@ -6,7 +6,7 @@ its bound and counts what it drops, and tiny contractions on each route
 give the span names and one ``executor.step`` per step run, and a
 compressed contraction its ``compressed.*`` spans, nested step,
 neighbour pass, truncation, and its ``COUNTS``.
-``capture.STEP_CALLS`` is the tracer's counter."""
+``tracing.STEP_CALLS`` counts the executors' step calls."""
 
 import collections
 
@@ -17,7 +17,6 @@ from torch.profiler import ProfilerActivity, profile
 
 import cotengra_tpu_torch as ctt
 from cotengra_tpu_torch import tracing
-from cotengra_tpu_torch.ops import capture
 
 torch.set_num_threads(1)
 
@@ -258,10 +257,9 @@ def test_ring_keeps_its_bound_and_counts_drops(capacity, spans, monkeypatch):
 
 
 def test_step_calls_is_the_tracers_counter():
-    assert capture.STEP_CALLS is tracing.STEP_CALLS
     before = tracing.STEP_CALLS["_exec_steps_split"]
     _slice_call()[0]()
-    assert capture.STEP_CALLS["_exec_steps_split"] > before
+    assert tracing.STEP_CALLS["_exec_steps_split"] > before
 
 
 def test_launch_attributes_a_site_leaves_out_read_none():
