@@ -112,8 +112,11 @@ Run from the root of a checkout. Phases:
    inputs cast to float32 (the exponent a float64 tensor in both), each
    held to ``COMPRESSED_LOG10`` (from
    ``scratch/make_compressed_ref.py``) at |delta log10| <= 1e-4 and
-   1e-3; per dtype of one pass the QR calls (two a truncation), the
-   library SVD calls (0), the truncation-core kernel's launches
+   1e-3; per dtype of one pass the library QR calls (0) and the
+   operands the QR kernel factors (``csrc/qr_core.cu``,
+   ``COUNTS["qr_kernel"]``: two a truncation, 144; one factor and one
+   apply launch a truncation), the library SVD calls (0), the
+   truncation-core kernel's launches
    (``csrc/svd_core.cu``, one a truncation: 72), none of them at its
    sweep cap unconverged (``svd_core.unconverged``), and the host syncs
    (0; ``torch.cuda.set_sync_debug_mode("warn")``), the warm
@@ -124,9 +127,17 @@ Run from the root of a checkout. Phases:
    version on the CPU in float64 (singular values, the rank-k truncation
    and its error above the optimum, within ``SVD_CORE_ATOL``), timed on one core of
    each size (1x1 to 1024x1024) and on a value's cores in turn beside
-   the library's SVD and the bound, and one QR of the largest
-   tall-skinny operand, timed; neither the chain nor the matmul kernel
-   is launched;
+   the library's SVD and the bound; the QR kernel on every truncation's
+   two sides, with the truncation's own ``U s V`` from its core, held to
+   the plain version on the card in float64 (R's Gram, Q's
+   orthonormality, ``A^T Q C = R^T C`` and the truncation's error above
+   the optimum, within ``QR_CORE_ATOL``), timed on one truncation of
+   each shape pair and on a value's truncations in turn beside the plain
+   version (``torch.linalg.qr`` and the products with Q), the library's
+   QR alone and the bound; and behind a 200 ms spin on the card the
+   host's time in the kernel's two launches for the largest truncation
+   (under 1 ms) against ``torch.linalg.qr`` of its (131072, 1024) side;
+   neither the chain nor the matmul kernel is launched;
 17. Sycamore-53 m=10 planned by the port: ``HyperOptimizer(methods=
    ["greedy", "labels"], max_repeats=16, seed=8, slicing_reconf_opts=
    {"target_size": 2**27, "temperature": 0}, parallel=False)`` on the
@@ -205,7 +216,8 @@ Run from the root of a checkout. Phases:
    times the same phase (complex128): the truncations depend on
    singular values only, so the value is ``COMPRESSED_LOG10`` times the
    phase; |delta log10| and the phase error <= 1e-4; each truncation
-   either the library's SVD (complex cores, > 0) or the kernel's;
+   either the library's QRs and SVD (a complex side, > 0) or the QR
+   kernel (both real sides) and the SVD kernel;
 29. the JAX package's example (``examples/ex_plan_slice_contract.py``)
    through the port at full width, on phase 4's m10 instance:
    ``optimize_random_greedy_track_flops(ntrials=128, seed=0)``,
@@ -537,16 +549,20 @@ def _kernel_counters():
     from cotengra_tpu_torch.ops.bmm_absmax import bmm_absmax_cuda
     from cotengra_tpu_torch.ops.gate_chains import run_chain_cuda
 
+    from cotengra_tpu_torch.ops.qr_core import qr_apply_cuda, qr_factor_cuda
     from cotengra_tpu_torch.ops.svd_core import svd_topk_cuda
 
     return {"gate_chain": run_chain_cuda, "bmm_absmax": bmm_absmax_cuda,
-            "svd_core": svd_topk_cuda}
+            "svd_core": svd_topk_cuda, "qr_core": qr_factor_cuda,
+            "qr_apply": qr_apply_cuda}
 
 
-def _launches(gate_chain=0, bmm_absmax=0, svd_core=0):
-    """What ``_read_launches`` reads where each kernel launched as given."""
+def _launches(gate_chain=0, bmm_absmax=0, svd_core=0, qr_core=0, qr_apply=0):
+    """What ``_read_launches`` reads where each kernel launched as given
+    (``qr_core``: the QR kernel's factor launches, ``qr_apply`` its apply
+    launches, one of each a truncation)."""
     return {"gate_chain": gate_chain, "bmm_absmax": bmm_absmax,
-            "svd_core": svd_core}
+            "svd_core": svd_core, "qr_core": qr_core, "qr_apply": qr_apply}
 
 
 def _reset_launches():
@@ -1671,17 +1687,24 @@ SYNC_DEBUG_NOTE = "Synchronization debug mode is a prototype feature"
 
 
 @contextlib.contextmanager
-def _count_linalg(cores=None):
+def _count_linalg(cores=None, operands=None):
     """Count ``torch.linalg.qr`` and ``torch.linalg.svd`` calls (looked up
     at call time by ``ops/compressed.py`` and ``ops/svd_core.py``) and the
     host syncs that ``set_sync_debug_mode("warn")`` reports, inside the
     block. Where ``cores`` is a list, every core that reaches ``svd_topk``
-    is cloned into it (a device copy: no sync)."""
+    is cloned into it (a device copy: no sync); where ``operands`` is a
+    list, every pair of bond sides that reaches the QR kernel."""
     from cotengra_tpu_torch.ops import compressed
 
     counts = {"qr": 0, "svd": 0, "syncs": 0}
     real = {k: getattr(torch.linalg, k) for k in ("qr", "svd")}
     topk = compressed.svd_topk
+    factor = compressed.qr_factor_cuda
+
+    def factoring(A, B=None):
+        if operands is not None:
+            operands.append((A.clone(), B.clone()))
+        return factor(A, B)
 
     def counted(k):
         def fn(*args, **kwargs):
@@ -1700,12 +1723,14 @@ def _count_linalg(cores=None):
         for k in real:
             setattr(torch.linalg, k, counted(k))
         compressed.svd_topk = keeping
+        compressed.qr_factor_cuda = factoring
         torch.cuda.set_sync_debug_mode("warn")
         try:
             yield counts
         finally:
             torch.cuda.set_sync_debug_mode("default")
             compressed.svd_topk = topk
+            compressed.qr_factor_cuda = factor
             for k, fn in real.items():
                 setattr(torch.linalg, k, fn)
     syncs = [w for w in caught if "synchroniz" in str(w.message)
@@ -1764,37 +1789,43 @@ def phase_compressed(dev, passes=3):
         flush=True,
     )
 
-    rows = {}
+    rows, qr_rows = {}, {}
     for dtype in (torch.float64, torch.float32):
         tensors = [torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
         capped = unconverged(dev)
-        truncations = compressed.COUNTS["truncations"]
-        cores = []
+        before = dict(compressed.COUNTS)
+        cores, operands = [], []
         t0 = time.perf_counter()
-        with _count_linalg(cores) as counts:
+        with _count_linalg(cores, operands) as counts:
             m, e = tree.contract_compressed(
                 tensors, chi=COMPRESSED_CHI, strip_exponent=True, device=dev
             )
         mant, expo = m.item(), e.item()
         first_s = time.perf_counter() - t0
         launches = _read_launches()
-        truncations = compressed.COUNTS["truncations"] - truncations
+        grown = {k: compressed.COUNTS[k] - before[k] for k in before}
+        truncations = grown["truncations"]
         log10 = float(np.log10(abs(mant)) + expo)
         d_log10 = abs(log10 - COMPRESSED_LOG10)
-        # real cores: every truncation one kernel launch, converged under
-        # its sweep cap, no library SVD, and nothing that makes the host
-        # wait for the card
-        if (launches != _launches(svd_core=truncations) or truncations <= 0
-                or len(cores) != truncations):
+        # real operands and cores: every truncation one launch of the SVD
+        # kernel, converged under its sweep cap, and one factor and one
+        # apply launch of the QR kernel for its two sides; no library QR
+        # or SVD, and nothing that makes the host wait for the card
+        if (launches != _launches(svd_core=truncations, qr_core=truncations,
+                                  qr_apply=truncations)
+                or truncations <= 0 or len(cores) != truncations
+                or len(operands) != truncations):
             raise AssertionError(
                 f"{COMPRESSED} {dtype}: launches {launches} for "
                 f"{truncations} truncations ({len(cores)} cores kept)"
             )
-        if counts["svd"] != 0 or counts["qr"] != 2 * truncations:
-            raise AssertionError(f"{COMPRESSED} {dtype}: {counts}")
+        if (counts["svd"] != 0 or counts["qr"] != 0
+                or grown["qr_kernel"] != 2 * truncations
+                or grown["qr_library"] != 0):
+            raise AssertionError(f"{COMPRESSED} {dtype}: {counts} {grown}")
         if counts["syncs"] != 0:
             raise AssertionError(
                 f"{COMPRESSED} {dtype}: {counts['syncs']} host syncs at "
@@ -1829,8 +1860,10 @@ def phase_compressed(dev, passes=3):
         print(
             f"# main path {COMPRESSED} {str(dtype).removeprefix('torch.')}: "
             f"value {mant!r} x 10^{expo!r} log10 {log10!r} (reference "
-            f"{COMPRESSED_LOG10!r}) |delta log10| {d_log10:.3e} qr "
-            f"{counts['qr']} library svd {counts['svd']} svd_core launches "
+            f"{COMPRESSED_LOG10!r}) |delta log10| {d_log10:.3e} library qr "
+            f"{counts['qr']} kernel qr operands {grown['qr_kernel']} "
+            f"(qr_core launches {launches['qr_core']} + {launches['qr_apply']}) "
+            f"library svd {counts['svd']} svd_core launches "
             f"{launches['svd_core']} host syncs {counts['syncs']} "
             f"first_call_s {first_s:.3f} time_to_value_s "
             f"{' '.join(f'{t:.4f}' for t in times)} (best {min(times):.4f}) "
@@ -1839,15 +1872,16 @@ def phase_compressed(dev, passes=3):
         )
         if dtype == torch.float64:
             _compressed_host_share(tree, tensors)
-        rows[dtype] = _time_compressed_linalg(
-            dtype, dev, int(stats.max_size), cores
-        )
+        rows[dtype] = _time_compressed_linalg(dtype, cores)
         rows[dtype]["launches"] = launches["svd_core"]
-        del tensors, m, e, cores
+        qr_rows[dtype] = _time_compressed_qr(dtype, operands)
+        qr_rows[dtype]["launches"] = launches["qr_core"] + launches["qr_apply"]
+        del tensors, m, e, cores, operands
         torch.cuda.empty_cache()
+    qr_rows["async"] = _qr_async(dev)
     print(f"# {COMPRESSED} phase_s {time.perf_counter() - t_phase:.1f}",
           flush=True)
-    return rows
+    return rows, qr_rows
 
 
 def _compressed_host_share(tree, tensors):
@@ -1923,15 +1957,14 @@ def _svd_core_errors(core, k, U, s, V):
     return err, err / top, gap / norm, (resid - opt) / norm
 
 
-def _time_compressed_linalg(dtype, dev, max_size, cores):
+def _time_compressed_linalg(dtype, cores):
     """The truncation-core kernel on every core of a pass (``cores``, in
     the pass's order), each held to the plain version (``svd_topk_plain``
     on the CPU, float64) within ``SVD_CORE_ATOL``, and the library on the
     card measured the same way; by CUDA events, the first core of
     each shape, and all of a value's cores one after another, beside the
     plain version (``svd_topk_plain``: the library's SVD and the top-k
-    slices, in the cores' dtype) and the bound; and one QR of the largest
-    operand as a tall-skinny (max_size / D, D) matrix. Returns the kernel's
+    slices, in the cores' dtype) and the bound. Returns the kernel's
     row for the ``kernels`` line: errors, ms a value, plain and library ms
     (the same call), the bound and the most sweeps a core took."""
     from cotengra_tpu_torch.ops.svd_core import svd_topk_cuda, svd_topk_plain
@@ -2004,19 +2037,221 @@ def _time_compressed_linalg(dtype, dev, max_size, cores):
         f"{library:.3e} of the largest",
         flush=True,
     )
-    D = COMPRESSED_BOND * COMPRESSED_CHI
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    tall = torch.randn(max_size // D, D, generator=gen, device=dev, dtype=dtype)
-    for _ in range(2):
-        torch.linalg.qr(tall)
-    qr_ms = _cuda_ms(lambda: torch.linalg.qr(tall), 5)
+    return row
+
+
+# the QR kernel against the plain version on the card, over ||A||^2
+# (R^T R against A^T A: the rows of R past the operand's numerical rank
+# are rounding, their signs and directions any), over ||C||^2 (Q's
+# orthonormality, (Q C)^T (Q C) against C^T C) and over ||A|| ||C|| (A^T
+# (Q C) against R^T C: Q C tied to A's own factorization, whatever Q's
+# directions past the rank): at most
+QR_CORE_ATOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+# a truncation's ||A B^T - newA newB^T||_F above the optimum (the norm of
+# the singular values of A B^T past chi), over ||A|| ||B||: the QRs' and
+# the SVD's rounding together (each held to 1e-13 / 1e-5 of its own
+# scale); a wrong Q gives O(1). At most
+QR_TRUNCATION_ATOL = {torch.float64: 1e-12, torch.float32: 1e-4}
+
+
+def _qr_bound(m, n, itemsize):
+    """(ms, "bytes" or "operations"): geqrf's 2 m k n - 2 k^3 / 3 flops
+    (k = min(m, n); the wide operands' R is k x n) at the 67 TFLOP/s FP64
+    tensor rate, or the operand's bytes at the HBM rate, the larger."""
+    k = min(m, n)
+    t_ops = (2 * m * n * k - 2 * k**3 / 3) / FP64_TENSOR_FLOPS
+    t_bytes = itemsize * m * n / HBM_BYTES_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def _qr_errors(A, R, X, C, s):
+    """The kernel's R and Q C = X of one operand against the plain version
+    in float64: ||R^T R - A^T A|| / ||A||^2, ||X^T X - (C sqrt(s))^T (C
+    sqrt(s))|| / ||C sqrt(s)||^2 and ||A^T X - R^T C sqrt(s)|| / (||A||
+    ||C sqrt(s)||). The last holds for A = Q R whatever Q's directions past
+    A's rank, and fails where Q is not applied, applied out of order or
+    from another operand's reflectors."""
+    Ad, Rd, Xd = A.double(), R.double(), X.double()
+    norm_a = max(float(torch.linalg.norm(Ad)), 1e-300)
+    gram = float(torch.linalg.norm(Rd.T @ Rd - Ad.T @ Ad)) / norm_a**2
+    Cs = C.double() * torch.sqrt(s.double())[None, :]
+    g = Cs.T @ Cs
+    orth = float(torch.linalg.norm(Xd.T @ Xd - g)) / max(
+        float(torch.linalg.norm(g)), 1e-300)
+    tie = float(torch.linalg.norm(Ad.T @ Xd - Rd.T @ Cs)) / (
+        norm_a * max(float(torch.linalg.norm(Cs)), 1e-300))
+    return gram, orth, tie
+
+
+def _truncation_excess(A, B, Xa, Xb):
+    """``||A B^T - Xa Xb^T||_F`` above the optimum over ``||A||_F
+    ||B||_F`` (the scale of the QRs' rounding), in float64 on the card,
+    ``A B^T`` never formed: the norm of ``[A, Xa] [B, -Xb]^T`` is that of
+    the product of the two R factors, and A B^T's singular values are
+    those of ``R_a R_b^T`` (the library's R)."""
+    Ad, Bd = A.double(), B.double()
+    k = Xa.shape[1]
+    Ra = torch.linalg.qr(Ad, mode="r")[1]
+    Rb = torch.linalg.qr(Bd, mode="r")[1]
+    full = torch.linalg.svdvals((Ra @ Rb.T).cpu())
+    norm = max(float(torch.linalg.norm(Ad)) * float(torch.linalg.norm(Bd)),
+               1e-300)
+    opt = float(torch.linalg.norm(full[k:]))
+    R1 = torch.linalg.qr(torch.cat([Ad, Xa.double()], 1), mode="r")[1]
+    R2 = torch.linalg.qr(torch.cat([Bd, -Xb.double()], 1), mode="r")[1]
+    resid = float(torch.linalg.norm(R1 @ R2.T))
+    return (resid - opt) / norm
+
+
+def _time_compressed_qr(dtype, operands):
+    """The QR kernel on every truncation of a pass (``operands``: the two
+    bond sides of each, in the pass's order) with the truncation's own
+    ``U s V`` (``svd_topk`` of the kernel's ``R_a R_b^T``), each side held
+    to the plain version on the card within ``QR_CORE_ATOL`` (R's Gram,
+    Q's orthonormality, ``A^T Q C = R^T C``) and the truncation within
+    ``QR_TRUNCATION_ATOL`` of the optimum, then by CUDA events a value's
+    truncations one after another: the kernel (factor both sides, apply
+    both Qs), the plain version (``torch.linalg.qr`` twice and the two
+    products with Q) and ``torch.linalg.qr`` alone (``library_ms``), the
+    first truncation of each shape pair too, beside the bound. Returns the
+    kernel's row for the ``kernels`` line."""
+    from cotengra_tpu_torch.ops.qr_core import qr_apply_cuda, qr_factor_cuda
+    from cotengra_tpu_torch.ops.svd_core import svd_topk
+
+    name = str(dtype).removeprefix("torch.")
+    chi = COMPRESSED_CHI
+    jobs = []
+    worst = [0.0, 0.0, 0.0, 0.0]
+    for A, B in operands:
+        k = min(chi, *A.shape, *B.shape)
+        Ra, Rb, factors = qr_factor_cuda(A, B)
+        U, s, V = svd_topk(Ra @ Rb.T, k)
+        Xa, Xb = qr_apply_cuda(factors, U, V, s)
+        errs = [max(a, b) for a, b in zip(_qr_errors(A, Ra, Xa, U, s),
+                                          _qr_errors(B, Rb, Xb, V, s))]
+        errs.append(_truncation_excess(A, B, Xa, Xb))
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+        if not (max(errs[:3]) <= QR_CORE_ATOL[dtype]
+                and errs[3] <= QR_TRUNCATION_ATOL[dtype]):
+            raise AssertionError(
+                f"{COMPRESSED} {name}: qr_core on {tuple(A.shape)} and "
+                f"{tuple(B.shape)}: R^T R {errs[0]:.3e} of ||A||^2, (Q C)^T "
+                f"(Q C) {errs[1]:.3e} of ||C||^2, A^T Q C - R^T C "
+                f"{errs[2]:.3e} of ||A|| ||C|| (> {QR_CORE_ATOL[dtype]}); "
+                f"truncation {errs[3]:.3e} of ||A|| ||B|| above the optimum "
+                f"(> {QR_TRUNCATION_ATOL[dtype]})"
+            )
+        jobs.append((A, B, U, V, s))
+        del factors
+
+    def kernel(A, B, U, V, s):
+        return qr_apply_cuda(qr_factor_cuda(A, B)[2], U, V, s)
+
+    def plain(A, B, U, V, s):
+        Qa, _ = torch.linalg.qr(A)
+        Qb, _ = torch.linalg.qr(B)
+        sq = torch.sqrt(s)[None, :]
+        return Qa @ (U * sq), Qb @ (V * sq)
+
+    def library(A, B, U, V, s):
+        return torch.linalg.qr(A), torch.linalg.qr(B)
+
+    firsts = {}
+    for job in jobs:
+        firsts.setdefault((tuple(job[0].shape), tuple(job[1].shape)), job)
+    for key in sorted(firsts, key=lambda k: -k[0][0] * k[0][1]):
+        job = firsts[key]
+        count = sum((tuple(j[0].shape), tuple(j[1].shape)) == key for j in jobs)
+        reps = max(2, min(20, int(3e9 / (key[0][0] * key[0][1] ** 2 + 1))))
+        for fn in (kernel, plain, library):
+            fn(*job)
+        print(
+            f"# {COMPRESSED} {name}: qr pair {key[0]} {key[1]} (x{count} a "
+            f"value): kernel_ms {_cuda_ms(lambda: kernel(*job), reps):.3f} "
+            f"plain_ms {_cuda_ms(lambda: plain(*job), reps):.3f} library_ms "
+            f"{_cuda_ms(lambda: library(*job), reps):.3f} bound_ms "
+            f"{sum(_qr_bound(*X.shape, X.element_size())[0] for X in job[:2]):.4f}",
+            flush=True,
+        )
+
+    def value(fn):
+        return lambda: [fn(*job) for job in jobs]
+
+    value(kernel)()
+    ms = _cuda_ms(value(kernel), 3)
+    plain_ms = _cuda_ms(value(plain), 3)
+    library_ms = _cuda_ms(value(library), 3)
+    bounds = [_qr_bound(*X.shape, X.element_size())
+              for job in jobs for X in job[:2]]
+    row = {
+        "max_gram_err": worst[0], "max_orth_err": worst[1],
+        "max_tie_err": worst[2], "max_truncation_excess": worst[3], "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": sum(b[0] for b in bounds), "bound_by": _dominant(bounds),
+        "operands": 2 * len(jobs),
+    }
     print(
-        f"# {COMPRESSED} {name}: one qr ({max_size // D}, {D}) {qr_ms:.3f} ms",
+        f"# {COMPRESSED} {name}: qr_core on a value's {2 * len(jobs)} "
+        f"operands: kernel_ms {ms:.3f} plain_ms {plain_ms:.3f} library_ms "
+        f"{library_ms:.3f} bound_ms {row['bound_ms']:.4f} R^T R "
+        f"{worst[0]:.3e} of ||A||^2 (Q C)^T (Q C) {worst[1]:.3e} of ||C||^2 "
+        f"A^T Q C - R^T C {worst[2]:.3e} of ||A|| ||C|| truncation "
+        f"{worst[3]:.3e} of ||A|| ||B|| above the optimum",
         flush=True,
     )
-    del tall
     return row
+
+
+def _qr_async(dev):
+    """Does the host wait: a 200 ms spin on the card, then the QR work of
+    the plan's largest truncation ((131072, 1024) against (1024, 1024)),
+    the kernel's two launches and then ``torch.linalg.qr`` of the large
+    side, each timed on the host from its call to its return, the spin
+    before each. The kernel's launches must return in under 1 ms (the
+    library's waited ~228 ms in the same place before the kernel).
+    Returns both host times in ms."""
+    from cotengra_tpu_torch.ops.qr_core import qr_apply_cuda, qr_factor_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    A = torch.randn((131072, 1024), generator=gen, device=dev,
+                    dtype=torch.float64)
+    B = torch.randn((1024, 1024), generator=gen, device=dev,
+                    dtype=torch.float64)
+    U = torch.randn((1024, COMPRESSED_CHI), generator=gen, device=dev,
+                    dtype=torch.float64)
+    s = torch.rand(COMPRESSED_CHI, generator=gen, device=dev,
+                   dtype=torch.float64) + 0.5
+    cycles = int(torch.cuda.get_device_properties(dev).clock_rate * 1e3 * 0.2)
+    host = {}
+    for _ in range(2):  # the second pass finds the allocator's blocks cached
+        for name in ("kernel", "library"):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cycles)
+            t0 = time.perf_counter()
+            if name == "kernel":
+                out = qr_apply_cuda(qr_factor_cuda(A, B)[2], U, U, s)
+            else:
+                out = torch.linalg.qr(A)
+            host[name] = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            del out
+    print(
+        f"# {COMPRESSED}: behind a 200 ms spin the QR kernel's two launches "
+        f"returned to the host after {host['kernel']:.3f} ms, "
+        f"torch.linalg.qr (131072, 1024) after {host['library']:.3f} ms",
+        flush=True,
+    )
+    if not host["kernel"] < 1.0:
+        raise AssertionError(
+            f"{COMPRESSED}: the QR kernel's launches held the host "
+            f"{host['kernel']:.3f} ms behind a busy card"
+        )
+    del A, B
+    torch.cuda.empty_cache()
+    return host
 
 
 def _seeded_methods(methods, rng):
@@ -2949,22 +3184,31 @@ def phase_mixed_compressed(dev):
     arrays[MIXED_INPUT] = arrays[MIXED_INPUT] * np.exp(1j * MIXED_PHASE)
     tensors = [torch.as_tensor(a, device=dev) for a in arrays]
     _reset_launches()
-    truncations = compressed.COUNTS["truncations"]
+    before = dict(compressed.COUNTS)
     with _count_linalg() as counts:
         m, e = tree.contract_compressed(
             tensors, chi=COMPRESSED_CHI, strip_exponent=True, device=dev
         )
     val = complex(m.item())
     launches = _read_launches()
-    truncations = compressed.COUNTS["truncations"] - truncations
+    grown = {k: compressed.COUNTS[k] - before[k] for k in before}
+    truncations = grown["truncations"]
     log10 = float(np.log10(abs(val)) + e.item())
     d_log10 = abs(log10 - COMPRESSED_LOG10)
     d_phase = _phase_error(val)
+    # a truncation with a complex side takes the library's QRs and SVD,
+    # one with two real sides the QR kernel (both sides) and the SVD kernel
+    real = truncations - counts["svd"]
     if (m.dtype != torch.complex128 or counts["svd"] <= 0
-            or launches != _launches(svd_core=truncations - counts["svd"])):
+            or launches != _launches(svd_core=real, qr_core=real,
+                                     qr_apply=real)
+            or counts["qr"] != 2 * counts["svd"]
+            or grown["qr_library"] != counts["qr"]
+            or grown["qr_kernel"] != 2 * real):
         raise AssertionError(
             f"mixed {COMPRESSED}: {m.dtype}, launches {launches}, library "
-            f"svd {counts['svd']} of {truncations} truncations"
+            f"svd {counts['svd']} and qr {counts['qr']} of {truncations} "
+            f"truncations, counts {grown}"
         )
     if not (np.isfinite(log10) and d_log10 <= COMPRESSED_ATOL[torch.float64]
             and d_phase <= COMPRESSED_ATOL[torch.float64]):
@@ -2975,7 +3219,8 @@ def phase_mixed_compressed(dev):
     print(
         f"# main path mixed {COMPRESSED}: input {MIXED_INPUT} x "
         f"exp(i pi/3) complex128, the rest float64: value {val!r} x "
-        f"10^{e.item()!r} |delta log10| {d_log10:.3e} library svd "
+        f"10^{e.item()!r} |delta log10| {d_log10:.3e} library qr "
+        f"{counts['qr']} kernel qr operands {grown['qr_kernel']} library svd "
         f"{counts['svd']} svd_core launches {launches['svd_core']} host "
         f"syncs {counts['syncs']} phase error "
         f"{d_phase:.3e} rad phase_s {time.perf_counter() - t_phase:.1f}",
@@ -4842,7 +5087,7 @@ def main():
     phase_front_lattice(dev)
     phase_front_t27(dev)
     auto_plan_s = phase_front_auto(dev)
-    svd_rows = phase_compressed(dev)
+    svd_rows, qr_rows = phase_compressed(dev)
     hyper_m10_launches, labels_m10_s = phase_hyper_m10(
         dev, HYPER_LABELS, "hyper m10"
     )
@@ -4995,6 +5240,30 @@ def main():
             "f32_max_err_over_s0": svd_rows[torch.float32]["max_err_over_s0"],
             "f32_ms": svd_rows[torch.float32]["ms"],
             "f32_plain_ms": svd_rows[torch.float32]["plain_ms"],
+        },
+        {
+            # per value of the compressed 16x16 lattice (float64): its
+            # truncations one after another, both sides of each factored
+            # in one launch and both Qs applied in another; R's Gram, Q's
+            # orthonormality, A^T Q C against R^T C and the truncation
+            # above the optimum, against the plain version on the card;
+            # the host's time behind a 200 ms spin, the kernel's two
+            # launches against torch.linalg.qr of the largest side
+            "name": "qr_core",
+            "route": "cuda",
+            "source": "cotengra_tpu_torch/csrc/qr_core.cu",
+            # no TPU kernel: the JAX package takes XLA's QR
+            "replaces": None,
+            **qr_rows[torch.float64],
+            "f32_max_gram_err": qr_rows[torch.float32]["max_gram_err"],
+            "f32_max_orth_err": qr_rows[torch.float32]["max_orth_err"],
+            "f32_max_tie_err": qr_rows[torch.float32]["max_tie_err"],
+            "f32_max_truncation_excess":
+                qr_rows[torch.float32]["max_truncation_excess"],
+            "f32_ms": qr_rows[torch.float32]["ms"],
+            "f32_plain_ms": qr_rows[torch.float32]["plain_ms"],
+            "host_ms_behind_spin": qr_rows["async"]["kernel"],
+            "library_host_ms_behind_spin": qr_rows["async"]["library"],
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -233,4 +233,17 @@ def load_library():
         ctypes.c_void_p,                    # cudaStream_t
     ]
     fn.restype = ctypes.c_int
+    fn = lib.ctg_qr_core_blocks
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    fn = lib.ctg_qr_core
+    fn.argtypes = [
+        ctypes.c_int,                       # phase: 0 factor, 1 apply
+        ctypes.c_int,                       # dtype: 0 float32, 1 float64
+        ctypes.POINTER(ctypes.c_int64),     # per side (m, n, k, blocks)
+        ctypes.POINTER(ctypes.c_void_p),    # per side 11 device pointers
+        ctypes.c_int64,                     # chi (apply)
+        ctypes.c_void_p,                    # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
     return lib

@@ -11,11 +11,15 @@ multibond to a neighbouring tensor whose combined dimension exceeds
     T_a <- Q_a U sqrt(s) ; T_b <- Q_b V sqrt(s)
 
 The transposes are bilinear (``R_b.T``, ``Vh.T``), not adjoints, as in
-the reference, so complex inputs give its result. The QRs are
-``torch.linalg.qr`` (cuSOLVER on the card); the core's SVD is
-``svd_core.svd_topk``: on the card a hand-written kernel for real cores,
-which decides its convergence on the card, so the SVD never makes the
-host wait; ``torch.linalg.svd`` on the CPU and for complex cores. The
+the reference, so complex inputs give its result. On the card, for real
+operands, the two QRs and the products with their Q are two launches of
+a hand-written kernel (``qr_core``: both sides factored by Householder
+reflections in one, each Q applied to ``U sqrt(s)`` or ``V sqrt(s)``
+without being formed in the other), and the core's SVD is
+``svd_core.svd_topk``'s kernel; both decide everything on the card, so a
+truncation never makes the host wait. On the CPU and for complex
+operands the QRs are ``torch.linalg.qr`` and the products ``@``, and the
+SVD ``torch.linalg.svd`` (``svd_topk``'s plain version). The
 pairwise contractions are ``ops/pairwise.py``. Shapes change with every
 truncation, so the loop runs eagerly on the host, one device call after
 another (the reference jits one program per shape). The stripped
@@ -27,9 +31,11 @@ each step of the loop a ``compressed.step`` (its leg bookkeeping, the
 pairwise contraction, the stripping), each ``compress_with_neighbors``
 inside it a ``compressed.neighbours`` (the neighbour and index-holder
 bookkeeping), and each truncated bond inside that a
-``compressed.truncate`` (its QR, SVD and products). ``COUNTS`` counts
-the truncations, traced or not: each makes two QR calls and one SVD,
-and a call makes ``tree.N - 1`` steps.
+``compressed.truncate`` (its QR, SVD and products; the kernels'
+``kernel.launch`` spans inside it). ``COUNTS`` counts, traced or not, the
+truncations (each one SVD) and the operands they factor, two a
+truncation: by the kernel (``qr_kernel``) or by ``torch.linalg.qr``
+(``qr_library``); a call makes ``tree.N - 1`` steps.
 """
 
 import torch
@@ -37,10 +43,12 @@ import torch
 from .. import tracing
 from .._device import resolve_device
 from .pairwise import apply_pairwise, apply_single, promote_pair
+from .qr_core import qr_apply_cuda, qr_factor_cuda
 from .svd_core import svd_topk
 
-# bonds truncated, cumulative over every call of the process
-COUNTS = {"truncations": 0}
+# bonds truncated and the operands factored, by route; cumulative over
+# every call of the process
+COUNTS = {"truncations": 0, "qr_kernel": 0, "qr_library": 0}
 
 
 def _mm(a, b):
@@ -50,7 +58,21 @@ def _mm(a, b):
 
 
 def _compress_pair_core(A, B, chi):
-    """A: (la, D), B: (lb, D) sharing bond D>chi -> (la, chi), (lb, chi)."""
+    """A: (la, D), B: (lb, D) sharing bond D>chi -> (la, chi), (lb, chi).
+    Real operands on the card take the QR kernel, the others the library.
+    The choice is made here, not in ``qr_core`` as ``svd_topk`` makes its
+    own: the kernel's two launches stand on either side of the SVD, so it
+    picks the route of the whole truncation, and the library's route is
+    the truncation's plain version, written out below (the benchmark's
+    fault tests rebuild this function from its source)."""
+    if A.device.type == "cuda" and not (A.is_complex() or B.is_complex()):
+        dtype = torch.promote_types(A.dtype, B.dtype)
+        Ra, Rb, factors = qr_factor_cuda(
+            A.to(dtype).contiguous(), B.to(dtype).contiguous())
+        COUNTS["qr_kernel"] += 2
+        U, s, V = svd_topk(_mm(Ra, Rb.T), chi)
+        return qr_apply_cuda(factors, U, V, s)
+    COUNTS["qr_library"] += 2
     Qa, Ra = torch.linalg.qr(A)        # (la, k) (k, D)
     Qb, Rb = torch.linalg.qr(B)        # (lb, k') (k', D)
     M = _mm(Ra, Rb.T)                  # (k, k')

@@ -22,9 +22,13 @@ per name (``ATTRS``). The spans, each opened where its work happens:
   step in them, with the plan's kind of the step;
 - ``kernel.launch``: the host work of a hand-written kernel's wrapper up
   to and including the launch (``gate_chains.run_chain_cuda``, one a
-  pass; ``bmm_absmax.bmm_absmax_cuda``), with the kernel's sequence
+  pass; ``bmm_absmax.bmm_absmax_cuda``; ``svd_core.svd_topk_cuda``;
+  ``qr_core.qr_factor_cuda`` and ``qr_apply_cuda``, kernel ``qr_core``,
+  two a truncation), with the kernel's sequence
   number (its wrapper's ``launches`` before the launch), the operand
-  shapes (``(x, out, gates)`` of the pass, ``(x, y)`` of the product),
+  shapes (``(x, out, gates)`` of the pass, ``(x, y)`` of the product,
+  ``(m, n, k)`` of the SVD's core, the phase and each side's ``(m, n,
+  k)`` of the QR),
   the host time just before the launch call (``launched``: the kernel
   starts on the device after it) and, for a chain pass, its gates in
   register groups and on the per-item path and its groups
@@ -34,7 +38,8 @@ per name (``ATTRS``). The spans, each opened where its work happens:
   one step of its loop (the step's index, the element count of its
   pairwise result), one neighbour and index-holder pass over the live
   tensors (how many were live) and one bond's truncation, its QR, SVD
-  and products (the rows of each side, the fused bond, the kept k).
+  and products (the rows of each side, the fused bond, the kept k; the
+  kernels' launches are its children).
 
 Spans are recorded only inside ``record()`` (tests, operators) or in an
 entry call that starts while a torch profiler session records

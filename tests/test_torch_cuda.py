@@ -31,6 +31,9 @@ from cotengra_tpu_torch.ops.svd_core import (
     unconverged,
 )
 
+from cotengra_tpu_torch.ops.qr_core import qr_apply_cuda, qr_factor_cuda
+from test_torch_qr_core import VALUE_SHAPES
+
 torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
@@ -682,6 +685,143 @@ def test_contract_compressed_makes_no_host_sync(cuda):
     want = tree.contract_compressed(arrays, chi=16, device="cpu").item()
     assert abs(got.item() - want) <= 1e-9 * abs(want)
     assert abs(np.log10(abs(m.item())) + e.item() - np.log10(abs(want))) <= 1e-9
+
+
+# every QR operand shape of a value of the 16x16 bond-4 lattice at chi=32
+QR_VALUE_SHAPES = sorted(VALUE_SHAPES)
+# against LAPACK on the CPU in float64, over ||A|| (R) and ||Q C|| (Q C)
+QR_TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
+
+
+def _qr_against_lapack(A, R, X, C, s):
+    """R and ``X = Q [C sqrt(s); 0]`` from the kernel against LAPACK's QR
+    of ``A`` on the CPU in float64, row by row up to the sign of R's
+    diagonal (``A`` Gaussian: full rank). LAPACK takes every core of the
+    host for it."""
+    import os
+
+    Ad = A.double().cpu()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    try:
+        Q_l, R_l = torch.linalg.qr(Ad)
+    finally:
+        torch.set_num_threads(threads)
+    Rd, Xd = R.double().cpu(), X.double().cpu()
+    d = torch.diagonal(Rd) * torch.diagonal(R_l)
+    d = torch.where(d < 0, -1.0, 1.0).double()
+    r_err = float(torch.linalg.norm(d[:, None] * Rd - R_l)) / float(
+        torch.linalg.norm(Ad))
+    want = Q_l @ (d[:, None] * C.double().cpu() * torch.sqrt(
+        s.double().cpu())[None, :])
+    x_err = float(torch.linalg.norm(Xd - want)) / float(torch.linalg.norm(want))
+    return r_err, x_err
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", QR_VALUE_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_qr_core_kernel_on_the_plans_shapes(cuda, shape, dtype):
+    """The QR kernel on each operand shape of a value, both dtypes, beside
+    a (chi, n) partner on the same bond, one factor and one apply launch,
+    R and Q C of both sides held to LAPACK on the CPU (the card's library
+    is the less accurate side, as for the SVD)."""
+    gen = torch.Generator().manual_seed(sum(shape))
+    k = min(shape)
+    chi = min(k, 32)
+    partner = (chi, shape[1])
+    A = torch.randn(shape, generator=gen, dtype=torch.float64).to(dtype)
+    B = torch.randn(partner, generator=gen, dtype=torch.float64).to(dtype)
+    C = torch.randn((k, chi), generator=gen, dtype=torch.float64).to(dtype)
+    D = torch.randn((min(partner), chi), generator=gen,
+                    dtype=torch.float64).to(dtype)
+    s = (torch.rand(chi, generator=gen, dtype=torch.float64) + 0.5).to(dtype)
+    A, B, C, D, s = (x.to(cuda) for x in (A, B, C, D, s))
+    launches = (qr_factor_cuda.launches, qr_apply_cuda.launches)
+    R, Rb, factors = qr_factor_cuda(A, B)
+    X, Xb = qr_apply_cuda(factors, C, D, s)
+    torch.cuda.synchronize()
+    assert R.shape == (k, shape[1]) and X.shape == (shape[0], chi)
+    assert Rb.shape == (min(partner), shape[1]) and Xb.shape == (chi, chi)
+    assert (qr_factor_cuda.launches, qr_apply_cuda.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert R.dtype == dtype and X.dtype == dtype
+    assert torch.equal(R, torch.triu(R))
+    for M, R_, X_, C_ in ((A, R, X, C), (B, Rb, Xb, D)):
+        r_err, x_err = _qr_against_lapack(M, R_, X_, C_, s)
+        assert r_err <= QR_TOL[dtype] and x_err <= QR_TOL[dtype], (
+            M.shape, r_err, x_err)
+
+
+def test_qr_core_factors_both_sides_in_one_launch(cuda):
+    """A truncation's two sides in one factor and one apply launch, each
+    side as LAPACK gives it; a tall side beside a square one, and two wide
+    ones."""
+    gen = torch.Generator().manual_seed(7)
+    for sa, sb in (((65536, 256), (256, 256)), ((32, 512), (32, 512)),
+                   ((2048, 64), (64, 64))):
+        A = torch.randn(sa, generator=gen, dtype=torch.float64)
+        B = torch.randn(sb, generator=gen, dtype=torch.float64)
+        chi = min(32, *sa, *sb)
+        U = torch.randn((min(sa), chi), generator=gen, dtype=torch.float64)
+        V = torch.randn((min(sb), chi), generator=gen, dtype=torch.float64)
+        s = torch.rand(chi, generator=gen, dtype=torch.float64) + 0.5
+        A, B, U, V, s = (x.to(cuda) for x in (A, B, U, V, s))
+        launches = (qr_factor_cuda.launches, qr_apply_cuda.launches)
+        Ra, Rb, factors = qr_factor_cuda(A, B)
+        Xa, Xb = qr_apply_cuda(factors, U, V, s)
+        torch.cuda.synchronize()
+        assert (qr_factor_cuda.launches, qr_apply_cuda.launches) == (
+            launches[0] + 1, launches[1] + 1)
+        for M, R, X, C in ((A, Ra, Xa, U), (B, Rb, Xb, V)):
+            errs = _qr_against_lapack(M, R, X, C, s)
+            assert max(errs) <= QR_TOL[torch.float64], (M.shape, errs)
+
+
+def test_contract_compressed_takes_the_qr_kernel(cuda):
+    """The 6x6 bond-4 lattice's compressed contraction on the card: both
+    sides of every truncation through the QR kernel (two operands a
+    truncation, one factor and one apply launch), no library QR, no
+    synchronising call (``set_sync_debug_mode("error")``), and the value
+    of the CPU run, whose truncations take the library."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.ops import compressed
+
+    inputs, output, shapes, size_dict = ctt.lattice_equation([6, 6], d_min=4)
+    rng = np.random.default_rng(0)
+    arrays = [np.ones(s) + 0.05 * rng.normal(size=s) for s in shapes]
+    tree = ctt.array_contract_tree(
+        inputs, output, size_dict=size_dict, optimize="greedy-compressed"
+    )
+    tensors = [torch.as_tensor(a, device=cuda) for a in arrays]
+    tree.contract_compressed(tensors, chi=16)  # builds the kernels
+    torch.cuda.synchronize()
+    before = dict(compressed.COUNTS)
+    launches = (qr_factor_cuda.launches, qr_apply_cuda.launches)
+    library = []
+    real_qr = torch.linalg.qr
+
+    def counted(*args, **kwargs):
+        library.append(1)
+        return real_qr(*args, **kwargs)
+
+    torch.linalg.qr = counted
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tree.contract_compressed(tensors, chi=16)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.linalg.qr = real_qr
+    grown = {k: compressed.COUNTS[k] - before[k] for k in before}
+    cuts = grown["truncations"]
+    assert cuts > 0 and not library
+    assert grown == {"truncations": cuts, "qr_kernel": 2 * cuts,
+                     "qr_library": 0}
+    assert (qr_factor_cuda.launches, qr_apply_cuda.launches) == (
+        launches[0] + cuts, launches[1] + cuts)
+    want = tree.contract_compressed(arrays, chi=16, device="cpu").item()
+    assert abs(got.item() - want) <= 1e-9 * abs(want)
 
 
 def test_port_planned_circuit_through_the_chain_kernel(cuda):

@@ -306,7 +306,7 @@ def test_spans_of_a_compressed_call(how):
     """One ``entry`` of kind ``compressed``; a ``compressed.step`` a
     contraction, each neighbour pass inside its step and each
     truncation inside a neighbour pass; ``COUNTS`` grows by the
-    truncations recorded."""
+    truncations recorded and their library QR operands."""
     from cotengra_tpu_torch.ops import compressed
 
     call, tree = _compressed_call()
@@ -341,7 +341,9 @@ def test_spans_of_a_compressed_call(how):
         and r.attrs["k"] <= 4 < r.attrs["bond"] for r in cuts
     )
     grown = {k: compressed.COUNTS[k] - before[k] for k in before}
-    assert grown == {"truncations": len(cuts)}
+    # on the CPU both sides of every truncation take the library's QR
+    assert grown == {"truncations": len(cuts), "qr_kernel": 0,
+                     "qr_library": 2 * len(cuts)}
 
 
 def test_a_compressed_call_off_records_nothing_and_counts():
