@@ -22,11 +22,27 @@ leaves its CUDA random generator in capture mode after a capture that
 failed: draw no random numbers on the card after a ``CaptureError``.)
 
 On the CPU (and on ``meta`` tensors) the same stages run eagerly.
+
+A replay runs no Python wrapper of a kernel, so what it runs is known
+from its capture: each graph keeps the kernels its capture recorded
+(``Graphs.kernels``, ``tracing.kernel_log``), and the spans
+``capture.capture``, ``capture.load`` and ``capture.replay``
+(``tracing``) carry it. ``COUNTS`` adds up the captures made and their
+seconds, traced or not, and the replays made while spans are off with
+their host seconds (a traced replay is timed by its span, and a
+profiler's launch callbacks slow it many times over).
 """
 
 import time
 
 import torch
+
+from .. import tracing
+
+# cumulative: Graphs made and the seconds of their warm-up and
+# capture; calls of Graphs.replay while spans are off, and their seconds
+COUNTS = {"captures": 0, "capture_s": 0.0, "replay_calls": 0,
+          "replay_s": 0.0}
 
 
 class CaptureError(RuntimeError):
@@ -106,10 +122,14 @@ class Graphs:
     captured on that stream in order, each reading the tensors the
     previous capture left. ``outputs`` are the last stage's results,
     rewritten by every replay; ``replays`` counts graph replays and
-    ``capture_s`` is the seconds of warm-up and capture.
+    ``capture_s`` is the seconds of warm-up and capture. ``kernels``
+    holds, per graph, the hand-written kernel launches its capture
+    recorded (``tracing.kernel_log``), which each replay runs once.
     """
 
     def __init__(self, stages, state, device):
+        if tracing.ON:
+            tracing.begin()
         t0 = time.perf_counter()
         main = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -119,24 +139,40 @@ class Graphs:
         main.wait_stream(side)
         del warm
         self.pool = torch.cuda.graph_pool_handle()
-        graphs = []
+        graphs, kernels = [], []
         with torch.cuda.device(device):
             for k, stage in enumerate(stages):
                 graph = torch.cuda.CUDAGraph()
-                state = _capture_one(graph, self.pool, side, stage, state,
-                                     k)
+                with tracing.kernel_log() as log:
+                    state = _capture_one(graph, self.pool, side, stage,
+                                         state, k)
                 graphs.append(graph)
+                kernels.append(log)
         torch.cuda.synchronize(device)
         self.graphs = tuple(graphs)
+        self.kernels = tuple(kernels)
         self.outputs = state
         self.replays = 0
         self.capture_s = time.perf_counter() - t0
+        COUNTS["captures"] += 1
+        COUNTS["capture_s"] += self.capture_s
+        if tracing.ON:
+            tracing.end("capture.capture", len(graphs), self.capture_s)
 
     def replay(self):
         """Replay every graph in order; returns ``outputs``."""
+        traced = tracing.ON
+        if traced:
+            tracing.begin()
+        t0 = time.perf_counter()
         for graph in self.graphs:
             graph.replay()
         self.replays += len(self.graphs)
+        if traced:
+            tracing.end("capture.replay", len(self.graphs), self.kernels)
+        else:
+            COUNTS["replay_calls"] += 1
+            COUNTS["replay_s"] += time.perf_counter() - t0
         return self.outputs
 
 
@@ -146,6 +182,8 @@ def load(static, tensors):
     buffers themselves)."""
     if len(static) != len(tensors):
         raise ValueError(f"expected {len(static)} tensors, got {len(tensors)}")
+    if tracing.ON:
+        tracing.begin()
     pairs = [(s, t) for s, t in zip(static, tensors) if s is not t]
     for s, t in pairs:
         if s.shape != t.shape or s.dtype != t.dtype or s.device != t.device:
@@ -155,6 +193,9 @@ def load(static, tensors):
             )
     if pairs:
         torch._foreach_copy_([s for s, _ in pairs], [t for _, t in pairs])
+    if tracing.ON:
+        tracing.end("capture.load", len(pairs),
+                    sum(t.nbytes for _, t in pairs))
 
 
 def clone_outputs(outs):

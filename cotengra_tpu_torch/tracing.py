@@ -39,11 +39,20 @@ per name (``ATTRS``). The spans, each opened where its work happens:
   pairwise result), one neighbour and index-holder pass over the live
   tensors (how many were live) and one bond's truncation, its QR, SVD
   and products (the rows of each side, the fused bond, the kept k; the
-  kernels' launches are its children).
+  kernels' launches are its children);
+- ``capture.capture``, ``capture.load`` and ``capture.replay``: in
+  ``ops.capture``, the first call's warm-up and capture of a program's
+  stages (how many, and the seconds they took), a call's copy of its
+  tensors into the static buffers (how many copied, their bytes) and
+  the replay of every graph (how many graphs, and per graph the
+  kernel launches its capture recorded: ``kernel_log``). A replay
+  calls no kernel wrapper and opens no ``kernel.launch``: its
+  ``kernels`` say what it ran.
 
 Spans are recorded only inside ``record()`` (tests, operators) or in an
 entry call that starts while a torch profiler session records
-(``torch.autograd.profiler._is_profiler_enabled``). Off, a span site
+(``torch.autograd.profiler._is_profiler_enabled``); ``kernel_log``
+turns them on for a capture and keeps only its log. Off, a span site
 costs one check of ``ON``. Recording makes no device work and no host
 sync.
 
@@ -75,6 +84,9 @@ ATTRS = {
     "compressed.step": ("index", "size"),
     "compressed.neighbours": ("live",),
     "compressed.truncate": ("rows_a", "rows_b", "bond", "k"),
+    "capture.capture": ("stages", "seconds"),
+    "capture.load": ("tensors", "bytes"),
+    "capture.replay": ("graphs", "kernels"),
 }
 
 # Python step calls of the executors, by function
@@ -179,6 +191,35 @@ def record():
     finally:
         ON = was_on
         _open.clear()
+
+
+@contextlib.contextmanager
+def kernel_log():
+    """Log the hand-written kernels launched inside the block, whether
+    spans are recorded or not (a capture keeps what its graph will run,
+    ``capture.Graphs``). Yields a list, filled when the block ends with
+    ``(kernel, parent, shapes)`` for each ``kernel.launch`` record, in
+    launch order: the launching wrapper's attributes and the index of
+    the span it was opened in. The spans recorded only for the log are
+    not kept."""
+    global ON
+    was_on, first = ON, _next
+    log = []
+    ON = True
+    try:
+        yield log
+    finally:
+        ON = was_on
+        made = []
+        while _ring and _ring[-1][0] >= first:
+            made.append(_ring.pop())
+        if was_on:
+            _ring.extend(reversed(made))
+        log.extend(
+            (attrs[0], parent, attrs[2])
+            for _, name, _, _, parent, _, attrs in sorted(made)
+            if name == "kernel.launch"
+        )
 
 
 def records():

@@ -8,6 +8,9 @@ machine with
 machine need not have).
 """
 
+import collections
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -1274,6 +1277,108 @@ def test_a_capture_that_fails_raises(cuda, monkeypatch):
     full = ctt.make_full_contractor(small, cuda, autojit=True)
     with pytest.raises(CaptureError, match="IR step"):
         full(*tensors)
+
+
+_M10 = {}
+
+
+def _m10_amplitudes(n_sets=4, seed=2**31 + 25):
+    """The benchmark's ``sycamore-like-6x9-m10``: one seeded circuit,
+    ``n_sets`` bitstrings (host complex64 arrays), and a fresh tree of
+    its committed m=10 t27 plan (a contractor of its own)."""
+    import io
+    import json
+    from pathlib import Path
+
+    import cotengra_tpu_torch as ctt
+    from tnbench.networks import sycamore_bitstrings
+
+    root = Path(__file__).resolve().parent.parent
+    if not _M10:
+        conf = json.loads(
+            (root / "tnbench" / "configs" / "sycamore-like-6x9-m10.json").read_text()
+        )
+        _M10["conf"] = conf
+        _M10["net"] = sycamore_bitstrings.make_sets(conf["network"], seed, n_sets)
+    inputs, output, size_dict, sets = _M10["net"]
+    tree = ctt.load_tree(io.StringIO(json.dumps(_M10["conf"]["plan"])),
+                         inputs, output, size_dict)
+    return tree, sets
+
+
+def test_m10_replays_follow_the_bitstring(cuda):
+    """``contract_tree(..., autojit=True)`` on the m=10 amplitudes: the
+    first call captures one graph, every call replays it once, and a
+    replay with a new bitstring returns that bitstring's amplitude, equal
+    to an eager call within float32 rounding of the slices' sum (the
+    same kernels on the same inputs: 1e-5 of the amplitude leaves room
+    for the order of the plane split's copies), and not the captured
+    call's (bitstrings' amplitudes differ by far more)."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch.ops.capture import COUNTS
+
+    tree, sets = _m10_amplitudes()
+    captures = COUNTS["captures"]
+    got = [complex(ctt.contract_tree(tree, a, autojit=True)) for a in sets]
+    got.append(complex(ctt.contract_tree(tree, sets[0], autojit=True)))
+    (fn,) = [f for k, f in tree.contraction_cores.items() if k[-1] is True]
+    ((graphs, _),) = fn.graphs.values()
+    assert len(graphs.graphs) == 1 and graphs.replays == len(sets) + 1
+    assert COUNTS["captures"] == captures + 1
+    want = [complex(ctt.contract_tree(tree, a)) for a in sets]
+    for g, w in zip(got, want + want[:1]):
+        assert abs(g - w) <= 1e-5 * abs(w), (g, w)
+    for i in range(len(want)):
+        for j in range(i + 1, len(want)):
+            assert abs(want[i] - want[j]) > 1e-2 * max(abs(want[i]), abs(want[j]))
+
+
+def test_m10_capture_spans_and_kernel_record(cuda):
+    """Under ``tracing.record()``: ``capture.capture`` once for the one
+    graph (at the first call), ``capture.load`` and ``capture.replay``
+    once a call, no ``kernel.launch`` in a replayed call; the graph's
+    kernel record holds the chain launches of an eager call of the same
+    plan, in order, with the same shapes and grouped alike by the span
+    they were launched in (a ``run_chain_cuda`` call's passes share
+    one), and each ``capture.replay`` carries it."""
+    import cotengra_tpu_torch as ctt
+    from cotengra_tpu_torch import tracing
+
+    tree, sets = _m10_amplitudes()
+    ctt.contract_tree(tree, sets[0])  # eager: the kernels' build and tables
+    with tracing.record():
+        ctt.contract_tree(tree, sets[1])
+    launches = [r for r in tracing.records() if r.name == "kernel.launch"]
+    assert {r.attrs["kernel"] for r in launches} == {"gate_chain"}
+    with tracing.record():
+        for a in sets:
+            ctt.contract_tree(tree, a, autojit=True)
+    recs = tracing.records()
+    names = collections.Counter(r.name for r in recs)
+    assert names["capture.capture"] == 1
+    assert names["capture.load"] == names["capture.replay"] == len(sets)
+    assert names["entry"] == len(sets)
+    entries = [r.index for r in recs if r.name == "entry"]
+    captured_in = next(r.entry for r in recs if r.name == "capture.capture")
+    assert captured_in == entries[0]
+    assert not any(r.name == "kernel.launch" and r.entry != entries[0] for r in recs)
+    (fn,) = [f for k, f in tree.contraction_cores.items() if k[-1] is True]
+    ((graphs, _),) = fn.graphs.values()
+    (record,) = graphs.kernels
+    assert [(k, shapes) for k, _, shapes in record] == [
+        (r.attrs["kernel"], r.attrs["shapes"]) for r in launches
+    ]
+
+    def groups(parents):
+        return [len(list(g)) for _, g in itertools.groupby(parents)]
+
+    assert groups(p for _, p, _ in record) == groups(r.parent for r in launches)
+    for r in recs:
+        if r.name == "capture.replay":
+            assert r.attrs["graphs"] == 1 and r.attrs["kernels"] == (record,)
+        if r.name == "capture.load":
+            assert r.attrs["tensors"] == len(sets[0])
+            assert r.attrs["bytes"] == sum(a.nbytes for a in sets[0])
 
 
 @pytest.mark.parametrize("mode", ["scan", "vmap"])

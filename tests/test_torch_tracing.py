@@ -282,6 +282,65 @@ def test_launch_attributes_a_site_leaves_out_read_none():
         5, 1, 3]
 
 
+def _launches(passes, kernel="gate_chain", step=0):
+    """``passes`` as ``kernel.launch`` spans of one wrapper call inside
+    an ``executor.step`` span."""
+    tracing.begin()
+    for shapes in passes:
+        tracing.begin()
+        tracing.end("kernel.launch", kernel, 0, shapes, tracing.now())
+    tracing.end("executor.step", step, "inplace")
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_kernel_log_records_launches_on_or_off(on):
+    """``kernel_log`` (what a capture keeps) logs each ``kernel.launch``
+    as (kernel, the span it was opened in, shapes), in launch order;
+    where spans were off it keeps none of them, and ``ON`` is as it
+    was."""
+    chain = [((8,), (16,), [(2, 2, 4)]), ((16,), (16,), [(2, 4, 4), (2, 2, 2)])]
+    other = [((16,), (4,), [(2, 4, 1)])]
+    bmm = [((1, 2, 3), (1, 3, 4))]
+    with tracing.record():
+        tracing.ON = on
+        before = tracing.records()
+        with tracing.kernel_log() as log:
+            assert tracing.ON
+            _launches(chain, step=0)
+            _launches(bmm, "bmm_absmax", step=1)
+            _launches(other, step=2)
+        assert tracing.ON is on
+        made = tracing.records()[len(before):]
+    steps = [p for _, p, _ in log]
+    assert steps[0] == steps[1] < steps[2] < steps[3]
+    assert [(k, shapes) for k, _, shapes in log] == [
+        ("gate_chain", chain[0]), ("gate_chain", chain[1]),
+        ("bmm_absmax", bmm[0]), ("gate_chain", other[0]),
+    ]
+    assert len(made) == (7 if on else 0)
+    if on:
+        launches = [r for r in made if r.name == "kernel.launch"]
+        assert [r.parent for r in launches] == steps
+
+
+def test_capture_load_span_counts_the_copies():
+    """``capture.load`` is one span a call: the tensors it copied into
+    the static buffers and their bytes (none where the caller passed the
+    buffers themselves)."""
+    from cotengra_tpu_torch.ops.capture import load
+
+    static = [torch.zeros(3, 2), torch.zeros(5, dtype=torch.complex64)]
+    tensors = [torch.ones(3, 2), torch.ones(5, dtype=torch.complex64)]
+    with tracing.record():
+        load(static, tensors)
+        load(static, static)
+    first, second = tracing.records()
+    assert first.name == second.name == "capture.load"
+    assert first.attrs == {"tensors": 2, "bytes": 24 + 40}
+    assert second.attrs == {"tensors": 0, "bytes": 0}
+    assert all(torch.equal(s, t) for s, t in zip(static, tensors))
+
+
 def _compressed_call():
     """A 5x5 bond-3 lattice at chi=4 (truncating), stripped, float64."""
     from cotengra_tpu_torch.pathfinders.compressed import (
